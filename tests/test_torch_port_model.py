@@ -1,0 +1,165 @@
+"""The PyTorch port's model and rollout against the JAX package.
+
+Weights come from the JAX ``init_model`` and are carried into the port
+through ``state_dict_from_jax``; inputs are made with numpy from a seed.
+The tiny config runs the ViT attention through the fused kernel: the JAX
+side runs its Pallas kernel in interpret mode, the port its plain version
+(CPU tensors). Everything is float32.
+"""
+
+import io
+import json
+import zipfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.helpers import TINY_CONFIG
+from videocad_tpu.infer.export import _flatten_params
+from videocad_tpu.infer.rollout import sequential_inference as jax_rollout
+from videocad_tpu.models import create_model as jax_create_model
+from videocad_tpu.models import init_model
+from videocad_tpu.models.videocadformer import VideoCADFormer as JaxModel
+from videocad_tpu_torch.infer.rollout import sequential_inference
+from videocad_tpu_torch.models import (create_model, init_params,
+                                       load_jax_params, state_dict_from_jax)
+
+FUSED = dict(TINY_CONFIG, vit_attention_impl="fused")
+WIRINGS = {
+    "actions_and_states": {},
+    "states_only": {"enable_past_actions": False},
+    "cad_only": {"enable_past_actions": False, "enable_past_states": False,
+                 "enable_timestep_embedding": False},
+}
+
+
+def _pair(overrides=None, seed=0):
+    cfg = dict(FUSED, **(overrides or {}))
+    jax_model = jax_create_model(cfg)
+    params = init_model(jax_model, jax.random.PRNGKey(seed), batch=1,
+                        seq_len=2)
+    model = create_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params))
+    return jax_model, params, model
+
+
+def _u8(shape, seed):
+    return np.random.default_rng(seed).integers(0, 256, shape,
+                                                dtype=np.uint8)
+
+
+def _actions(b, t, seed):
+    rng = np.random.default_rng(seed)
+    acts = np.concatenate([rng.integers(0, 5, (b, t, 1)),
+                           rng.integers(-1, 1000, (b, t, 6))], -1)
+    return (acts / np.asarray([4.0] + [1000.0] * 6)).astype(np.float32)
+
+
+def test_state_dict_follows_the_jax_tree():
+    _, params, model = _pair()
+    converted = state_dict_from_jax(params)
+    ours = model.state_dict()
+    assert sorted(converted) == sorted(ours)
+    assert "decoder.layers_1.cross_attn.key.weight" in ours
+    assert "timestep_embedding.weight" in ours
+    for key, value in converted.items():
+        assert value.shape == ours[key].shape, key
+    kernel = np.asarray(params["decoder"]["layers_0"]["linear1"]["kernel"])
+    np.testing.assert_array_equal(
+        ours["decoder.layers_0.linear1.weight"].numpy(), kernel.T)
+
+
+def test_init_params_is_seeded_and_has_flax_statistics():
+    cfg = dict(FUSED, hidden_size=64, dim_feedforward=64)
+    a = create_model(cfg, generator=torch.Generator().manual_seed(3))
+    b = init_params(create_model(cfg),
+                    torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.state_dict().items(),
+                              b.state_dict().values()):
+        torch.testing.assert_close(pa, pb, rtol=0, atol=0, msg=name)
+    sd = a.state_dict()
+    w = sd["decoder.layers_0.linear1.weight"]               # fan_in 64
+    assert abs(w.std().item() - 64 ** -0.5) < 0.2 * 64 ** -0.5
+    assert w.abs().max().item() <= 2 * 64 ** -0.5 / 0.87962566103423978
+    assert torch.count_nonzero(sd["decoder.layers_0.linear1.bias"]) == 0
+    assert torch.all(sd["decoder.layers_0.norm1.weight"] == 1)
+    assert abs(sd["state_encoder.pos_embedding"].std().item() - 0.02) < 0.005
+
+
+def test_vit_embedding_matches_jax():
+    jax_model, params, model = _pair()
+    frames = _u8((2, 3, 32, 32, 3), seed=1)
+    expected = jax_model.apply({"params": params}, jnp.asarray(frames),
+                               method=JaxModel.encode_frames)
+    with torch.no_grad():
+        got = model.encode_frames(torch.from_numpy(frames))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("wiring", sorted(WIRINGS))
+def test_forward_logits_match_jax(wiring):
+    jax_model, params, model = _pair(WIRINGS[wiring], seed=2)
+    b, t = 2, 5
+    inputs = {"frames": _u8((b, t, 32, 32, 3), seed=3),
+              "cad_image": _u8((b, 32, 32, 3), seed=4),
+              "actions": _actions(b, t, seed=5)}
+    expected = jax_model.apply({"params": params},
+                               {k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(v) for k, v in inputs.items()})
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("wiring,action", [("actions_and_states", True),
+                                           ("actions_and_states", False),
+                                           ("states_only", True)])
+def test_sequential_inference_matches_jax_step_for_step(wiring, action):
+    jax_model, params, model = _pair(WIRINGS[wiring], seed=6)
+    frames = _u8((2, 6, 32, 32, 3), seed=7)
+    cad = _u8((2, 32, 32, 3), seed=8)
+    expected = jax_rollout(jax_model, params, jnp.asarray(frames),
+                           jnp.asarray(cad), action=action)
+    got = sequential_inference(model, torch.from_numpy(frames),
+                               torch.from_numpy(cad), action=action)
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+
+
+def test_rollout_refuses_unported_weight_quant():
+    _, _, model = _pair()
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        sequential_inference(model, torch.zeros((1, 2, 32, 32, 3),
+                                                dtype=torch.uint8),
+                             torch.zeros((1, 32, 32, 3), dtype=torch.uint8),
+                             weight_quant="int8")
+
+
+def test_load_jax_params_reads_npz_and_vcdx(tmp_path):
+    _, params, model = _pair(seed=9)
+    flat = _flatten_params(params)
+    npz = tmp_path / "params.npz"
+    np.savez(npz, **flat)
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    vcdx = tmp_path / "model.vcdx"
+    with zipfile.ZipFile(vcdx, "w") as zf:
+        zf.writestr("params.npz", buf.getvalue())
+        zf.writestr("config.json", json.dumps(FUSED))
+    want = state_dict_from_jax(params)
+    for path, config in [(npz, None), (vcdx, FUSED)]:
+        tree, got_config = load_jax_params(str(path))
+        assert got_config == config
+        got = state_dict_from_jax(tree)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    model.load_state_dict(state_dict_from_jax(load_jax_params(str(npz))[0]))

@@ -1,0 +1,181 @@
+"""The PyTorch port's serving path against the JAX package.
+
+The lane-multiplexed step and the HTTP server of the port run on the CPU
+beside the JAX ``multiplex`` programs and ``MuxEngine``, on the same
+weights (carried through ``state_dict_from_jax``) and the same frames
+(numpy, seeded). float32, tiny config with the fused ViT attention.
+"""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.helpers import TINY_CONFIG
+from videocad_tpu.infer import multiplex as jax_mux
+from videocad_tpu.infer.rollout import prepare_for_decode as jax_prepare
+from videocad_tpu.infer.server import MuxEngine as JaxMuxEngine
+from videocad_tpu.models import create_model as jax_create_model
+from videocad_tpu.models import init_model
+from videocad_tpu_torch.infer import multiplex as port_mux
+from videocad_tpu_torch.infer.rollout import prepare_for_decode
+from videocad_tpu_torch.infer.server import (MuxEngine, ServingClient,
+                                             SessionError, make_server)
+from videocad_tpu_torch.models import create_model, state_dict_from_jax
+
+LANES = 3
+SEQ_LEN = 6
+CFG = dict(TINY_CONFIG, vit_attention_impl="fused")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jax_model = jax_create_model(CFG)
+    params = init_model(jax_model, jax.random.PRNGKey(11), batch=1,
+                        seq_len=2)
+    model = create_model(CFG)
+    model.load_state_dict(state_dict_from_jax(params))
+    return jax_model, params, model
+
+
+def _imgs(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, 32, 32, 3),
+                                                dtype=np.uint8)
+
+
+def _lane_state(carry, lane):
+    parts = [carry["t"][lane], carry["action"][lane],
+             carry["cad_stream"][lane]]
+    for k, v in carry["self_kv"] + carry["mem_kv"]:
+        parts += [k[lane], v[lane]]
+    return [p.clone() for p in parts]
+
+
+def test_mux_interleaved_lanes_match_jax_and_idle_lanes_stay_frozen(pair):
+    jax_model, params, model = pair
+    jp = jax_prepare(params, jnp.float32)
+    jcarry = jax_mux.init_mux_carry(jax_model, params, LANES, SEQ_LEN)
+    pp = prepare_for_decode(model)
+    pcarry = port_mux.init_mux_carry(model, LANES, SEQ_LEN)
+    cads = _imgs(3, seed=1)
+    frames = _imgs(12, seed=2)
+    fi = iter(range(12))
+
+    def open_(lane, cad):
+        nonlocal jcarry, pcarry
+        jcarry = jax_mux.open_lane(jax_model, jp, jcarry, jnp.asarray(lane),
+                                   jnp.asarray(cad)[None])
+        pcarry = port_mux.open_lane(model, pcarry, lane,
+                                    torch.from_numpy(cad)[None])
+
+    def tick(lanes, checked=None):
+        nonlocal jcarry, pcarry
+        f = np.zeros((LANES, 32, 32, 3), np.uint8)
+        act = np.zeros((LANES,), bool)
+        for lane in lanes:
+            f[lane] = frames[next(fi)]
+            act[lane] = True
+        jcarry, jc, jpar = jax_mux.mux_decode_step(
+            jax_model, jp, jnp.asarray(f), jnp.asarray(act), jcarry)
+        pcarry, pc, ppar = port_mux.mux_decode_step(
+            model, pp, torch.from_numpy(f), torch.from_numpy(act), pcarry)
+        for lane in (lanes if checked is None else checked):
+            np.testing.assert_allclose(pc[lane].numpy(), np.asarray(jc[lane]),
+                                       atol=1e-4, rtol=0)
+            np.testing.assert_allclose(ppar[lane].numpy(),
+                                       np.asarray(jpar[lane]), atol=1e-4,
+                                       rtol=0)
+        np.testing.assert_array_equal(pcarry["t"].numpy(),
+                                      np.asarray(jcarry["t"]))
+        # XLA may divide by 1000 as a product with its reciprocal: the
+        # fed-back actions agree to an ulp, their integer actions exactly.
+        np.testing.assert_allclose(pcarry["action"].numpy(),
+                                   np.asarray(jcarry["action"]), atol=1e-6,
+                                   rtol=0)
+
+    open_(0, cads[0])
+    tick([0])
+    open_(2, cads[1])
+    tick([0, 2])
+    frozen = _lane_state(pcarry, 0)
+    tick([2])                            # lane 0 open but idle
+    for before, after in zip(frozen, _lane_state(pcarry, 0)):
+        assert torch.equal(before, after)
+    jcarry = jax_mux.close_lane(jcarry, 0)
+    pcarry = port_mux.close_lane(pcarry, 0)
+    frozen = _lane_state(pcarry, 0)
+    tick([0, 2], checked=[2])            # a step for a closed lane: inert
+    for before, after in zip(frozen, _lane_state(pcarry, 0)):
+        assert torch.equal(before, after)
+    open_(0, cads[2])                    # the lane is reusable
+    tick([0, 2])
+    tick([0])
+    for (pk, pv), (jk, jv) in zip(pcarry["self_kv"] + pcarry["mem_kv"],
+                                  jcarry["self_kv"] + jcarry["mem_kv"]):
+        np.testing.assert_allclose(pk.numpy(), np.asarray(jk), atol=1e-4)
+        np.testing.assert_allclose(pv.numpy(), np.asarray(jv), atol=1e-4)
+
+
+def test_port_server_gives_the_jax_engine_actions(pair):
+    jax_model, params, model = pair
+    engine = MuxEngine(model, lanes=LANES, seq_len=SEQ_LEN)
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    ref = JaxMuxEngine(jax_model, params, lanes=LANES, seq_len=SEQ_LEN)
+    try:
+        client = ServingClient(f"http://127.0.0.1:{server.server_address[1]}")
+        assert client.meta()["lanes"] == LANES
+        cads = _imgs(2, seed=3)
+        frames = _imgs(2 * SEQ_LEN, seed=4).reshape(2, SEQ_LEN, 32, 32, 3)
+        sids = [client.open_session(c) for c in cads]
+        ref_sids = [ref.open_session(c)[0] for c in cads]
+        want = [[ref.step(rs, f) for f in frames[i]]
+                for i, rs in enumerate(ref_sids)]
+
+        got = [[None] * SEQ_LEN for _ in sids]
+        # Session 0 steps alone for two steps, then both step at once
+        # from their own threads (the batcher coalesces them).
+        for s in range(2):
+            got[0][s] = client.step(sids[0], frames[0][s])
+
+        def run(i, first):
+            for s in range(first, SEQ_LEN):
+                got[i][s] = client.step(sids[i], frames[i][s])
+
+        workers = [threading.Thread(target=run, args=(0, 2)),
+                   threading.Thread(target=run, args=(1, 0))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+            assert not w.is_alive()
+        for i in range(2):
+            for s in range(SEQ_LEN):
+                g, w = got[i][s], want[i][s]
+                assert (g["step"], g["cmd"], g["params"]) == (
+                    w["step"], w["cmd"], w["params"]), (i, s)
+                np.testing.assert_allclose(g["action"], w["action"],
+                                           atol=1e-6)
+        with pytest.raises(SessionError) as exc:
+            client.step(sids[0], frames[0][0])
+        assert exc.value.status == 409                # horizon reached
+        with pytest.raises(SessionError) as exc:
+            client.step(sids[1], frames[0][0][:8])
+        assert exc.value.status in (400, 409)
+        for sid in sids:
+            client.close_session(sid)
+        with pytest.raises(SessionError) as exc:
+            client.step(sids[0], frames[0][0])
+        assert exc.value.status == 404
+        stats = client.stats()
+        assert stats["ticks"] > 0 and stats["steps"] == 2 * SEQ_LEN
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        ref.stop()
+        thread.join(timeout=10)

@@ -1,0 +1,146 @@
+"""Lane-multiplexed incremental decode: concurrent serving sessions in one
+batch.
+
+Port of ``videocad_tpu/infer/multiplex.py``. The decode carry holds
+per-lane state (step counters, KV write positions, CAD context), so up to
+``lanes`` concurrent sessions share one decoder weight stream per step:
+continuous batching for the decode loop.
+
+  * cache writes land at each lane's own ``t``;
+  * the causal self mask and the banded memory window are per lane;
+  * an ``active`` mask gates every state write, so a step for lane i leaves
+    all other lanes bit-frozen.
+
+The JAX programs donate the carry; here the KV caches are updated IN PLACE
+under the ``active`` mask (an inactive lane's slot is rewritten with its
+own value), and ``t`` / ``action`` are replaced by their gated successors.
+Use the returned carry; it is the same dict.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from videocad_tpu_torch.actions.vocab import ACT_DIM
+from videocad_tpu_torch.infer.rollout import (_dense, _kv_write,
+                                              cast_decode_tree, decode_step,
+                                              next_actions)
+
+
+def _require_incremental_support(cfg) -> None:
+    if not cfg.enable_past_actions:
+        raise ValueError(
+            "incremental decode needs enable_past_actions=True: without "
+            "action feedback the model has no sequential dependency; use "
+            "the one-pass forward (infer/rollout.py handles this mode)")
+
+
+def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
+                   device=None) -> Dict:
+    """Allocate an all-lanes-idle carry for ``lanes`` concurrent sessions
+    on ``device`` (default: the model's):
+
+      t (L,) int64          per-lane step counter
+      active (L,) bool      lane occupancy (gates every state write)
+      action (L, 7) f32     per-lane previous action (zero-action start)
+      cad_stream (L, W)     per-lane constant CAD features
+      self_kv / mem_kv      per-layer (L, seq_len, H, D) caches
+    """
+    cfg = model.config
+    _require_incremental_support(cfg)
+    device = torch.device(device) if device is not None else model.device
+    dtype = cfg.compute_dtype
+    hd = cfg.hidden_size // cfg.nhead
+
+    def kv():
+        shape = (lanes, seq_len, cfg.nhead, hd)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    return {
+        "t": torch.zeros((lanes,), dtype=torch.int64, device=device),
+        "active": torch.zeros((lanes,), dtype=torch.bool, device=device),
+        "action": torch.zeros((lanes, ACT_DIM), device=device),
+        "cad_stream": torch.zeros((lanes, cfg.hidden_size), dtype=dtype,
+                                  device=device),
+        "self_kv": [kv() for _ in range(cfg.num_decoder_layers)],
+        "mem_kv": [kv() for _ in range(cfg.num_decoder_layers)],
+    }
+
+
+@torch.no_grad()
+def open_lane(model: nn.Module, carry: Dict, lane: int,
+              cad_image: torch.Tensor) -> Dict:
+    """Claim ``lane`` for a new session: encode its CAD context (batch 1,
+    once per session) and reset the lane's counter, action and caches, in
+    place. Other lanes' state is untouched."""
+    cad_stream = model.encode_cad_stream(cad_image)            # (1, W)
+    carry["t"][lane] = 0
+    carry["active"][lane] = True
+    carry["action"][lane] = 0.0
+    carry["cad_stream"][lane] = cad_stream[0].to(carry["cad_stream"].dtype)
+    for k, v in carry["self_kv"] + carry["mem_kv"]:
+        k[lane] = 0
+        v[lane] = 0
+    return carry
+
+
+def close_lane(carry: Dict, lane: int) -> Dict:
+    """Release a lane. Its stale state is inert: every write is gated on
+    ``active`` and :func:`open_lane` resets it."""
+    carry["active"][lane] = False
+    return carry
+
+
+@torch.no_grad()
+def mux_decode_step(model: nn.Module, params: Dict, frames: torch.Tensor,
+                    active: torch.Tensor, carry: Dict
+                    ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
+    """One multiplexed step: each lane in ``active`` observes its row of
+    ``frames`` (L, H, W, C uint8) and advances one step; inactive lanes are
+    bit-frozen. ``params`` comes from ``rollout.prepare_for_decode``.
+
+    Returns (carry, cmd_logits (L, 5), param_logits (L, 6, 1000)); logits
+    rows of inactive lanes are garbage by contract.
+    """
+    cfg = model.config
+    _require_incremental_support(cfg)
+    dtype = cfg.compute_dtype
+    t = carry["t"]
+    seq_len = carry["self_kv"][0][0].shape[1]
+    lanes = frames.shape[0]
+    # Horizon guard: a lane stepped at t >= seq_len stays bit-frozen.
+    active = active & carry["active"] & (t < seq_len)
+
+    # 1. The new frame's memory slot at each lane's own position, projected
+    #    with the float32 cross-attention weights, then cast.
+    mem_t = model.encode_memory_step(frames, t, carry["cad_stream"]).to(dtype)
+    for i in range(cfg.num_decoder_layers):
+        ca = params["decoder"][f"layers_{i}"]["cross_attn"]
+        k_cache, v_cache = carry["mem_kv"][i]
+        _kv_write(k_cache, _dense(ca["key"], mem_t).to(dtype).reshape(
+            lanes, cfg.nhead, -1), t, active)
+        _kv_write(v_cache, _dense(ca["value"], mem_t).to(dtype).reshape(
+            lanes, cfg.nhead, -1), t, active)
+
+    # 2. One decoder step on each lane's previous action (the shared
+    #    rollout decode_step with a per-lane t).
+    x = torch.tanh(_dense(cast_decode_tree(params["embed_action"], dtype),
+                          carry["action"].to(dtype)) + model._timestep(t))
+    hidden, _ = decode_step(params, cfg, x, t, carry["self_kv"],
+                            carry["mem_kv"], cfg.window_size, seq_len,
+                            write_valid=active)
+    hidden = hidden.to(torch.float32)
+    cmd_logits = _dense(params["predict_cmd"], hidden)
+    param_logits = _dense(params["predict_params"], hidden).reshape(
+        lanes, cfg.num_params, cfg.num_params_values)
+
+    # 3. The reference decode rule, gated per lane.
+    carry["action"] = torch.where(active[:, None],
+                                  next_actions(cmd_logits, param_logits),
+                                  carry["action"])
+    carry["t"] = torch.where(active, t + 1, t)
+    return carry, cmd_logits, param_logits

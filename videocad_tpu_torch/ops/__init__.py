@@ -1,0 +1,2 @@
+"""Tensor ops of the port: preprocessing and the hand-written kernels'
+wrappers (each with its plain PyTorch version beside it)."""
