@@ -25,6 +25,7 @@ from videocad_tpu.models import init_model
 from videocad_tpu.models.videocadformer import VideoCADFormer as JaxModel
 from videocad_tpu_torch.infer.rollout import sequential_inference
 from videocad_tpu_torch.models import (create_model, init_params,
+                                       jax_tree_from_state_dict,
                                        load_jax_params, state_dict_from_jax)
 
 FUSED = dict(TINY_CONFIG, vit_attention_impl="fused")
@@ -70,6 +71,22 @@ def test_state_dict_follows_the_jax_tree():
     kernel = np.asarray(params["decoder"]["layers_0"]["linear1"]["kernel"])
     np.testing.assert_array_equal(
         ours["decoder.layers_0.linear1.weight"].numpy(), kernel.T)
+
+
+@pytest.mark.parametrize("wiring", sorted(WIRINGS))
+def test_jax_tree_round_trips_through_the_state_dict(wiring):
+    _, params, model = _pair(WIRINGS[wiring], seed=1)
+    back = jax_tree_from_state_dict(model.state_dict())
+    want = dict(jax.tree_util.tree_leaves_with_path(params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert sorted(map(str, got)) == sorted(map(str, want))
+    for path, leaf in want.items():
+        assert got[path].dtype == np.float32
+        np.testing.assert_array_equal(got[path], np.asarray(leaf),
+                                      err_msg=str(path))
+    again = state_dict_from_jax(back)
+    for key, value in model.state_dict().items():
+        torch.testing.assert_close(again[key], value, rtol=0, atol=0)
 
 
 def test_init_params_is_seeded_and_has_flax_statistics():

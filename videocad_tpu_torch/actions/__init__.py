@@ -1,6 +1,9 @@
 from videocad_tpu_torch.actions.vocab import (  # noqa: F401
     ACT_DIM,
     ACTION_PARAM_MASK,
+    CMD_MOVE_TO,
+    CMD_TYPE,
+    END_SENTINEL,
     KEY3_WINDOW_HI,
     KEY3_WINDOW_LO,
     NUM_BINS,

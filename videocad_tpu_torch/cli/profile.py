@@ -1,4 +1,5 @@
-"""Profile the serving path on a CUDA card: where each piece's time goes.
+"""Profile the serving and training paths on a CUDA card: where each
+piece's time goes.
 
     python -m videocad_tpu_torch.cli.profile [--device cuda]
 
@@ -6,8 +7,9 @@ Builds the flagship config at full width in bf16 (random weights from seed
 0) and measures each piece of work of the serving path: one served tick
 with all 8 lanes active (no HTTP), the CAD encode of ``open_lane``, the
 state encoder over the rollout's B*T frames, the rollout at B=2, T=187,
-and the ``mhsa_short`` kernel alone at the batches the path gives it. For
-each it prints one JSON line:
+and the ``mhsa_short`` kernel alone at the batches the path gives it; then
+the training path: the flagship's train step (dropout 0.1) at B=8, T=192
+and its eval step. For each piece it prints one JSON line:
 
   wall_ms     host-clock ms per iteration, without the profiler, ending in
               a device sync
@@ -53,7 +55,8 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_work(name: str, fn, n: int, warmup: int = 2) -> dict:
+def profile_work(name: str, fn, n: int, warmup: int = 2,
+                 top_n: int = 8) -> dict:
     """Time ``fn`` unprofiled, then under torch.profiler; one report."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -72,11 +75,12 @@ def profile_work(name: str, fn, n: int, warmup: int = 2) -> dict:
         prof.step()
         profiled_wall = _timed(fn, n)
         prof.step()
-    # The schedule's "ProfilerStep#" range also lands on the device's
-    # timeline; it spans the whole window and is no kernel.
+    # Annotation ranges (the schedule's "ProfilerStep#", the optimizer's
+    # "Optimizer.step#") also land on the device's timeline; they span the
+    # kernels under them and are no kernels.
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
+               and not e.name.startswith(("ProfilerStep", "Optimizer."))]
     by_name: dict = {}
     for e in kernels:
         row = by_name.setdefault(e.name, [0.0, 0])
@@ -84,7 +88,7 @@ def profile_work(name: str, fn, n: int, warmup: int = 2) -> dict:
         row[1] += 1 / n
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     return {"work": name, "wall_ms": wall, "profiled_wall_ms": profiled_wall,
             "device_ms": sum(r[0] for r in by_name.values()),
             "busy": busy_us / 1e3 / n / profiled_wall,
@@ -93,26 +97,44 @@ def profile_work(name: str, fn, n: int, warmup: int = 2) -> dict:
                     for key, (ms, count) in top]}
 
 
-def main(argv=None) -> None:
+def train_reports(model, device) -> list:
+    """The flagship's train step and eval step at B=8, T=192."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state, make_eval_step,
+                                          make_train_step)
+
+    batch_size, seq_len = 8, 192
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             synthetic_batch_feed(batch_size, seq_len, image_size=224,
+                                  seed=0).items()}
+    loss_config = LossConfig(REFERENCE_CMD_WEIGHTS)
+    state = create_train_state(dict(model.named_parameters()),
+                               {"lr": 1e-5})
+    train_step = make_train_step(model, loss_config)
+    eval_step = make_eval_step(model, loss_config)
+    holder = [state]
+
+    def step():
+        holder[0], _, _ = train_step(holder[0], batch, 0)
+
+    name = f"B={batch_size} T={seq_len}, {batch_size * (seq_len - 1)} frames"
+    return [profile_work(f"train step, {name}", step, 2, top_n=16),
+            profile_work(f"eval step, {name}", lambda: eval_step(batch), 2)]
+
+
+def serve_reports(model, device) -> list:
     import numpy as np
     import torch
 
     from videocad_tpu_torch.infer import multiplex as mux
     from videocad_tpu_torch.infer.rollout import (prepare_for_decode,
                                                   sequential_inference)
-    from videocad_tpu_torch.models.factory import create_model, flagship_config
     from videocad_tpu_torch.ops.fused_attention import mhsa_short
 
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: the profile reads "
-                           "device times and needs a CUDA card")
     lanes, seq_len, rollout_batch = 8, 187, 2
-
-    model = create_model(flagship_config(), device=device)
     params = prepare_for_decode(model)
     carry = mux.init_mux_carry(model, lanes, seq_len)
     rng = np.random.default_rng(0)
@@ -156,8 +178,24 @@ def main(argv=None) -> None:
                    for _ in range(3))
         reports.append(profile_work(
             f"mhsa_short bf16 B={batch}",
-            lambda: mhsa_short(q, k, v, 16), 100))
-    for report in reports:
+            lambda: mhsa_short(q, k, v, None, 16), 100))
+    return reports
+
+
+def main(argv=None) -> None:
+    import torch
+
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: the profile reads "
+                           "device times and needs a CUDA card")
+    model = create_model(flagship_config(), device=device)
+    for report in serve_reports(model, device) + train_reports(model, device):
         print(json.dumps(report), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

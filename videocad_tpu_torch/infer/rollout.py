@@ -266,7 +266,6 @@ def sequential_inference(model: nn.Module, frames: torch.Tensor,
         raise NotImplementedError(
             f"weight_quant={weight_quant!r} is not ported yet "
             "(ROADMAP slice 7)")
-    model._check_eval()
     cfg = model.config
     device = model.device
     frames = torch.as_tensor(frames, device=device)

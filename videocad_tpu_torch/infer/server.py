@@ -90,7 +90,6 @@ class MuxEngine:
             raise NotImplementedError(
                 f"weight_quant={weight_quant!r} is not ported yet "
                 "(ROADMAP slice 7)")
-        model._check_eval()
         self.model = model
         self.device = model.device
         self.params = prepare_for_decode(model)

@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``.cu`` file under ``videocad_tpu_torch/csrc/`` with a
-plain C entry point. It is compiled with ``nvcc`` for Hopper (``sm_90a``)
-into a shared library under ``build/kernels/`` at the repository root, at
-first use, and loaded with ``ctypes``. The library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded. Only sources under ``csrc/`` are compiled.
+Each source is one ``.cu`` file under ``videocad_tpu_torch/csrc/`` with
+plain C entry points (a source may hold several kernels that share code:
+``mhsa_short.cu`` the forward and the backward). It is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the repository root, at first use, and loaded with
+``ctypes``. The library's file name carries a hash of its source, so an
+edited source is rebuilt and a stale library is never loaded. Only sources
+under ``csrc/`` are compiled. :func:`build_all` compiles every source at
+once, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package, and a machine without ``nvcc`` never builds anything.
@@ -22,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -57,32 +60,67 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def sources() -> List[str]:
+    """The names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library is on disk.
+
+    Returns None, or (process, temporary path, final path, start time). It
+    compiles to a temporary name that :func:`_finish_build` renames: a
+    concurrent or cut build never leaves a half-written library under the
+    final name.
+    """
+    src = CSRC_DIR / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"no kernel source {src}")
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, time.monotonic()
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out, start = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+    build_log[name] = (time.monotonic() - start, log)
+
+
+def build_all() -> List[str]:
+    """Build every source under ``csrc/`` whose library is missing, all
+    ``nvcc`` processes started together; returns the sources' names."""
+    names = sources()
+    with _lock:
+        started = [(name, _start_build(name)) for name in names]
+        errors = []
+        for name, build in started:
+            try:
+                _finish_build(name, build)
+            except RuntimeError as exc:   # let the other processes end first
+                errors.append(exc)
+        if errors:
+            raise errors[0]
+    return names
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu"
-        if not src.is_file():
-            raise FileNotFoundError(f"no kernel source {src}")
-        out = library_path(name)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # Compile to a temporary name and rename: a concurrent or cut
-            # build never leaves a half-written library under the final
-            # name.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            start = time.monotonic()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                                   f"{proc.stderr}")
-            os.replace(tmp, out)
-            build_log[name] = (time.monotonic() - start,
-                               proc.stdout + proc.stderr)
-        lib = ctypes.CDLL(str(out))
-        _loaded[name] = lib
-        return lib
+        if name not in _loaded:
+            _finish_build(name, _start_build(name))
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

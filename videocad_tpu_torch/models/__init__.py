@@ -11,6 +11,7 @@ from videocad_tpu_torch.models.factory import (  # noqa: F401
     load_named_config,
 )
 from videocad_tpu_torch.models.convert import (  # noqa: F401
+    jax_tree_from_state_dict,
     load_jax_params,
     state_dict_from_jax,
 )

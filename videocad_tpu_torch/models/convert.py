@@ -58,6 +58,29 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax`, to numpy: a state_dict
+    (or any name -> tensor map of that layout, such as the gradients) ->
+    the JAX tree of float32 arrays. A ``weight`` becomes ``kernel``
+    (transposed) when it is 2-D, ``scale`` when it is 1-D, and
+    ``embedding`` when its module's name ends in ``embedding`` (the
+    model's flax ``Embed`` modules)."""
+    flat = {}
+    for key, value in state_dict.items():
+        arr = value.detach().to(torch.float32).cpu().numpy()
+        *path, name = key.split(".")
+        if name == "weight":
+            if path and path[-1].endswith("embedding"):
+                name = "embedding"
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            else:
+                name = "scale"
+        flat["/".join(path + [name])] = np.array(arr, order="C")
+    return unflatten(flat)
+
+
 def unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     """``/``-joined keys -> nested dicts (``export._unflatten_params``)."""
     tree: Dict[str, Any] = {}

@@ -14,8 +14,14 @@ JAX dtype flow:
     dtype, runs the softmax in float32, and casts the weights back.
 
 Decoder blocks follow torch.nn.TransformerDecoderLayer semantics (post-LN,
-ReLU feed-forward). The port runs inference only: dropout lands with the
-training slices.
+ReLU feed-forward, dropout on attention weights and residual branches).
+
+Dropout is active only in ``train()`` mode and draws from the
+:class:`~videocad_tpu_torch.ops.dropout.DropoutRng` handed down as the
+``rng`` argument of each ``forward``: elementwise sites from its device
+generator, the fused kernel's in-kernel dropout from a seed derived per
+call site from its CPU generator. A training-mode forward with dropout on
+and no ``rng`` raises.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_attention import mhsa_short
+from videocad_tpu_torch.ops.prng import derive_seed
 
 
 class Dense(nn.Module):
@@ -81,9 +89,27 @@ def banded_mask(q_len: int, kv_len: int, window: int,
     return (cols > rows - window) & (cols <= rows)
 
 
+def active_rate(module: nn.Module, rate: float,
+                rng: Optional[DropoutRng]) -> float:
+    """The dropout rate in force for this call: ``rate`` in ``train()``
+    mode (which then needs ``rng``), 0 in ``eval()`` mode."""
+    if not module.training or rate == 0.0:
+        return 0.0
+    if rng is None:
+        raise ValueError(
+            f"{type(module).__name__} in train() mode with dropout {rate} "
+            "needs rng=DropoutRng(seed, device); call model.eval() for "
+            "inference")
+    return rate
+
+
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d) + mask) v with an f32 softmax.
+                  mask: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) + mask) v with an f32 softmax, and dropout
+    on the weights when ``dropout_rate`` > 0.
 
     q: (B, T, H, D); k, v: (B, S, H, D); mask broadcastable to (B, H, T, S)
     bool (True = attend). Returns (B, T, H, D).
@@ -93,6 +119,7 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     weights = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
+    weights = dropout(weights, generator, dropout_rate)
     return torch.einsum("bhts,bshd->bthd", weights, v)
 
 
@@ -101,12 +128,14 @@ class MultiHeadAttention(nn.Module):
 
     ``attention_impl``: ``"xla"`` (plain PyTorch), or ``"fused"``, which
     routes unmasked attention through the hand-written ``mhsa_short``
-    kernel exactly where the JAX module calls its Pallas kernel. The flash
-    kernel (``"pallas"``) is not ported yet.
+    kernel exactly where the JAX module calls its Pallas kernel, with the
+    attention-weight dropout inside the kernel. The flash kernel
+    (``"pallas"``) is not ported yet.
     """
 
     def __init__(self, model_dim: int, num_heads: int,
-                 head_dim: Optional[int] = None, qkv_bias: bool = True,
+                 head_dim: Optional[int] = None, dropout_rate: float = 0.0,
+                 qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", device=None):
         super().__init__()
@@ -117,6 +146,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = head_dim or model_dim // num_heads
         self.attention_impl = attention_impl
+        self.dropout_rate = dropout_rate
         inner = num_heads * self.head_dim
         kw = dict(dtype=dtype, device=device)
         self.query = Dense(model_dim, inner, use_bias=qkv_bias, **kw)
@@ -135,34 +165,47 @@ class MultiHeadAttention(nn.Module):
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._split(self.key(kv_in)), self._split(self.value(kv_in))
 
-    def attend(self, q, k, v, mask=None) -> torch.Tensor:
+    def attend(self, q, k, v, mask=None,
+               rng: Optional[DropoutRng] = None) -> torch.Tensor:
         """Core attention over projected heads; returns the merged output."""
         b, t = q.shape[:2]
+        rate = active_rate(self, self.dropout_rate, rng)
         if self.attention_impl == "fused" and mask is None:
+            # Unlike the JAX module off the TPU, the fused path is kept
+            # when dropout is on: the kernel has its own bit function on
+            # every device.
+            seed = derive_seed(rng.seeds) if rate > 0.0 else None
             fused = mhsa_short(q.reshape(b, t, -1), k.reshape(b, t, -1),
-                               v.reshape(b, t, -1), self.num_heads)
+                               v.reshape(b, t, -1), seed, self.num_heads,
+                               rate)
             return self.out(fused)
-        out = xla_attention(q, k, v, mask)
+        out = xla_attention(q, k, v, mask, rate,
+                            rng.bits if rate > 0.0 else None)
         return self.out(out.reshape(b, t, self.num_heads * self.head_dim))
 
-    def forward(self, q_in, kv_in, mask=None) -> torch.Tensor:
+    def forward(self, q_in, kv_in, mask=None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         q = self.project_q(q_in)
         k, v = self.project_kv(kv_in)
-        return self.attend(q, k, v, mask)
+        return self.attend(q, k, v, mask, rng)
 
 
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder block: self-attn -> cross-attn -> ReLU MLP."""
 
     def __init__(self, model_dim: int, num_heads: int, ffn_dim: int,
+                 dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadAttention(model_dim, num_heads,
+                                            dropout_rate=dropout_rate,
                                             attention_impl=attention_impl,
                                             **kw)
         self.cross_attn = MultiHeadAttention(model_dim, num_heads,
+                                             dropout_rate=dropout_rate,
                                              attention_impl=attention_impl,
                                              **kw)
         self.linear1 = Dense(model_dim, ffn_dim, **kw)
@@ -171,10 +214,15 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = LayerNorm(model_dim, **kw)
         self.norm3 = LayerNorm(model_dim, **kw)
 
-    def forward(self, x, memory, tgt_mask=None, memory_mask=None):
-        x = self.norm1(x + self.self_attn(x, x, tgt_mask))
-        x = self.norm2(x + self.cross_attn(x, memory, memory_mask))
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, memory, tgt_mask=None, memory_mask=None,
+                rng: Optional[DropoutRng] = None):
+        rate = active_rate(self, self.dropout_rate, rng)
+        bits = rng.bits if rate > 0.0 else None
+        drop = lambda y: dropout(y, bits, rate)  # noqa: E731
+        x = self.norm1(x + drop(self.self_attn(x, x, tgt_mask, rng)))
+        x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask, rng)))
+        ffn = self.linear2(drop(F.relu(self.linear1(x))))
+        return self.norm3(x + drop(ffn))
 
 
 class TransformerDecoder(nn.Module):
@@ -182,16 +230,19 @@ class TransformerDecoder(nn.Module):
     norm, like torch's default)."""
 
     def __init__(self, model_dim: int, num_layers: int, num_heads: int,
-                 ffn_dim: int, dtype: torch.dtype = torch.float32,
+                 ffn_dim: int, dropout_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", device=None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
-                model_dim, num_heads, ffn_dim, dtype=dtype,
-                attention_impl=attention_impl, device=device))
+                model_dim, num_heads, ffn_dim, dropout_rate=dropout_rate,
+                dtype=dtype, attention_impl=attention_impl, device=device))
 
-    def forward(self, x, memory, tgt_mask=None, memory_mask=None):
+    def forward(self, x, memory, tgt_mask=None, memory_mask=None,
+                rng: Optional[DropoutRng] = None):
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x, memory, tgt_mask, memory_mask)
+            x = getattr(self, f"layers_{i}")(x, memory, tgt_mask, memory_mask,
+                                             rng)
         return x

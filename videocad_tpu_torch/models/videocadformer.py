@@ -21,6 +21,11 @@ The modules' parameter names follow the JAX parameter tree, so
 ``models/convert.py`` carries JAX weights in by a mechanical map. Options
 the port has not reached yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
+
+Dropout is active in ``train()`` mode only, at every site the JAX modules
+have, and draws from the ``rng`` argument of ``forward`` (a
+:class:`~videocad_tpu_torch.ops.dropout.DropoutRng`); ``eval()`` mode
+needs none.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from videocad_tpu_torch.actions.vocab import (ACT_DIM, NUM_BINS, NUM_COMMANDS,
 from videocad_tpu_torch.models.layers import (Dense, TransformerDecoder,
                                               banded_mask, causal_mask)
 from videocad_tpu_torch.models.vit import ViT, ViTConfig
+from videocad_tpu_torch.ops.dropout import DropoutRng
 from videocad_tpu_torch.ops.preprocess import maybe_preprocess
 
 
@@ -103,8 +109,6 @@ def _check_supported(cfg: VideoCADFormerConfig) -> None:
          "use_pretrained_cad_model (ROADMAP slice 11)"),
         (cfg.attention_impl == "pallas",
          "attention_impl='pallas' (ROADMAP kernel K3)"),
-        (cfg.preprocess_impl == "pallas",
-         "preprocess_impl='pallas' (ROADMAP kernel K2)"),
         (cfg.dropout_impl == "pallas",
          "dropout_impl='pallas' (ROADMAP kernel K5)"),
         (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11)"),
@@ -117,7 +121,8 @@ def _check_supported(cfg: VideoCADFormerConfig) -> None:
 
 
 class VideoCADFormer(nn.Module):
-    """The model; inference only until the training slices land."""
+    """The model: teacher-forced forward, and the embedding stages the
+    rollout and the serving engine drive step by step."""
 
     def __init__(self, config: VideoCADFormerConfig, device=None):
         super().__init__()
@@ -144,7 +149,8 @@ class VideoCADFormer(nn.Module):
                 cfg.max_ep_len, cfg.hidden_size, device=device)
         self.decoder = TransformerDecoder(
             cfg.hidden_size, cfg.num_decoder_layers, cfg.nhead,
-            cfg.dim_feedforward, attention_impl=cfg.attention_impl, **kw)
+            cfg.dim_feedforward, dropout_rate=cfg.dropout,
+            attention_impl=cfg.attention_impl, **kw)
         self.predict_cmd = Dense(cfg.hidden_size, cfg.num_classes,
                                  device=device)
         self.predict_params = Dense(
@@ -169,12 +175,6 @@ class VideoCADFormer(nn.Module):
     def device(self) -> torch.device:
         return self.predict_cmd.weight.device
 
-    def _check_eval(self) -> None:
-        if self.training and self.config.dropout > 0.0:
-            raise NotImplementedError(
-                "the port runs inference only (dropout lands with the "
-                "training slices); call model.eval()")
-
     # ---- embedding stages (shared by the forward and the rollout) ----
 
     def _timestep(self, t: torch.Tensor) -> torch.Tensor:
@@ -186,7 +186,8 @@ class VideoCADFormer(nn.Module):
         return torch.zeros(tuple(t.shape) + (cfg.hidden_size,),
                            dtype=cfg.compute_dtype, device=t.device)
 
-    def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode_frames(self, frames: torch.Tensor,
+                      rng: Optional[DropoutRng] = None) -> torch.Tensor:
         """(B, T, H, W, C) -> (B, T, vit_dim) via the state encoder; the
         frames fold into one (B*T) batch."""
         cfg = self.config
@@ -194,11 +195,13 @@ class VideoCADFormer(nn.Module):
                                   impl=cfg.preprocess_impl,
                                   target_size=(cfg.image_size,) * 2)
         b, t = frames.shape[:2]
-        emb = self.state_encoder(frames.reshape((b * t,) + frames.shape[2:]))
+        emb = self.state_encoder(
+            frames.reshape((b * t,) + frames.shape[2:]), rng)
         return emb.reshape(b, t, -1)
 
     def encode_context(self, cad_image, frames=None,
-                       seq_length: Optional[int] = None):
+                       seq_length: Optional[int] = None,
+                       rng: Optional[DropoutRng] = None):
         """(combined image memory (B, T, hidden), ui embeddings or None)."""
         cfg = self.config
         t = seq_length if seq_length is not None else frames.shape[1]
@@ -206,22 +209,24 @@ class VideoCADFormer(nn.Module):
         ui_emb = None
         streams = []
         if cfg.enable_past_states:
-            state_emb = self.encode_frames(frames)
+            state_emb = self.encode_frames(frames, rng)
             ui_emb = torch.tanh(self.embed_state(state_emb) + ts_emb[None])
             if cfg.enable_past_actions:
                 streams.append(ui_emb)
-        cad_emb = self.embed_image(self._encode_cad(cad_image))[:, None, :]
+        cad_emb = self.embed_image(self._encode_cad(cad_image, rng))
+        cad_emb = cad_emb[:, None, :]
         streams.append(cad_emb.expand(-1, t, -1))
         combined = torch.cat(streams, dim=-1)
         if len(streams) > 1:
             combined = self.image_projection(combined)
         return torch.tanh(combined), ui_emb
 
-    def _encode_cad(self, cad_image: torch.Tensor) -> torch.Tensor:
+    def _encode_cad(self, cad_image: torch.Tensor,
+                    rng: Optional[DropoutRng] = None) -> torch.Tensor:
         cfg = self.config
         cad_image = maybe_preprocess(cad_image, impl=cfg.preprocess_impl,
                                      target_size=(cfg.image_size,) * 2)
-        return self.cad_encoder(cad_image)
+        return self.cad_encoder(cad_image, rng)
 
     def encode_cad_stream(self, cad_image: torch.Tensor) -> torch.Tensor:
         """The position-independent CAD features that ``encode_context``
@@ -264,25 +269,25 @@ class VideoCADFormer(nn.Module):
 
     # ---- full-sequence (teacher-forced) forward ----
 
-    def forward(self, inputs: Dict[str, torch.Tensor]
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                rng: Optional[DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._check_eval()
         cfg = self.config
         actions = inputs["actions"]
         seq_length = actions.shape[1]
         combined, ui_emb = self.encode_context(
-            inputs["cad_image"], inputs.get("frames"), seq_length)
+            inputs["cad_image"], inputs.get("frames"), seq_length, rng)
         band = banded_mask(seq_length, seq_length, cfg.window_size,
                            device=self.device)
         if cfg.enable_past_actions:
             hidden = self.decoder(self.embed_actions(actions), combined,
                                   tgt_mask=causal_mask(seq_length,
                                                        device=self.device),
-                                  memory_mask=band)
+                                  memory_mask=band, rng=rng)
         elif cfg.enable_past_states:
             hidden = self.decoder(ui_emb, combined, tgt_mask=band,
-                                  memory_mask=band)
+                                  memory_mask=band, rng=rng)
         else:
             hidden = self.decoder(combined, combined, tgt_mask=band,
-                                  memory_mask=band)
+                                  memory_mask=band, rng=rng)
         return self.heads(hidden)

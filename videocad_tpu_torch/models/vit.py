@@ -8,18 +8,24 @@ position embedding, pre-LN blocks with exact erf GELU, a final LayerNorm
 (behind ``final_norm``), and the CLS row as the embedding.
 
 ``attention_impl="fused"`` runs each block's attention core through the
-hand-written ``mhsa_short`` kernel (the flagship's setting).
+hand-written ``mhsa_short`` kernels (the flagship's setting). In ``train()``
+mode dropout runs on the embedding, on each block's attention output and
+two MLP sites, and on the attention weights (inside the fused kernel); the
+``rng`` argument of ``forward`` feeds them (``models/layers.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from videocad_tpu_torch.models.layers import Dense, LayerNorm, MultiHeadAttention
+from videocad_tpu_torch.models.layers import (Dense, LayerNorm,
+                                              MultiHeadAttention, active_rate)
+from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +69,25 @@ class ViTBlock(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.attn_norm = LayerNorm(cfg.dim, **kw)
         self.mlp_norm = LayerNorm(cfg.dim, **kw)
+        self.dropout_rate = cfg.dropout
         self.attn = MultiHeadAttention(cfg.dim, cfg.heads,
-                                       head_dim=cfg.head_dim, qkv_bias=False,
+                                       head_dim=cfg.head_dim,
+                                       dropout_rate=cfg.dropout,
+                                       qkv_bias=False,
                                        attention_impl=attention_impl, **kw)
         self.mlp_in = Dense(cfg.dim, cfg.mlp_dim, **kw)
         self.mlp_out = Dense(cfg.mlp_dim, cfg.dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        rate = active_rate(self, self.dropout_rate, rng)
+        bits = rng.bits if rate > 0.0 else None
         h = self.attn_norm(x)
-        x = x + self.attn(h, h)
+        x = x + dropout(self.attn(h, h, rng=rng), bits, rate)
         h = self.mlp_in(self.mlp_norm(x))
         # exact erf GELU (torch nn.GELU default, as the reference)
-        return x + self.mlp_out(F.gelu(h))
+        h = self.mlp_out(dropout(F.gelu(h), bits, rate))
+        return x + dropout(h, bits, rate)
 
 
 class ViT(nn.Module):
@@ -106,7 +119,8 @@ class ViT(nn.Module):
         if cfg.final_norm:
             self.final_norm = LayerNorm(cfg.dim, **kw)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         cfg = self.cfg
         b, h, w, c = images.shape
         p = cfg.patch_size
@@ -121,8 +135,10 @@ class ViT(nn.Module):
             x = self.patch_norm_out(x)
         cls = self.cls_token.to(self.dtype).expand(b, 1, cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(self.dtype)
+        rate = active_rate(self, cfg.emb_dropout, rng)
+        x = dropout(x, rng.bits if rate > 0.0 else None, rate)
         for i in range(cfg.depth):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, rng)
         if cfg.final_norm:
             x = self.final_norm(x)
         return x[:, 0]

@@ -1,40 +1,106 @@
 """Fused multi-head self-attention for short sequences (the ViT hot path).
 
-Port of ``videocad_tpu/ops/fused_attention.py:mhsa_short``, forward only.
+Port of ``videocad_tpu/ops/fused_attention.py:mhsa_short``, forward and
+backward, with dropout on the attention weights inside the kernels.
 q, k and v stay in the (B, T, H*D) layout the projections produce; the
-head split happens inside the kernel (``csrc/mhsa_short.cu``), so no
-transpose runs around it. The math: scores = q k^T with f32 accumulation,
-times 1/sqrt(D); a row softmax in f32; the weights cast to the I/O dtype;
-P V with f32 accumulation; the output in the I/O dtype.
+head split happens inside the kernels (``csrc/mhsa_short.cu``), so no
+transpose runs around them. The math: scores = q k^T with f32
+accumulation, times 1/sqrt(D); a row softmax in f32; dropout (kept weights
+times 1/(1 - rate)) in f32; the weights cast to the I/O dtype; P V with
+f32 accumulation; the output in the I/O dtype. The backward recomputes the
+weights and redraws the mask from the seed, so autograd keeps only q, k, v
+and the seed, never the weights or the mask.
 
-Dispatch: a CPU tensor runs :func:`mhsa_short_reference`, the plain
-PyTorch version beside the kernel; a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+The mask comes from ``ops/prng.py:dropout_bits``, a pure function of
+(seed, batch row, head, query, key) that the kernels and the plain versions
+here both compute, so they draw the same mask.
+
+Dispatch: a CPU tensor runs the plain PyTorch versions beside the kernels
+(:func:`mhsa_short_reference`, :func:`mhsa_short_backward_reference`); a
+CUDA tensor launches the kernels or raises. There is no fallback from one
+to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
+from videocad_tpu_torch.ops.prng import (dropout_bits, dropout_threshold,
+                                         keep_mask, require_seed)
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SEQ = 64       # the kernel pads T to 64 (csrc/mhsa_short.cu)
+_MAX_SEQ = 64       # the kernels pad T to 64 (csrc/mhsa_short.cu)
 _MAX_HEAD_DIM = 64
 
 
-def mhsa_short_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, T, H*D) -> (B, T, H*D)."""
-    b, t, hd = q.shape
-    d = hd // num_heads
-    split = lambda x: x.reshape(b, t, num_heads, d).permute(0, 2, 1, 3)  # noqa: E731
-    qh, kh, vh = (split(x).to(torch.float32) for x in (q, k, v))
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, T, H*D) -> (B, H, T, D) in float32."""
+    b, t, hd = x.shape
+    return x.reshape(b, t, num_heads, hd // num_heads).permute(
+        0, 2, 1, 3).to(torch.float32)
+
+
+def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, T, D) -> (B, T, H*D) in ``dtype``."""
+    b, h, t, d = x.shape
+    return x.to(dtype).permute(0, 2, 1, 3).reshape(b, t, h * d)
+
+
+def _weights_and_mask(qh, kh, seed, dropout_rate):
+    """The f32 softmax weights (B, H, T, T), and the keep mask or None."""
+    b, h, t, d = qh.shape
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-    weights = torch.softmax(scores, dim=-1).to(q.dtype).to(torch.float32)
-    out = torch.matmul(weights, vh).to(q.dtype)
-    return out.permute(0, 2, 1, 3).reshape(b, t, hd)
+    weights = torch.softmax(scores, dim=-1)
+    if dropout_rate == 0.0:
+        return weights, None
+    bits = dropout_bits(seed, b, h, t, t, device=qh.device)
+    return weights, keep_mask(bits, dropout_rate)
+
+
+def mhsa_short_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         seed: Optional[int], num_heads: int,
+                         dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel: (B, T, H*D) ->
+    (B, T, H*D)."""
+    require_seed(seed, dropout_rate, "mhsa_short")
+    qh, kh, vh = (_split_heads(x, num_heads) for x in (q, k, v))
+    weights, keep = _weights_and_mask(qh, kh, seed, dropout_rate)
+    if keep is not None:
+        weights = torch.where(keep, weights * (1.0 / (1.0 - dropout_rate)),
+                              0.0)
+    weights = weights.to(q.dtype).to(torch.float32)
+    return _merge_heads(torch.matmul(weights, vh), q.dtype)
+
+
+def mhsa_short_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+        seed: Optional[int], num_heads: int, dropout_rate: float = 0.0
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) for the
+    output gradient ``g``. It follows the kernel's formula and rounding
+    points (the dropped weights and ds drop to the I/O dtype before the
+    products that consume them), not autograd."""
+    require_seed(seed, dropout_rate, "mhsa_short")
+    io = q.dtype
+    qh, kh, vh, gh = (_split_heads(x, num_heads) for x in (q, k, v, g))
+    weights, keep = _weights_and_mask(qh, kh, seed, dropout_rate)
+    d_dropped = torch.matmul(gh, vh.transpose(-1, -2))
+    if keep is None:
+        dropped, dw = weights, d_dropped
+    else:
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        dropped = torch.where(keep, weights * inv_keep, 0.0)
+        dw = torch.where(keep, d_dropped * inv_keep, 0.0)
+    dv = torch.matmul(dropped.to(io).to(torch.float32).transpose(-1, -2), gh)
+    ds = weights * (dw - (dw * weights).sum(dim=-1, keepdim=True))
+    ds = (ds * (1.0 / math.sqrt(qh.shape[-1]))).to(io).to(torch.float32)
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(_merge_heads(x, io) for x in (dq, dk, dv))
 
 
 def _check(q, k, v, num_heads):
@@ -52,34 +118,45 @@ def _check(q, k, v, num_heads):
                          f"{num_heads} heads")
 
 
-def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               num_heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
-    """Fused bidirectional MHSA: q, k, v (B, T, H*D) -> (B, T, H*D).
-
-    On a CUDA tensor it launches the hand-written kernel, which takes
-    float32 or bfloat16, contiguous inputs, T <= 64 and D <= 64, and raises
-    on anything else; ``mhsa_short.launches`` counts those launches. On a
-    CPU tensor it runs :func:`mhsa_short_reference`.
-    """
-    _check(q, k, v, num_heads)
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "mhsa_short dropout runs in the training kernel, not ported "
-            "yet (ROADMAP K1-bwd)")
-    if q.device.type == "cpu":
-        return mhsa_short_reference(q, k, v, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"mhsa_short runs on CPU or CUDA, not {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "mhsa_short has no backward kernel yet (ROADMAP K1-bwd); call "
-            "it under torch.no_grad()")
-    if q.dtype not in _DTYPE_CODES:
+def _check_kernel_inputs(*tensors):
+    """What the kernels take: float32 or bfloat16, contiguous, T <= 64,
+    D <= 64 (checked by the caller's head count)."""
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"mhsa_short runs on CPU or CUDA, not {first.device}")
+    if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"mhsa_short kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+                        f"got {first.dtype}")
+    if not all(x.is_contiguous() for x in tensors):
         raise ValueError("mhsa_short kernel takes contiguous q, k, v")
+
+
+def _dropout_args(seed, dropout_rate) -> Tuple[int, int, float]:
+    """(seed, u32 threshold, 1 / (1 - rate)) as the C entries take them."""
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0
+    return (seed & 0xFFFFFFFF, dropout_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate))
+
+
+def _launch(entry, tensors, q, num_heads, seed, dropout_rate):
+    b, t, hd = q.shape
+    head_dim = hd // num_heads
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = entry(*(x.data_ptr() for x in tensors), b, t, num_heads,
+                    head_dim, 1.0 / math.sqrt(head_dim),
+                    _DTYPE_CODES[q.dtype],
+                    *_dropout_args(seed, dropout_rate), stream)
+    if err != 0:
+        raise RuntimeError(f"mhsa_short kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _forward(q, k, v, seed, num_heads, dropout_rate):
+    if q.device.type == "cpu":
+        return mhsa_short_reference(q, k, v, seed, num_heads, dropout_rate)
+    _check_kernel_inputs(q, k, v)
     b, t, hd = q.shape
     head_dim = hd // num_heads
     if t > _MAX_SEQ or head_dim > _MAX_HEAD_DIM:
@@ -88,35 +165,101 @@ def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
-    fwd = _kernel_entry or load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t,
-            num_heads, head_dim, 1.0 / math.sqrt(head_dim),
-            _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"mhsa_short kernel launch failed: CUDA error "
-                           f"{err}")
+    entries = _entries or load_library()
+    _launch(entries[0], (q, k, v, out), q, num_heads, seed, dropout_rate)
     mhsa_short.launches += 1
     return out
 
 
+def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, seed: Optional[int], num_heads: int,
+                        dropout_rate: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`mhsa_short` for the output gradient ``g``, in
+    one kernel launch on a CUDA tensor (``mhsa_short_backward.launches``
+    counts them), by :func:`mhsa_short_backward_reference` on a CPU tensor.
+    ``g`` may be non-contiguous, as autograd may hand it over."""
+    _check(q, k, v, num_heads)
+    require_seed(seed, dropout_rate, "mhsa_short")
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError("mhsa_short_backward takes g like q")
+    if q.device.type == "cpu":
+        return mhsa_short_backward_reference(q, k, v, g, seed, num_heads,
+                                             dropout_rate)
+    g = g.contiguous()
+    _check_kernel_inputs(q, k, v, g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    entries = _entries or load_library()
+    _launch(entries[1], (q, k, v, g, dq, dk, dv), q, num_heads, seed,
+            dropout_rate)
+    mhsa_short_backward.launches += 1
+    return dq, dk, dv
+
+
+class _MhsaShort(torch.autograd.Function):
+    """The forward and backward kernels under autograd; q, k, v and the
+    seed are all that is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, num_heads, dropout_rate):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (seed, num_heads, dropout_rate)
+        return _forward(q, k, v, seed, num_heads, dropout_rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = mhsa_short_backward(*ctx.saved_tensors, g, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               seed: Optional[int], num_heads: int,
+               dropout_rate: float = 0.0) -> torch.Tensor:
+    """Fused bidirectional MHSA: q, k, v (B, T, H*D) -> (B, T, H*D).
+
+    ``seed``: an int32 for the in-kernel dropout (``prng.derive_seed``),
+    ignored (may be None) when ``dropout_rate`` is 0. Differentiable in q,
+    k and v.
+
+    On a CUDA tensor it launches the hand-written kernels, which take
+    float32 or bfloat16, contiguous inputs, T <= 64 and D <= 64, and raises
+    on anything else; ``mhsa_short.launches`` and
+    ``mhsa_short_backward.launches`` count those launches. On a CPU tensor
+    it runs the plain versions.
+    """
+    _check(q, k, v, num_heads)
+    require_seed(seed, dropout_rate, "mhsa_short")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} is not in [0, 1)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _MhsaShort.apply(q, k, v, seed, num_heads, dropout_rate)
+    return _forward(q, k, v, seed, num_heads, dropout_rate)
+
+
 mhsa_short.launches = 0
-_kernel_entry = None    # the C entry, once load_library has bound it
+mhsa_short_backward.launches = 0
+_entries = None    # the C entries, once load_library has bound them
 
 
 def load_library():
-    """Build (at first use) and load the kernel's library; returns its C
-    entry ``mhsa_short_fwd``, bound once and kept for every later launch."""
-    global _kernel_entry
+    """Build (at first use) and load the kernels' library; returns its C
+    entries (``mhsa_short_fwd``, ``mhsa_short_bwd``), bound once and kept
+    for every later launch."""
+    global _entries
     from videocad_tpu_torch.kernels import build
 
-    fwd = build.load("mhsa_short").mhsa_short_fwd
+    lib = build.load("mhsa_short")
     # Pointers and the stream as c_void_p: without argtypes ctypes would
     # pass each Python int as a 32-bit int and cut the pointer.
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    _kernel_entry = fwd
-    return fwd
+    tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                                 ctypes.c_uint, ctypes.c_float,
+                                 ctypes.c_void_p]
+    fwd, bwd = lib.mhsa_short_fwd, lib.mhsa_short_bwd
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes = [ctypes.c_void_p] * 4 + tail
+    bwd.argtypes = [ctypes.c_void_p] * 7 + tail
+    _entries = (fwd, bwd)
+    return _entries

@@ -11,12 +11,16 @@ converts them as if RGB, i.e. the (0.299, 0.587, 0.114) weights apply
 POSITIONALLY to the stored channels. ``bgr_as_rgb`` documents that intent
 and does not change the math.
 
-The fused Pallas kernel of the JAX package (``preprocess_impl: "pallas"``)
-is not ported yet (ROADMAP kernel K2).
+``preprocess_impl: "pallas"`` (the JAX config's name for its fused Pallas
+kernel) selects :func:`grayscale_normalize_fused`: on a CUDA tensor the
+hand-written kernels of ``csrc/gray_normalize.cu``, one for the plain
+conversion and one with the bilinear resize inside; on a CPU tensor the
+plain path above. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -39,19 +43,34 @@ def _weights(channels: int, bgr_as_rgb: bool) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out, in) bilinear interpolation matrix, half-pixel centers
-    (cv2.INTER_LINEAR / PIL convention), edges clamped."""
+def _resize_taps(in_size: int, out_size: int):
+    """Bilinear taps per output index, half-pixel centers (cv2.INTER_LINEAR
+    / PIL convention), edges clamped: (lo, hi, weight of lo, weight of hi)
+    as int32 and float32 arrays of ``out_size`` entries. Where both taps
+    land on one source index (a clamped edge), ``hi == lo``, the weight of
+    lo is the f32 sum of the two and the weight of hi is 0."""
     scale = in_size / out_size
     src = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
     lo = np.floor(src).astype(np.int64)
     frac = src - lo
     hi = np.clip(lo + 1, 0, in_size - 1)
     lo = np.clip(lo, 0, in_size - 1)
+    w_lo = (1.0 - frac).astype(np.float32)
+    w_hi = frac.astype(np.float32)
+    same = lo == hi
+    w_lo = np.where(same, w_lo + w_hi, w_lo)
+    w_hi = np.where(same, np.float32(0.0), w_hi)
+    return (lo.astype(np.int32), hi.astype(np.int32), w_lo, w_hi)
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) bilinear interpolation matrix of :func:`_resize_taps`."""
+    lo, hi, w_lo, w_hi = _resize_taps(in_size, out_size)
     mat = np.zeros((out_size, in_size), dtype=np.float32)
     rows = np.arange(out_size)
-    np.add.at(mat, (rows, lo), (1.0 - frac).astype(np.float32))
-    np.add.at(mat, (rows, hi), frac.astype(np.float32))
+    mat[rows, hi] = w_hi
+    mat[rows, lo] = w_lo
     return mat
 
 
@@ -97,7 +116,7 @@ def maybe_preprocess(images: torch.Tensor, bgr_as_rgb: bool = False,
     """Preprocess when the input is uint8; pass floats through unchanged.
 
     ``impl`` keeps the JAX config's names: ``"xla"`` is the plain path
-    here; ``"pallas"`` (the fused kernel) is not ported yet.
+    here, ``"pallas"`` the fused kernels.
     """
     if images.dtype != torch.uint8:
         return images
@@ -107,7 +126,97 @@ def maybe_preprocess(images: torch.Tensor, bgr_as_rgb: bool = False,
             target_size):
         target_size = None
     if impl == "pallas":
-        raise NotImplementedError(
-            "preprocess_impl='pallas' needs the fused grayscale kernel, "
-            "not ported yet (ROADMAP kernel K2); use 'xla'")
+        return grayscale_normalize_fused(images, bgr_as_rgb, target_size)
     return grayscale_normalize(images, bgr_as_rgb, target_size)
+
+
+# ---------------------------------------------------------------------------
+# The fused kernels
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _device_taps(in_size: int, out_size: int, device: torch.device):
+    # One copy per device and size pair: a host-to-device copy on every
+    # call would synchronise the step.
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in _resize_taps(in_size, out_size))
+
+
+def grayscale_normalize_fused(images: torch.Tensor, bgr_as_rgb: bool = False,
+                              target_size: Optional[Tuple[int, int]] = None
+                              ) -> torch.Tensor:
+    """Fused u8 -> gray [-> resize] -> normalize: uint8 (..., H, W, 3) ->
+    float32 (..., H', W', 1), the function of :func:`grayscale_normalize`.
+
+    On a CUDA tensor it launches the hand-written kernels
+    (``gray_normalize``, or ``gray_resize_normalize`` when ``target_size``
+    differs from the input's), counted in
+    ``grayscale_normalize_fused.launches`` and ``.resize_launches``, and
+    raises on what they do not take; a non-contiguous input is copied once.
+    On a CPU tensor, and for 1-channel input (nothing to fuse), it runs the
+    plain path.
+    """
+    if images.shape[-1] != 3 or images.device.type == "cpu":
+        return grayscale_normalize(images, bgr_as_rgb, target_size)
+    if images.device.type != "cuda":
+        raise ValueError("grayscale_normalize_fused runs on CPU or CUDA, "
+                         f"not {images.device}")
+    if images.dtype != torch.uint8 or images.dim() < 3:
+        raise TypeError("grayscale_normalize_fused kernel takes uint8 "
+                        f"(..., H, W, 3), got {images.dtype} "
+                        f"{tuple(images.shape)}")
+    lead = tuple(images.shape[:-3])
+    h, w = images.shape[-3:-1]
+    resize = target_size is not None and tuple(target_size) != (h, w)
+    oh, ow = tuple(target_size) if resize else (h, w)
+    out = torch.empty(lead + (oh, ow, 1), dtype=torch.float32,
+                      device=images.device)
+    if out.numel() == 0:
+        return out
+    images = images.contiguous()
+    n = images.numel() // (h * w * 3)
+    w0, w1, w2 = (float(x) for x in _weights(3, bgr_as_rgb))
+    plain, resized = _entries or load_library()
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        if resize:
+            taps = (_device_taps(h, oh, images.device)
+                    + _device_taps(w, ow, images.device))
+            err = resized(images.data_ptr(), out.data_ptr(), n, h, w, oh, ow,
+                          *(t.data_ptr() for t in taps), w0, w1, w2, stream)
+        else:
+            err = plain(images.data_ptr(), out.data_ptr(), n * h * w, w0, w1,
+                        w2, stream)
+    if err != 0:
+        raise RuntimeError("grayscale_normalize_fused kernel launch failed: "
+                           f"CUDA error {err}")
+    if resize:
+        grayscale_normalize_fused.resize_launches += 1
+    else:
+        grayscale_normalize_fused.launches += 1
+    return out
+
+
+grayscale_normalize_fused.launches = 0          # gray_normalize
+grayscale_normalize_fused.resize_launches = 0   # gray_resize_normalize
+_entries = None    # the C entries, once load_library has bound them
+
+
+def load_library():
+    """Build (at first use) and load the kernels' library; returns its C
+    entries (``gray_normalize``, ``gray_resize_normalize``), bound once."""
+    global _entries
+    from videocad_tpu_torch.kernels import build
+
+    lib = build.load("gray_normalize")
+    plain, resized = lib.gray_normalize, lib.gray_resize_normalize
+    plain.restype = resized.restype = ctypes.c_int
+    # Pointers and the stream as c_void_p: without argtypes ctypes would
+    # pass each Python int as a 32-bit int and cut the pointer.
+    plain.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    resized.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p] * 8 + [ctypes.c_float] * 3
+                        + [ctypes.c_void_p])
+    _entries = (plain, resized)
+    return _entries
