@@ -15,25 +15,42 @@ imports nothing of JAX. Phases, each of which must pass:
      turns: mhsa_short forward without and with dropout (the kept set must
      be the plain version's), its backward (also against autograd through
      the plain forward at float32), the mask's properties, the two
-     grayscale kernels, and one library call (scaled_dot_product_attention)
-     timed beside the forward as a yardstick that no path uses;
+     grayscale kernels, layer_norm forward and backward (also against
+     float64), hw_dropout (compared exactly, and its mask's properties),
+     and one library call per kernel that has one
+     (scaled_dot_product_attention, F.layer_norm and its backward,
+     F.dropout) timed beside it as a yardstick that no path uses;
   4. serve: the flagship config at full width in bf16 with seeded random
      weights, through the serving CLI's build_engine, behind the HTTP
      server; three staggered sessions step through ServingClient, some
      steps concurrent;
   5. rollout: sequential_inference on the flagship at B=2, T=187;
   6. train A: the flagship as its JSON has it (bf16, dropout 0.1, fused ViT
-     attention), B=8, T=192, 224 x 224 uint8 frames: 2 warm-up and 5 timed
+     attention), B=8, T=192, 224 x 224 uint8 frames: 1 warm-up and 3 timed
      train steps, the eval loss before and after;
   7. train B: the same config with preprocess_impl "pallas", B=2, T=48, a
      256 x 256 CAD image: 2 train steps and an eval step, the eval loss
      against the plain preprocess path's;
-  8. reference: at the flagship's widths in float32, with the depth cut to
+  8. train C: the training entry point, videocad_tpu_torch.cli.train.main,
+     on a synthetic dataset written to disk from a seed (32 sequences of
+     150-191 frames of 224 x 224 x 3), the flagship with ln_impl and
+     dropout_impl "pallas": 2 epochs of 2 steps at B=8 with validation, a
+     rollout validation, checkpoints, the test evaluation and test
+     rollout; then a second call with --resume for one epoch more. The
+     epoch loop must not synchronise the host outside its logging fetch;
+     the files of the logs layout must exist; the resumed run must start at
+     epoch 2, step 4, with the checkpoint's parameters; the eval loss on
+     the test split must fall;
+  9. serve from train C's last checkpoint (--checkpoint_folder), one
+     session of a few steps over HTTP;
+ 10. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
-     rollout's logits and one train step's loss and gradients compared.
+     rollout's logits and one train step's loss and gradients compared,
+     the train step once more with ln_impl and dropout_impl "pallas".
 
 The kernels' launch counters are set to 0 just before phase 4 and read
-after phase 7: each kernel must have been launched by the main path. The
+after phase 7, and again just before phase 8 and read just after it: each
+kernel must have been launched by one of the two paths. The
 second-to-last lines are a JSON object of the kernels and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
@@ -43,11 +60,15 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -416,6 +437,243 @@ def phase_gray(pp):
     return rows
 
 
+LN_SHAPES = ((76400, 512), (74872, 1024), (400, 512))   # rows x d
+LN_EPS = 1e-5
+DROPOUT_SHAPES = ((1528, 50, 512), (8, 4, 191, 191), (1000003,))
+
+
+def ulps(got, want):
+    """|got - want| in units of the last place of bf16 (8 significant
+    bits) at ``want``'s magnitude; where ``want`` is so near 0 that this
+    unit is below the float32 tolerance 1e-5 (a cancellation in float32
+    arithmetic, whose absolute error does not shrink with the result), in
+    units of 1e-5."""
+    import torch
+
+    w = want.float()
+    exponent = torch.frexp(w.abs().clamp_min(1e-30))[1]
+    unit = torch.ldexp(torch.ones_like(w), exponent - 8).clamp_min(1e-5)
+    return (got.float() - w).abs() / unit
+
+
+def layer_norm_f64(x, scale, bias):
+    import torch.nn.functional as F
+
+    return F.layer_norm(x.double(), x.shape[-1:], scale.double(),
+                        bias.double(), LN_EPS)
+
+
+def phase_layer_norm(ln):
+    """layer_norm forward and backward against their plain versions and
+    against float64. Tolerances: a bf16 output within one unit of its last
+    place (the kernel sums a row in another order than the plain version,
+    which can move the one rounding to bf16; 1e-5 where the output is so
+    near 0 that its last place is smaller), a float32 output within 1e-5;
+    dscale and dbias within 1e-4 of their largest entry (sums over up to
+    76,400 rows in another order). The library yardsticks, on no path:
+    F.layer_norm and its autograd backward."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for (n, d), dtype in [(shape, dtype) for shape in LN_SHAPES
+                          for dtype in (torch.bfloat16, torch.float32)]:
+        bf16 = dtype == torch.bfloat16
+        x = (randn((n, d), gen, torch.float32) * 2.0 + 0.5).to(dtype)
+        g = randn((n, d), gen, dtype)
+        scale = 1.0 + 0.1 * randn((d,), gen, torch.float32)
+        bias = 0.1 * randn((d,), gen, torch.float32)
+        itemsize = 2 if bf16 else 4
+
+        def errors(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            return err, ulps(got, want).max().item()
+
+        with torch.no_grad():
+            got = ln.layer_norm(x, scale, bias, LN_EPS)
+            torch.cuda.synchronize()
+            want = ln.layer_norm_plain(x, scale, bias, LN_EPS)
+            max_err, max_ulps = errors(got, want)
+            exact = layer_norm_f64(x, scale, bias)
+            f64_err = (got.double() - exact).abs().max().item()
+            del exact
+            lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
+            ms, plain_ms = in_turns(
+                lambda: ln.layer_norm(x, scale, bias, LN_EPS),
+                lambda: ln.layer_norm_plain(x, scale, bias, LN_EPS))
+            library_ms = cuda_ms(lambda: F.layer_norm(
+                x, (d,), lib_scale, lib_bias, LN_EPS))
+        row = {"kernel": "layer_norm_fwd", "rows": n, "d": d,
+               "dtype": dtype_name(dtype), "max_abs_err": max_err,
+               "max_err_ulps": max_ulps, "max_abs_err_vs_f64": f64_err,
+               "tolerance": "1 ulp of bf16" if bf16 else "1e-5",
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+        row.update(bound(2 * n * d * itemsize + 8 * d, 8.0 * n * d,
+                         "float32"))
+        print(f"layer_norm_fwd {row}", flush=True)
+        check(math.isfinite(max_err)
+              and (max_ulps <= 1.0 if bf16 else max_err <= 1e-5),
+              f"layer_norm_fwd {n}x{d} {dtype}: max err {max_err} "
+              f"({max_ulps} ulps)")
+        check(f64_err <= (0.05 if bf16 else 1e-5),
+              f"layer_norm_fwd {n}x{d} {dtype}: {f64_err} from float64")
+        rows.append(row)
+        del got, want
+
+        # Backward, through autograd: one launch of the backward kernel.
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        before = ln.layer_norm_backward.launches
+        ln.layer_norm(*leaves, LN_EPS).backward(g)
+        torch.cuda.synchronize()
+        check(ln.layer_norm_backward.launches == before + 1,
+              "autograd did not launch the LayerNorm backward once")
+        dx, dscale, dbias = (t.grad for t in leaves)
+        with torch.no_grad():
+            want_dx, want_dscale, want_dbias = ln.layer_norm_backward_plain(
+                x, scale, g, LN_EPS)
+        max_err, max_ulps = errors(dx, want_dx)
+        rel = lambda a, w: ((a - w).abs().max()  # noqa: E731
+                            / w.abs().max()).item()
+        param_err = max(rel(dscale, want_dscale), rel(dbias, want_dbias))
+        again = [t.double().requires_grad_() for t in (x, scale, bias)]
+        exact = torch.autograd.grad(layer_norm_f64(*again), again, g.double())
+        f64_err = (dx.double() - exact[0]).abs().max().item()
+        f64_param_err = max(rel(dscale.double(), exact[1]),
+                            rel(dbias.double(), exact[2]))
+        del again, exact, want_dx
+        lib = [x.clone().requires_grad_(), lib_scale.clone().requires_grad_(),
+               lib_bias.clone().requires_grad_()]
+        lib_out = F.layer_norm(lib[0], (d,), lib[1], lib[2], LN_EPS)
+        with torch.no_grad():
+            ms, plain_ms = in_turns(
+                lambda: ln.layer_norm_backward(x, scale, g, LN_EPS),
+                lambda: ln.layer_norm_backward_plain(x, scale, g, LN_EPS))
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib, g, retain_graph=True))
+        del lib, lib_out
+        row = {"kernel": "layer_norm_bwd", "rows": n, "d": d,
+               "dtype": dtype_name(dtype), "max_abs_err": max_err,
+               "max_err_ulps": max_ulps, "max_abs_err_vs_f64": f64_err,
+               "param_grad_rel_err": param_err,
+               "param_grad_rel_err_vs_f64": f64_param_err,
+               "tolerance": ("dx 1 ulp of bf16" if bf16 else "dx 1e-5")
+               + ", dscale and dbias 1e-4 of the largest entry",
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+        row.update(bound(3 * n * d * itemsize + 12 * d, 16.0 * n * d,
+                         "float32"))
+        print(f"layer_norm_bwd {row}", flush=True)
+        check(math.isfinite(max_err)
+              and (max_ulps <= 1.0 if bf16 else max_err <= 1e-5),
+              f"layer_norm_bwd {n}x{d} {dtype}: dx max err {max_err} "
+              f"({max_ulps} ulps)")
+        check(param_err <= 1e-4 and f64_param_err <= 1e-4,
+              f"layer_norm_bwd {n}x{d} {dtype}: dscale / dbias differ by "
+              f"{param_err} (plain), {f64_param_err} (float64) of the "
+              "largest entry")
+        rows.append(row)
+        del x, g, dx, leaves
+        torch.cuda.empty_cache()
+    # A width off the vector grid takes the scalar path of the same kernels.
+    x = randn((37, 100), gen, torch.bfloat16)
+    scale, bias = (randn((100,), gen, torch.float32) for _ in range(2))
+    with torch.no_grad():
+        odd = ulps(ln.layer_norm(x, scale, bias, LN_EPS),
+                   ln.layer_norm_plain(x, scale, bias, LN_EPS)).max().item()
+    check(odd <= 1.0, f"layer_norm_fwd 37x100 bf16: {odd} ulps")
+    try:
+        ln.layer_norm(randn((4, 2048), gen, torch.bfloat16),
+                      torch.ones(2048, device="cuda"),
+                      torch.zeros(2048, device="cuda"))
+        fail("layer_norm took d = 2048 on the card")
+    except ValueError:
+        pass
+    print(f"layer_norm: 37x100 bf16 (scalar path) within {odd} ulps; d = 2048 "
+          "raises", flush=True)
+    return rows
+
+
+def phase_hw_dropout(dr):
+    """hw_dropout against its plain version, compared exactly (max abs err
+    0 and the kept set identical), and the mask's properties on the card.
+    The library yardstick, on no path: F.dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape, dtype in [(shape, dtype) for shape in DROPOUT_SHAPES
+                         for dtype in (torch.bfloat16, torch.float32)]:
+        x = randn(shape, gen, dtype)
+        x[x == 0] = 1.0
+        seed = 3000 + len(shape)
+        with torch.no_grad():
+            got = dr.hw_dropout(x, seed, RATE)
+            torch.cuda.synchronize()
+            want = dr.hw_dropout_plain(x, seed, RATE)
+            max_err = (got.float() - want.float()).abs().max().item()
+            same_set = torch.equal(got != 0, want != 0)
+            share = (got == 0).float().mean().item()
+            del want
+            reps = dict(reps=3, groups=3, warmup=1)
+            ms, plain_ms = in_turns(
+                lambda: dr.hw_dropout(x, seed, RATE),
+                lambda: dr.hw_dropout_plain(x, seed, RATE), **reps)
+            library_ms = cuda_ms(lambda: F.dropout(x, RATE, True))
+        n = x.numel()
+        row = {"kernel": "hw_dropout", "shape": list(shape),
+               "dtype": dtype_name(dtype), "max_abs_err": max_err,
+               "kept_set_identical": same_set, "drop_share": share,
+               "tolerance": "0 (exact)", "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms}
+        # Philox: about 90 integer operations per four elements.
+        row.update(bound(2 * n * (2 if dtype == torch.bfloat16 else 4),
+                         23.0 * n, "float32"))
+        print(f"hw_dropout {row}", flush=True)
+        check(max_err == 0.0 and same_set,
+              f"hw_dropout {shape} {dtype}: differs from its plain version "
+              f"(max err {max_err}, kept set identical: {same_set})")
+        sigma = math.sqrt(RATE * (1 - RATE) / n)
+        check(abs(share - RATE) <= 4 * sigma,
+              f"hw_dropout {shape} {dtype}: drop share {share}, more than "
+              f"4 sigma ({4 * sigma}) from {RATE}")
+        rows.append(row)
+        del x, got
+        torch.cuda.empty_cache()
+
+    # The mask's properties, on the largest tensor.
+    x = randn(DROPOUT_SHAPES[0], gen, torch.bfloat16)
+    x[x == 0] = 1.0
+    flat = x.reshape(-1)
+    k = DROPOUT_SHAPES[2][0]
+    with torch.no_grad():
+        full = dr.hw_dropout(x, 41, RATE)
+        same = torch.equal(full, dr.hw_dropout(x, 41, RATE))
+        other = not torch.equal(full != 0, dr.hw_dropout(x, 42, RATE) != 0)
+        # A flat prefix runs under another grid, and its odd length and, for
+        # the view that starts one element in, its alignment take the scalar
+        # accesses: the mask must be the prefix of the full mask all the same.
+        prefix = torch.equal(dr.hw_dropout(flat[:k], 41, RATE),
+                             full.reshape(-1)[:k])
+        shifted = torch.equal(dr.hw_dropout(flat[1:k], 41, RATE) != 0,
+                              full.reshape(-1)[:k - 1] != 0)
+    leaf = x.clone().requires_grad_()
+    g = randn(DROPOUT_SHAPES[0], gen, torch.bfloat16)
+    before = dr.hw_dropout.launches
+    dr.hw_dropout(leaf, 41, RATE).backward(g)
+    check(dr.hw_dropout.launches == before + 2,
+          "hw_dropout under autograd did not launch twice (forward, backward)")
+    with torch.no_grad():
+        backward = torch.equal(leaf.grad, dr.hw_dropout(g, 41, RATE))
+    print(f"hw_dropout mask: same seed same mask: {same}; another seed "
+          f"another: {other}; flat prefix of {k} elements draws the prefix of "
+          f"the mask: {prefix}; so does an unaligned view: {shifted}; the "
+          f"backward is the forward on the cotangent: {backward}", flush=True)
+    check(same and other and prefix and shifted and backward,
+          "hw_dropout's mask failed a property")
+    return rows
+
+
 def valid_reply(reply, step: int) -> bool:
     params, action = reply.get("params"), reply.get("action")
     return (reply.get("step") == step and reply.get("cmd") in range(5)
@@ -567,7 +825,7 @@ def phase_train_a(fa):
                                              image_size=224, seed=0))
         eval_before = eval_step(batch)[0].item()
         losses, step_ms = [], []
-        for step in range(7):
+        for step in range(4):
             marks = (fa.mhsa_short.launches, fa.mhsa_short_backward.launches)
             torch.cuda.synchronize()
             start = time.monotonic()
@@ -580,13 +838,13 @@ def phase_train_a(fa):
             check(fwd == 12 and bwd == 12,
                   f"train step {step}: {fwd} forward and {bwd} backward "
                   "launches of mhsa_short, expected 12 and 12")
-        if max(step_ms[2:]) <= 10e3 or batch_size == 1:
+        if max(step_ms[1:]) <= 10e3 or batch_size == 1:
             break
         batch_size //= 2        # too slow: halve B, keep T and the widths
-        print(f"train A: a step took {max(step_ms[2:]):.0f} ms; B halved to "
+        print(f"train A: a step took {max(step_ms[1:]):.0f} ms; B halved to "
               f"{batch_size}", flush=True)
     eval_after = eval_step(batch)[0].item()
-    check(state.step >= 7 and all(math.isfinite(x) for x in losses),
+    check(state.step >= 4 and all(math.isfinite(x) for x in losses),
           f"train A losses {losses}")
     grads = {n: p.grad for n, p in model.named_parameters()
              if p.grad is not None}
@@ -595,7 +853,7 @@ def phase_train_a(fa):
           "a gradient is not finite")
     check(grads["state_encoder.block_0.attn.query.weight"].abs().max().item()
           > 0, "state_encoder.block_0.attn.query.weight has a zero gradient")
-    timed = step_ms[2:]
+    timed = step_ms[1:]
     ms = statistics.mean(timed)
     frames = batch_size * (TRAIN_SEQ - 1)
     print(f"train A: flagship bf16 dropout {RATE}, B={batch_size} "
@@ -661,6 +919,314 @@ def phase_train_b(pp):
           "under the plain one")
 
 
+TRAIN_C_FILES = (
+    "params.json", "training_config.json", "results.json", "seq_results.json",
+    "epoch_1.json", "epoch_2.json", "val_epoch_1.json", "val_epoch_2.json",
+    "val_seq.json", "test.json", "test_seq.json")
+
+
+def mean_eval_loss(model, pipe, loss_config):
+    """The mean teacher-forced eval loss of ``model`` over ``pipe``."""
+    import torch
+
+    from videocad_tpu_torch.train import make_eval_step
+
+    step = make_eval_step(model, loss_config)
+    losses = [step({k: torch.from_numpy(v).cuda() for k, v in batch.items()
+                    if k != "ids"})[0].item() for batch in pipe.epoch(0)]
+    check(len(losses) > 0, "the test split gave no batch")
+    return statistics.mean(losses)
+
+
+# What torch.cuda.set_sync_debug_mode("warn") says of a host synchronisation.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class EpochWatch:
+    """Instruments ``Trainer`` for the smoke run: every host
+    synchronisation inside ``_train_epoch`` other than the logging fetch
+    (``_snapshot``) is recorded (``torch.cuda.set_sync_debug_mode("warn")``
+    turns each into a warning), and the epochs' wall time, steps and kernel
+    launches are summed; ``resume`` records where a resumed run starts, and
+    the checkpoint handler's ``save`` is timed."""
+
+    def __init__(self, trainer_cls, handler_cls, counters):
+        self.cls, self.handler_cls = trainer_cls, handler_cls
+        self.counters = counters
+        self.syncs, self.epochs, self.resumed = [], [], None
+        self.save_seconds = []
+        self.saved = (trainer_cls._train_epoch, trainer_cls._snapshot,
+                      trainer_cls.resume, handler_cls.save)
+
+    def __enter__(self):
+        import torch
+
+        epoch, snapshot, resume, save = self.saved
+        watch = self
+        # The detector itself, first: a deliberate synchronisation must
+        # raise the warning the epochs are searched for.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.ones(1, device="cuda").item()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(any(SYNC_WARNING in str(w.message) for w in caught),
+              "torch's sync debug mode did not report a deliberate .item(): "
+              f"{[str(w.message) for w in caught]}")
+
+        def watched_epoch(trainer, *args, **kw):
+            marks = {k: read() for k, read in watch.counters.items()}
+            torch.cuda.synchronize()
+            start = time.monotonic()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = epoch(trainer, *args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            watch.syncs += [f"{w.filename}:{w.lineno}: {w.message}"
+                            for w in caught if SYNC_WARNING in str(w.message)]
+            watch.epochs.append({
+                "seconds": time.monotonic() - start,
+                "steps": len(trainer.train_pipe),
+                "launches": {k: read() - marks[k]
+                             for k, read in watch.counters.items()}})
+            return out
+
+        def watched_snapshot(trainer, *args, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return snapshot(trainer, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        def watched_resume(trainer, *args, **kw):
+            found = resume(trainer, *args, **kw)
+            watch.resumed = {
+                "found": found, "start_epoch": trainer.start_epoch,
+                "step": trainer.state.step,
+                "params": {k: p.detach().cpu().clone()
+                           for k, p in trainer.state.params.items()}}
+            return found
+
+        def watched_save(handler, *args, **kw):
+            start = time.monotonic()
+            path = save(handler, *args, **kw)
+            watch.save_seconds.append(time.monotonic() - start)
+            return path
+
+        self.cls._train_epoch = watched_epoch
+        self.cls._snapshot = watched_snapshot
+        self.cls.resume = watched_resume
+        self.handler_cls.save = watched_save
+        return self
+
+    def __exit__(self, *exc):
+        (self.cls._train_epoch, self.cls._snapshot, self.cls.resume,
+         self.handler_cls.save) = self.saved
+
+
+def phase_train_c(counters, card):
+    """Phase 8: the training entry point end to end, and phase 9, serving
+    from its checkpoint. Returns the launches of the path per kernel."""
+    import torch
+
+    from videocad_tpu_torch.cli import train as cli_train
+    from videocad_tpu_torch.data.pipeline import device_prefetch
+    from videocad_tpu_torch.data.synthetic import write_synthetic_dataset
+    from videocad_tpu_torch.experiment import default_loss_config
+    from videocad_tpu_torch.models.factory import (FLAGSHIP_NAME,
+                                                   create_model,
+                                                   flagship_config)
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+    from videocad_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="videocad_train_c_")
+    try:
+        data_dir = os.path.join(root, "data")
+        os.makedirs(data_dir)
+        split_path = os.path.join(data_dir, "dataset_split.json")
+        start = time.monotonic()
+        split = write_synthetic_dataset(
+            data_dir, num_sequences=32, min_len=150, max_len=191,
+            image_size=224, seed=0, split_path=split_path)
+        sizes = [sum(1 for v in split.values() if v == name)
+                 for name in ("train", "val", "test")]
+        print(f"train C: dataset written in {time.monotonic() - start:.1f} s "
+              f"(train / val / test sequences {sizes})", flush=True)
+        check(sizes == [16, 8, 8], f"split sizes {sizes}")
+
+        name = FLAGSHIP_NAME + "_pallas_ln_dropout"
+        params = dict(flagship_config(), ln_impl="pallas",
+                      dropout_impl="pallas")
+        params["train_config"] = {
+            "experiment_name": "train_c", "save_frequency": 1,
+            "val_frequency": 1, "seq_val_frequency": 2, "log_frequency": 2,
+            "sequential": True}
+        config_path = os.path.join(root, "model_config.json")
+        with open(config_path, "w") as f:
+            json.dump({name: params}, f)
+        argv = ["--dataset_path", data_dir, "--config_path", split_path,
+                "--model_config", config_path, "--model_name", name,
+                "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
+                "--lr", "1e-5", "--no_enable_random",
+                "--checkpoint_dir", os.path.join(root, "checkpoints"),
+                "--log_dir", os.path.join(root, "logs"),
+                "--class_weights", os.path.join(root, "no_class_weights")]
+
+        # The eval loss of the untrained weights on the test split: the
+        # experiment initialises its model from the same seed.
+        args = cli_train.parse_args(argv)
+        pipes = cli_train.build_pipelines(args, [], params)
+        test_pipe = pipes["test"]
+
+        # The host pipeline and the device feed alone, without a model: the
+        # seconds to assemble a batch (unpickle, pad, stack) and to pin and
+        # copy it to the card.
+        start = time.monotonic()
+        host_batches = list(pipes["train"].epoch(0))
+        assemble_s = (time.monotonic() - start) / len(host_batches)
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        for fed in device_prefetch(iter(host_batches), "cuda", size=2):
+            check(fed["frames"].shape == (TRAIN_BATCH, TRAIN_SEQ, 224, 224, 3),
+                  f"a fed batch of shape {tuple(fed['frames'].shape)}")
+        torch.cuda.synchronize()
+        feed_s = (time.monotonic() - start) / len(host_batches)
+        batch_mb = sum(v.nbytes for v in host_batches[0].values()
+                       if hasattr(v, "nbytes")) / 1e6
+        del host_batches, fed
+        loss_config = default_loss_config({})
+        model = create_model(params, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        loss_before = mean_eval_loss(model, test_pipe, loss_config)
+
+        for reset in counters.values():
+            reset(0)                      # train C's path starts here
+        torch.cuda.reset_peak_memory_stats()
+        start = time.monotonic()
+        with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+            results = cli_train.main(argv + ["--epochs", "2"])
+            first_seconds = time.monotonic() - start
+            check(watch.resumed is None, "the first run resumed")
+            start = time.monotonic()
+            resumed_results = cli_train.main(
+                argv + ["--epochs", "3", "--resume"])
+            second_seconds = time.monotonic() - start
+        launches = {k: read() for k, read in counters.items()}  # and ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        check(not watch.syncs, "the epoch loop synchronised the host outside "
+              "its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+        log_dir = os.path.join(root, "logs", "train_c")
+        for file_name in TRAIN_C_FILES + ("epoch_3.json",):
+            path = os.path.join(log_dir, file_name)
+            check(os.path.isfile(path), f"train C wrote no {file_name}")
+            with open(path) as f:
+                json.load(f)
+        for result in (results, resumed_results):
+            check(result["total_predictions"] > 0
+                  and math.isfinite(result["overall_accuracy"]),
+                  f"test results {result}")
+        handler = CheckpointHandler("train_c",
+                                    os.path.join(root, "checkpoints"))
+        check(handler.latest_epoch() == "epoch_3",
+              f"latest checkpoint {handler.latest_epoch()}")
+        check(len(watch.epochs) == 3 and all(e["steps"] == 2
+                                             for e in watch.epochs),
+              f"epochs run: {watch.epochs}")
+        saved = torch.load(os.path.join(handler.base, "epoch_2", "state.pt"),
+                           map_location="cpu", weights_only=True)
+        resumed = watch.resumed
+        check(resumed is not None and resumed["found"]
+              and resumed["start_epoch"] == 2 and resumed["step"] == 4
+              and saved["step"] == 4,
+              f"the resumed run started at {resumed and resumed['start_epoch']}"
+              f", step {resumed and resumed['step']}")
+        check(all(torch.equal(resumed["params"][k], v)
+                  for k, v in saved["params"].items()),
+              "the resumed parameters are not the checkpoint's")
+        moments = saved["opt_state"]["state"]
+        check(len(moments) == len(saved["params"])
+              and all(float(m["step"]) == 4 for m in moments.values()),
+              "the checkpoint lacks Adam's moments or step counts")
+
+        handler.restore_params("epoch_3", dict(model.named_parameters()))
+        loss_after = mean_eval_loss(model, test_pipe, loss_config)
+        per_step = {k: [e["launches"][k] / e["steps"] for e in watch.epochs]
+                    for k in counters}
+        step_ms = [e["seconds"] / e["steps"] * 1e3 for e in watch.epochs]
+        print(f"train C: cli.train.main, flagship bf16 with ln_impl and "
+              f"dropout_impl pallas, B={TRAIN_BATCH}, bucket 192, on {card}: "
+              f"2 epochs in {first_seconds:.1f} s, resume + 1 epoch in "
+              f"{second_seconds:.1f} s; ms per step by epoch (host clock "
+              f"around the epoch, data loading included) "
+              f"{[round(x, 1) for x in step_ms]}; launches per train step by "
+              f"epoch {per_step}; launches of the whole path {launches}; "
+              f"host pipeline alone {assemble_s:.3f} s per batch of "
+              f"{batch_mb:.0f} MB assembled (2 threads), {feed_s:.3f} s per "
+              f"batch pinned and copied to the card; checkpoint saves "
+              f"{[round(x, 2) for x in watch.save_seconds]} s; "
+              f"peak memory {peak_gb:.2f} GB; test eval loss "
+              f"{loss_before:.5f} -> {loss_after:.5f}; test accuracy "
+              f"{resumed_results['overall_accuracy']:.2f}%; host syncs in "
+              f"the epoch loops outside the logging fetch: "
+              f"{len(watch.syncs)}", flush=True)
+        check(math.isfinite(loss_after) and loss_after < loss_before,
+              f"the test eval loss did not fall: {loss_before} -> "
+              f"{loss_after}")
+        for kernel in ("layer_norm_fwd", "layer_norm_bwd", "hw_dropout",
+                       "mhsa_short", "mhsa_short_bwd"):
+            check(min(per_step[kernel]) > 0,
+                  f"train C's steps launched no {kernel} kernel")
+        del model
+        torch.cuda.empty_cache()
+        phase_serve_checkpoint(config_path, name,
+                               os.path.join(handler.base, "epoch_3"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_serve_checkpoint(config_path, name, checkpoint):
+    """Phase 9: the serving CLI's engine from a trainer checkpoint, one
+    session of a few steps behind the HTTP server."""
+    import numpy as np
+
+    from videocad_tpu_torch.cli.serve import build_engine, parse_args
+    from videocad_tpu_torch.infer.server import ServingClient, make_server
+
+    engine = build_engine(parse_args([
+        "--device", "cuda", "--lanes", "2", "--seq_len", str(SEQ_LEN),
+        "--model_config", config_path, "--model_name", name,
+        "--checkpoint_folder", checkpoint]))
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{server.server_address[1]}")
+        rng = np.random.default_rng(5)
+        sid = client.open_session(
+            rng.integers(0, 256, (224, 224, 3), dtype=np.uint8))
+        replies = [client.step(sid, rng.integers(0, 256, (224, 224, 3),
+                                                 dtype=np.uint8))
+                   for _ in range(3)]
+        client.close_session(sid)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    for s, reply in enumerate(replies):
+        check(valid_reply(reply, s), f"checkpoint serve step {s}: {reply}")
+    print(f"serve from checkpoint: {os.path.basename(checkpoint)} answered 3 "
+          f"steps, cmds {[r['cmd'] for r in replies]}", flush=True)
+
+
 def phase_reference():
     """Phase 6: the path at the flagship's widths in float32 (depth cut to
     2 + 2), on the card and on the CPU, logits compared."""
@@ -691,11 +1257,12 @@ def phase_reference():
           flush=True)
 
 
-def phase_reference_train():
-    """Phase 8, second half: one float32 train step (dropout 0, depth 2 + 2,
-    T=6) on the card and on the CPU (plain versions): loss within 1e-4,
-    gradients within 1e-3 of each tensor's largest entry (key biases, whose
-    gradient is zero but for rounding, within an absolute 1e-6)."""
+def phase_reference_train(**impls):
+    """The reference phase's second half: one float32 train step (dropout
+    0, depth 2 + 2, T=6) on the card and on the CPU (plain versions): loss
+    within 1e-4, gradients within 1e-3 of each tensor's largest entry (key
+    biases, whose gradient is zero but for rounding, within an absolute
+    1e-6). ``impls`` overrides the config's ``*_impl`` keys."""
     import torch
 
     from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
@@ -704,7 +1271,7 @@ def phase_reference_train():
                                           create_train_state, make_train_step)
 
     cfg = dict(flagship_config(), dtype="float32", vit_depth=2,
-               num_decoder_layers=2, dropout=0.0)
+               num_decoder_layers=2, dropout=0.0, **impls)
     data = synthetic_batch_feed(1, 7, image_size=224, seed=3)
     outs = {}
     for device in ("cuda", "cpu"):
@@ -730,7 +1297,8 @@ def phase_reference_train():
         err /= max(want.abs().max().item(), 1e-30)
         if err > worst:
             worst, worst_name = err, name
-    print(f"reference: float32 train step (depth 2+2, T=6, dropout 0), card "
+    print(f"reference: float32 train step (depth 2+2, T=6, dropout 0"
+          f"{''.join(f', {k} {v}' for k, v in impls.items())}), card "
           f"vs CPU: loss {outs['cuda'][0]:.6f} vs {outs['cpu'][0]:.6f} (tol "
           f"1e-4); worst gradient error relative to its tensor's largest "
           f"entry {worst:.3g} at {worst_name} (tol 1e-3); key biases' noise "
@@ -745,15 +1313,17 @@ def kernel_entry(name, replaces, launches, rows, pick, extra):
     """One entry of the kernels line: the times at the train step's shape,
     the largest error over all checks."""
     row = next(r for r in rows if r["kernel"] == name and pick(r))
+    source = ("mhsa_short.cu" if name.startswith("mhsa")
+              else "layernorm.cu" if name.startswith("layer_norm")
+              else "dropout.cu" if name == "hw_dropout"
+              else "gray_normalize.cu")
     entry = {"name": name, "route": "cuda",
-             "source": "videocad_tpu_torch/csrc/" + (
-                 "mhsa_short.cu" if name.startswith("mhsa")
-                 else "gray_normalize.cu"),
+             "source": "videocad_tpu_torch/csrc/" + source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows
                                 if r["kernel"] == name),
              "ms": row["ms"], "plain_ms": row["plain_ms"],
-             "library_ms": None}
+             "library_ms": row.get("library_ms")}
     entry.update(extra(row))
     entry["checks"] = [r for r in rows if r["kernel"] == name]
     return entry
@@ -780,7 +1350,9 @@ def main() -> None:
     import numpy as np
 
     from videocad_tpu_torch.kernels import build
+    from videocad_tpu_torch.ops import dropout as dr
     from videocad_tpu_torch.ops import fused_attention as fa
+    from videocad_tpu_torch.ops import layernorm as ln
     from videocad_tpu_torch.ops import preprocess as pp
     from videocad_tpu_torch.ops import prng
 
@@ -793,8 +1365,8 @@ def main() -> None:
 
     start = time.monotonic()
     names = build.build_all()
-    fa.load_library()
-    pp.load_library()
+    for module in (fa, pp, ln, dr):
+        module.load_library()
     print(f"build: {names} in {time.monotonic() - start:.1f} s", flush=True)
     for name in names:
         seconds, log = build.build_log.get(name, (0.0, "(cached)"))
@@ -805,19 +1377,31 @@ def main() -> None:
     rows += phase_backward(fa, prng)
     phase_mask(fa)
     rows += phase_gray(pp)
+    rows += phase_layer_norm(ln)
+    rows += phase_hw_dropout(dr)
     torch.cuda.empty_cache()
 
-    counters = {
-        "mhsa_short": lambda: fa.mhsa_short.launches,
-        "mhsa_short_bwd": lambda: fa.mhsa_short_backward.launches,
-        "gray_normalize": lambda: pp.grayscale_normalize_fused.launches,
-        "gray_resize_normalize":
-            lambda: pp.grayscale_normalize_fused.resize_launches,
+    # name -> (the function that carries the count, the count's attribute);
+    # counter(name)() reads a count, counter(name)(0) sets it.
+    counted = {
+        "mhsa_short": (fa.mhsa_short, "launches"),
+        "mhsa_short_bwd": (fa.mhsa_short_backward, "launches"),
+        "gray_normalize": (pp.grayscale_normalize_fused, "launches"),
+        "gray_resize_normalize": (pp.grayscale_normalize_fused,
+                                  "resize_launches"),
+        "layer_norm_fwd": (ln.layer_norm, "launches"),
+        "layer_norm_bwd": (ln.layer_norm_backward, "launches"),
+        "hw_dropout": (dr.hw_dropout, "launches"),
     }
-    fa.mhsa_short.launches = 0            # the main path starts here
-    fa.mhsa_short_backward.launches = 0
-    pp.grayscale_normalize_fused.launches = 0
-    pp.grayscale_normalize_fused.resize_launches = 0
+
+    def counter(name):
+        holder, attr = counted[name]
+        return lambda *value: (setattr(holder, attr, value[0]) if value
+                               else getattr(holder, attr))
+
+    counters = {name: counter(name) for name in counted}
+    for reset in counters.values():
+        reset(0)                          # the first main path starts here
     engine = phase_serve(fa, np)
     phase_rollout(fa, engine)
     del engine
@@ -826,13 +1410,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_b(pp)
     launches = {name: read() for name, read in counters.items()}
-    torch.cuda.empty_cache()             # the main path ends here
-    for name, count in launches.items():
-        check(count > 0, f"the main path launched no {name} kernel")
-    print(f"main path launches: {launches}", flush=True)
+    torch.cuda.empty_cache()             # the first main path ends here
+    launches_c = phase_train_c(counters, card)
+    torch.cuda.empty_cache()
+    for name in counters:
+        check(launches[name] > 0 or launches_c[name] > 0,
+              f"neither main path launched a {name} kernel")
+    print(f"main path launches: serve, rollout, train A and B {launches}; "
+          f"train C {launches_c}", flush=True)
+    # The path each kernel is claimed on: train C for the kernels behind
+    # ln_impl and dropout_impl, the first path for the others.
+    by_path = {name: {"serve_rollout_train_ab": launches[name],
+                      "train_c": launches_c[name]} for name in counters}
+    launches = {name: launches_c[name] if name.startswith(("layer_norm",
+                                                           "hw_dropout"))
+                else launches[name] for name in counters}
 
     phase_reference()
     phase_reference_train()
+    phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
 
     at_train = lambda r: (r["batch"] == TRAIN_FRAMES  # noqa: E731
                           and r["dtype"] == "bfloat16")
@@ -859,7 +1455,23 @@ def main() -> None:
     resize = kernel_entry(
         "gray_resize_normalize", "videocad_tpu/ops/preprocess.py:167",
         launches["gray_resize_normalize"], rows, lambda r: True, same)
-    print(json.dumps({"kernels": [fwd, bwd, gray, resize]}), flush=True)
+    ln_shape = lambda r: (r["rows"], r["d"]) == LN_SHAPES[0] and (  # noqa: E731
+        r["dtype"] == "bfloat16")
+    ln_fwd = kernel_entry(
+        "layer_norm_fwd", "videocad_tpu/ops/layernorm.py:43",
+        launches["layer_norm_fwd"], rows, ln_shape, same)
+    ln_bwd = kernel_entry(
+        "layer_norm_bwd", "videocad_tpu/ops/layernorm.py:51",
+        launches["layer_norm_bwd"], rows, ln_shape, same)
+    drop = kernel_entry(
+        "hw_dropout", "videocad_tpu/ops/dropout.py:32",
+        launches["hw_dropout"], rows,
+        lambda r: tuple(r["shape"]) == DROPOUT_SHAPES[0]
+        and r["dtype"] == "bfloat16", same)
+    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop]
+    for entry in kernels:
+        entry["launches_by_path"] = by_path[entry["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

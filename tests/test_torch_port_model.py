@@ -180,3 +180,49 @@ def test_load_jax_params_reads_npz_and_vcdx(tmp_path):
         for key in want:
             torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
     model.load_state_dict(state_dict_from_jax(load_jax_params(str(npz))[0]))
+
+
+# ---- ln_impl / dropout_impl "pallas" ----
+
+def test_ln_impl_pallas_logits_match_jax_and_the_plain_layernorm():
+    """The tiny config with the fused LayerNorm: the JAX side runs its
+    Pallas kernel in interpret mode, the port its plain version; 1e-4 at
+    float32 against JAX (as the default path is held), 1e-5 against the
+    port under ln_impl "xla" with the same weights."""
+    impls = {"ln_impl": "pallas", "dropout_impl": "pallas"}
+    jax_model, params, model = _pair(impls, seed=6)
+    plain = create_model(FUSED)
+    plain.load_state_dict(model.state_dict())     # the same names either way
+    assert list(model.state_dict()) == list(plain.state_dict())
+    assert sorted(state_dict_from_jax(params)) == sorted(model.state_dict())
+    b, t = 2, 5
+    inputs = {"frames": _u8((b, t, 32, 32, 3), seed=7),
+              "cad_image": _u8((b, 32, 32, 3), seed=8),
+              "actions": _actions(b, t, seed=9)}
+    expected = jax_model.apply({"params": params},
+                               {k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        tensors = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        got = model(tensors)
+        want_plain = plain(tensors)
+    for g, e, w in zip(got, expected, want_plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+def test_ln_impl_pallas_uses_the_fused_layernorm_in_the_vit_only():
+    from videocad_tpu_torch.models.layers import LayerNorm
+    from videocad_tpu_torch.models.vit import FusedLayerNorm
+
+    model = create_model(dict(FUSED, ln_impl="pallas"))
+    fused = [n for n, m in model.named_modules()
+             if isinstance(m, FusedLayerNorm)]
+    plain = [n for n, m in model.named_modules() if isinstance(m, LayerNorm)]
+    # 3 + 2 per block in each of the two encoders; the decoder's stay.
+    assert len(fused) == 2 * (3 + 2 * FUSED["vit_depth"])
+    assert all(n.split(".")[0] in ("state_encoder", "cad_encoder")
+               for n in fused)
+    assert plain and all(n.startswith("decoder.") for n in plain)
+    with pytest.raises(ValueError, match="unknown ln_impl"):
+        create_model(dict(FUSED, ln_impl="mosaic"))

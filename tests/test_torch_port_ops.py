@@ -21,6 +21,7 @@ from videocad_tpu.actions import ops as jax_action_ops
 from videocad_tpu.actions import vocab as jax_vocab
 from videocad_tpu.ops import dropout as jax_dropout
 from videocad_tpu.ops import fused_attention as jax_fused
+from videocad_tpu.ops import layernorm as jax_layernorm
 from videocad_tpu.ops import preprocess as jax_preprocess
 from videocad_tpu.ops import prng as jax_prng
 from videocad_tpu_torch.actions import ops as port_action_ops
@@ -29,6 +30,7 @@ from videocad_tpu_torch.cli import serve as port_serve
 from videocad_tpu_torch.models import create_model, flagship_config
 from videocad_tpu_torch.ops import dropout as port_dropout
 from videocad_tpu_torch.ops import fused_attention as port_fused
+from videocad_tpu_torch.ops import layernorm as port_layernorm
 from videocad_tpu_torch.ops import preprocess as port_preprocess
 from videocad_tpu_torch.ops import prng as port_prng
 from tests.helpers import TINY_CONFIG
@@ -219,8 +221,7 @@ def test_elementwise_dropout_keeps_both_rate_rules(rate, effective):
     """The u8 rule realizes rate 0.1 as 26/256 and scales by the effective
     rate, so E[y] = x; a rate off the u8 grid takes the exact u32 path."""
     x = torch.full((400, 1000), 2.0)
-    gen = torch.Generator().manual_seed(0)
-    y = port_dropout.dropout(x, gen, rate)
+    y = port_dropout.dropout(x, port_dropout.DropoutRng(0), rate)
     dropped = (y == 0).float().mean().item()
     assert abs(dropped - effective) < 0.02 * effective + 3e-4
     kept = y[y != 0]
@@ -237,15 +238,18 @@ def test_elementwise_dropout_keeps_both_rate_rules(rate, effective):
 
 def test_elementwise_dropout_guards_and_gradient():
     x = torch.ones(64, 64, requires_grad=True)
-    gen = torch.Generator().manual_seed(1)
-    assert port_dropout.dropout(x, gen, 0.0) is x
-    with pytest.raises(NotImplementedError, match="K5"):
-        port_dropout.dropout(x, gen, 0.1, impl="pallas")
-    with pytest.raises(ValueError, match="needs a torch.Generator"):
-        port_dropout.dropout(x, None, 0.1)
-    y = port_dropout.dropout(x, gen, 0.25)
-    y.sum().backward()
-    torch.testing.assert_close(x.grad, y.detach())   # the mask times 1/keep
+    rng = port_dropout.DropoutRng(1)
+    assert port_dropout.dropout(x, rng, 0.0) is x
+    assert port_dropout.dropout(x, None, 0.0, impl="pallas") is x
+    with pytest.raises(ValueError, match="unknown dropout impl"):
+        port_dropout.dropout(x, rng, 0.1, impl="mosaic")
+    for impl in ("xla", "pallas"):
+        with pytest.raises(ValueError, match="needs a DropoutRng"):
+            port_dropout.dropout(x, None, 0.1, impl=impl)
+        x.grad = None
+        y = port_dropout.dropout(x, rng, 0.25, impl=impl)
+        y.sum().backward()
+        torch.testing.assert_close(x.grad, y.detach())  # mask times 1/keep
     rng = port_dropout.DropoutRng(5)
     assert rng.seeds.device.type == "cpu" and rng.bits.device.type == "cpu"
     with pytest.raises(ValueError, match="CPU torch.Generator"):
@@ -393,7 +397,14 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=str(Path(__file__).resolve().parents[1]))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    # Every module of the package, the trainer slice's among them.
+    assert int(out.stdout.split()[-1]) >= 42
+    package = Path(__file__).resolve().parents[1] / "videocad_tpu_torch"
+    for module in ["ops/layernorm.py", "utils/io.py", "data/collate.py",
+                   "data/dataset.py", "data/pipeline.py",
+                   "train/checkpoint.py", "train/preempt.py",
+                   "train/trainer.py", "experiment.py", "cli/train.py"]:
+        assert (package / module).is_file(), module
 
 
 def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
@@ -409,10 +420,10 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 @pytest.mark.parametrize("override,item", [
     ({"vit_attention_impl": "block"}, "K6"),
     ({"vit_mlp_impl": "block"}, "K6"),
-    ({"ln_impl": "pallas"}, "K4"),
+    ({"num_views": 2}, "slice 11"),
     ({"attention_impl": "pallas"}, "K3"),
     ({"encoder": "resnet"}, "slice 11"),
-    ({"dropout_impl": "pallas"}, "K5"),
+    ({"frame_chunk": 4}, "slice 11"),
     ({"quant": "int8"}, "slice 11"),
 ])
 def test_unported_options_raise(override, item):
@@ -442,3 +453,181 @@ def test_profile_busy_union_and_device_check(monkeypatch):
         port_profile.main(["--device", "cuda"])
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         port_profile.main(["--device", "cpu"])
+
+
+# ---- K4: LayerNorm ----
+
+def _ln_inputs(rows, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, d)) * 2.0 + 0.5).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
+    return x, scale, bias, g
+
+
+# Row counts that are multiples of nothing the TPU kernel tiles by.
+LN_CASES = [(7, 32), (400, 512), (1037, 32), (7, 1024), (37, 512)]
+
+
+@pytest.mark.parametrize("rows,d", LN_CASES)
+def test_layer_norm_plain_matches_jax_kernel_and_flax(rows, d):
+    """Forward at float32: 1e-5 against the Pallas kernel in interpret mode
+    and against flax nn.LayerNorm."""
+    import flax.linen as nn
+
+    x, scale, bias, _ = _ln_inputs(rows, d, seed=rows + d)
+    got = port_layernorm.layer_norm(torch.from_numpy(x),
+                                    torch.from_numpy(scale),
+                                    torch.from_numpy(bias), 1e-5)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    want = jax_layernorm.layer_norm(jnp.asarray(x), jnp.asarray(scale),
+                                    jnp.asarray(bias), 1e-5, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    flax_out = nn.LayerNorm(epsilon=1e-5).apply(
+        {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}},
+        jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(flax_out), atol=1e-5,
+                               rtol=0)
+    assert port_layernorm.layer_norm.launches == 0    # CPU: the plain version
+
+
+@pytest.mark.parametrize("rows,d", [(7, 32), (400, 512)])
+def test_layer_norm_plain_bf16_is_within_one_ulp_of_jax(rows, d):
+    x, scale, bias, _ = _ln_inputs(rows, d, seed=3)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = port_layernorm.layer_norm(xb, torch.from_numpy(scale),
+                                    torch.from_numpy(bias), 1e-5)
+    assert got.dtype == torch.bfloat16
+    want = jax_layernorm.layer_norm(
+        jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(scale), jnp.asarray(bias), 1e-5, True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    # One unit in the last place of bf16 (8 significant bits) at the
+    # output's magnitude; 1e-5 where the output is nearer 0 than that.
+    exponent = torch.frexp(want.abs().clamp_min(1e-30))[1]
+    ulp = torch.ldexp(torch.ones_like(want), exponent - 8).clamp_min(1e-5)
+    assert ((got.float() - want).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("rows,d", LN_CASES)
+def test_layer_norm_plain_gradients_match_jax(rows, d):
+    """dx, dscale, dbias of the plain backward (through the wrapper's
+    autograd Function) against jax.grad through the Pallas kernels in
+    interpret mode and through flax: 1e-5 of each gradient's largest
+    entry."""
+    x, scale, bias, g = _ln_inputs(rows, d, seed=rows * 3 + d)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    port_layernorm.layer_norm(*leaves, 1e-5).backward(torch.from_numpy(g))
+
+    def pallas(x_, s_, b_):
+        return jnp.sum(jax_layernorm.layer_norm(x_, s_, b_, 1e-5, True)
+                       * jnp.asarray(g))
+
+    def plain(x_, s_, b_):
+        mean = x_.mean(-1, keepdims=True)
+        var = ((x_ - mean) ** 2).mean(-1, keepdims=True)
+        return jnp.sum(((x_ - mean) * jax.lax.rsqrt(var + 1e-5) * s_ + b_)
+                       * jnp.asarray(g))
+
+    args = tuple(jnp.asarray(a) for a in (x, scale, bias))
+    for reference in (pallas, plain):
+        want = jax.grad(reference, argnums=(0, 1, 2))(*args)
+        for leaf, w, name in zip(leaves, want, ("dx", "dscale", "dbias")):
+            w = np.asarray(w)
+            np.testing.assert_allclose(
+                leaf.grad.numpy() / np.abs(w).max(), w / np.abs(w).max(),
+                atol=1e-5, rtol=0, err_msg=f"{name} vs {reference.__name__}")
+    direct = port_layernorm.layer_norm_backward_plain(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(g),
+        1e-5)
+    for leaf, d_ in zip(leaves, direct):
+        torch.testing.assert_close(leaf.grad, d_, rtol=0, atol=0)
+
+
+def test_layer_norm_guards():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="scale, bias"):
+        port_layernorm.layer_norm(x, torch.ones(7), torch.zeros(8))
+    with pytest.raises(ValueError, match="g like x"):
+        port_layernorm.layer_norm_backward(x, torch.ones(8), torch.zeros(4, 7))
+    meta = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        port_layernorm.layer_norm(meta, torch.ones(8, device="meta"),
+                                  torch.zeros(8, device="meta"))
+
+
+# ---- K5: the standalone dropout ----
+
+def test_elementwise_bits_are_a_function_of_seed_and_index():
+    bits = port_prng.elementwise_bits(7, 1003)
+    assert bits.shape == (1003,) and bits.dtype == torch.int64
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2 ** 32
+    # The bits of a prefix are the prefix of the bits, whatever the size.
+    for n in (1, 4, 5, 1000):
+        assert torch.equal(port_prng.elementwise_bits(7, n), bits[:n])
+    assert not torch.equal(port_prng.elementwise_bits(8, 1003), bits)
+    # The key's second word keeps the stream apart from the attention
+    # kernels' bits for the same seed.
+    attention = port_prng.dropout_bits(7, 1, 1, 1, 1003).reshape(-1)
+    assert not torch.equal(attention, bits)
+    # Word e % 4 of Philox4x32-10 at counter (e // 4, 0, 0, 0), key (7, 1).
+    words = port_prng.philox4x32(
+        tuple(torch.tensor([v]) for v in (250, 0, 0, 0)), (7, 1))
+    assert [int(w) for w in words] == bits[1000:1003].tolist() + [
+        int(port_prng.elementwise_bits(7, 1004)[1003])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hw_dropout_plain_properties(dtype):
+    rate, n = 0.1, 400_000
+    assert port_prng.dropout_threshold(rate) == jax_prng.dropout_threshold(
+        rate)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (400, 1000)).astype(np.float32)).to(dtype)
+    x[x == 0] = 1.0
+    y = port_dropout.hw_dropout(x, 11, rate)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert port_dropout.hw_dropout.launches == 0      # CPU: the plain version
+    # The exact u32 rate 0.1 (within 4 sigma), not the u8 rule's 26 / 256.
+    share = (y == 0).float().mean().item()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(share - rate) <= 4 * sigma
+    assert abs(share - rate) < abs(share - 26 / 256)
+    # Kept values: x * 1/(1 - rate) in float32, rounded once.
+    keep = y != 0
+    inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    assert torch.equal(y[keep], (x.float() * inv_keep).to(dtype)[keep])
+    # The same seed draws the same mask, another seed another.
+    assert torch.equal(port_dropout.hw_dropout(x, 11, rate), y)
+    assert not torch.equal(port_dropout.hw_dropout(x, 12, rate) != 0, keep)
+    # The mask of a flat prefix is the prefix of the mask.
+    flat = x.reshape(-1)
+    for k in (1, 7, 1001, 4096):
+        assert torch.equal(port_dropout.hw_dropout(flat[:k], 11, rate),
+                           y.reshape(-1)[:k])
+    # The backward is the forward applied to the cotangent.
+    leaf = x.clone().requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (400, 1000)).astype(np.float32)).to(dtype)
+    port_dropout.hw_dropout(leaf, 11, rate).backward(g)
+    assert torch.equal(leaf.grad, port_dropout.hw_dropout(g, 11, rate))
+
+
+def test_hw_dropout_guards_and_sites_draw_their_own_seeds():
+    x = torch.ones(64, 64)
+    assert port_dropout.hw_dropout(x, 3, 0.0).equal(x)
+    with pytest.raises(ValueError, match=r"not in \[0, 1\)"):
+        port_dropout.hw_dropout(x, 3, 1.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        port_dropout.hw_dropout(torch.ones(4, device="meta"), 3, 0.1)
+    # Two calls on one DropoutRng (two sites of a step) draw two masks; a
+    # fresh DropoutRng from the same seed repeats them.
+    rng = port_dropout.DropoutRng(9)
+    first = port_dropout.dropout(x, rng, 0.5, impl="pallas")
+    second = port_dropout.dropout(x, rng, 0.5, impl="pallas")
+    assert not torch.equal(first, second)
+    again = port_dropout.DropoutRng(9)
+    assert torch.equal(port_dropout.dropout(x, again, 0.5, impl="pallas"),
+                       first)

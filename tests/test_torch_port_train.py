@@ -496,3 +496,66 @@ def test_every_parameter_gets_a_finite_gradient_with_dropout():
     assert all(g is not None and torch.isfinite(g).all()
                for g in grads.values())
     assert grads["state_encoder.block_0.attn.query.weight"].abs().max() > 0
+
+
+# ---- the train step under ln_impl / dropout_impl "pallas" ----
+
+PALLAS = {"ln_impl": "pallas", "dropout_impl": "pallas"}
+
+
+def test_loss_and_gradients_match_jax_under_ln_impl_pallas():
+    jax_model, jax_st, _, model, _ = _pair(PALLAS)
+    jax_batch, port_batch = _batch(seed=1)
+
+    def loss_fn(params):
+        inputs, targets = jax_steps.prepare_model_inputs(jax_batch)
+        preds = jax_model.apply({"params": params}, inputs)
+        return jax_objective.compute_loss_and_metrics(*preds, targets,
+                                                      JAX_LOSS)[0]
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(jax_st.params)
+    inputs, targets = port_steps.prepare_model_inputs(port_batch)
+    loss = port_objective.compute_loss_and_metrics(*model(inputs), targets,
+                                                   PORT_LOSS)[0]
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    _assert_trees_close(jax_tree_from_state_dict(grads), want_grads, 1e-4,
+                        relative=True, key_bias_tol=1e-6)
+
+
+def test_parameters_after_train_steps_match_jax_under_ln_impl_pallas():
+    steps = 3
+    jax_model, jax_st, jax_tx, model, port_st = _pair(PALLAS)
+    jax_batch, port_batch = _batch(seed=1)
+    jax_step = jax.jit(jax_steps.make_train_step(jax_model, jax_tx, JAX_LOSS))
+    port_step = port_steps.make_train_step(model, PORT_LOSS)
+    for _ in range(steps):
+        jax_st, want_loss, want_metrics = jax_step(jax_st, jax_batch,
+                                                   jax.random.PRNGKey(0))
+        port_st, loss, metrics = port_step(port_st, port_batch, 0)
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    for key in want_metrics:
+        assert float(metrics[key]) == float(want_metrics[key]), key
+    _assert_trees_close(jax_tree_from_state_dict(model.state_dict()),
+                        jax_st.params, 1e-5, relative=False,
+                        key_bias_tol=2e-3 * steps)
+
+
+def test_train_step_with_pallas_dropout_repeats_for_a_seed_and_differs():
+    _, port_batch = _batch(seed=5)
+    losses = {}
+    for run, seed in [("a", 11), ("b", 11), ("c", 12)]:
+        model = create_model(dict(FUSED, dropout=0.1, **PALLAS))
+        state = port_state.create_train_state(
+            dict(model.named_parameters()), {"lr": 1e-3})
+        step = port_steps.make_train_step(model, PORT_LOSS)
+        state, first, _ = step(state, port_batch, seed)
+        state, second, _ = step(state, port_batch, seed)
+        losses[run] = (float(first), float(second))
+        assert np.isfinite(losses[run]).all()
+        assert losses[run][0] != losses[run][1]
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert losses["a"] == losses["b"]
+    assert losses["a"][0] != losses["c"][0]

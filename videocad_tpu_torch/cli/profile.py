@@ -9,7 +9,10 @@ with all 8 lanes active (no HTTP), the CAD encode of ``open_lane``, the
 state encoder over the rollout's B*T frames, the rollout at B=2, T=187,
 and the ``mhsa_short`` kernel alone at the batches the path gives it; then
 the training path: the flagship's train step (dropout 0.1) at B=8, T=192
-and its eval step. For each piece it prints one JSON line:
+and its eval step, as the JSON has the config and once more with
+``ln_impl`` and ``dropout_impl`` ``"pallas"`` (the LayerNorm and dropout
+kernels), in the same call so that the two can be compared. For each piece
+it prints one JSON line:
 
   wall_ms     host-clock ms per iteration, without the profiler, ending in
               a device sync
@@ -97,7 +100,7 @@ def profile_work(name: str, fn, n: int, warmup: int = 2,
                     for key, (ms, count) in top]}
 
 
-def train_reports(model, device) -> list:
+def train_reports(model, device, label: str = "") -> list:
     """The flagship's train step and eval step at B=8, T=192."""
     import torch
 
@@ -120,7 +123,8 @@ def train_reports(model, device) -> list:
     def step():
         holder[0], _, _ = train_step(holder[0], batch, 0)
 
-    name = f"B={batch_size} T={seq_len}, {batch_size * (seq_len - 1)} frames"
+    name = (f"B={batch_size} T={seq_len}, {batch_size * (seq_len - 1)} "
+            f"frames{label}")
     return [profile_work(f"train step, {name}", step, 2, top_n=16),
             profile_work(f"eval step, {name}", lambda: eval_step(batch), 2)]
 
@@ -196,6 +200,13 @@ def main(argv=None) -> None:
                            "device times and needs a CUDA card")
     model = create_model(flagship_config(), device=device)
     for report in serve_reports(model, device) + train_reports(model, device):
+        print(json.dumps(report), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    kernels = create_model(dict(flagship_config(), ln_impl="pallas",
+                                dropout_impl="pallas"), device=device)
+    for report in train_reports(kernels, device,
+                                ", ln_impl and dropout_impl pallas"):
         print(json.dumps(report), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

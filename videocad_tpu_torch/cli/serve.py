@@ -4,12 +4,15 @@
         --model_config model_configs/transformer_experiments.json \
         --model_name cad_past_10_actions_and_states_timestep_embedding \
         --device cuda --lanes 8 [--jax_params params.npz | model.vcdx]
+        [--checkpoint_folder checkpoints/<experiment>/epoch_N]
 
-Without ``--jax_params`` the model serves random weights from seed 0 (a
-protocol smoke). The protocol is that of ``videocad_tpu.cli.serve``; the stdlib
-client is ``videocad_tpu_torch.infer.server.ServingClient``. The port
-never moves to another device than the one asked for: ``--device cuda``
-without a card is an error.
+``--checkpoint_folder`` names a checkpoint directory of the port's trainer
+(``train/checkpoint.py``). With neither, the model serves random weights
+from seed 0 (a protocol smoke). The protocol is that of
+``videocad_tpu.cli.serve``; the stdlib client is
+``videocad_tpu_torch.infer.server.ServingClient``. The port never moves
+to another device than the one asked for: ``--device cuda`` without a card
+is an error.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ def build_engine(args):
     """The live-model engine the arguments describe."""
     import torch
 
+    from videocad_tpu_torch.experiment import load_warm_start
     from videocad_tpu_torch.infer.server import MuxEngine
     from videocad_tpu_torch.models.convert import (load_jax_params,
                                                    state_dict_from_jax)
@@ -31,10 +35,6 @@ def build_engine(args):
         raise NotImplementedError(
             "serving a .vcdx artifact's programs is not ported yet (ROADMAP "
             "slice 10); pass its weights with --jax_params model.vcdx")
-    if args.checkpoint_folder:
-        raise NotImplementedError(
-            "checkpoint restore is not ported yet (ROADMAP slice 8); pass "
-            "JAX weights with --jax_params")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
@@ -46,6 +46,8 @@ def build_engine(args):
     if args.jax_params:
         tree, _ = load_jax_params(args.jax_params)
         model.load_state_dict(state_dict_from_jax(tree))
+    if args.checkpoint_folder:
+        load_warm_start(model, args.checkpoint_folder)
     return MuxEngine(model, lanes=args.lanes, seq_len=args.seq_len,
                      weight_quant=args.weight_quant,
                      session_ttl_s=args.session_ttl)
@@ -68,7 +70,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--model_name",
                         default="cad_past_10_actions_and_states_timestep_embedding")
     parser.add_argument("--checkpoint_folder", default=None,
-                        help="Orbax checkpoint (not ported yet)")
+                        help="a checkpoint directory of the port's trainer "
+                             "(<dir>/<experiment>/epoch_N or best_model)")
     parser.add_argument("--lanes", type=int, default=4,
                         help="concurrent sessions multiplexed per device "
                              "step")

@@ -1,15 +1,18 @@
-"""Synthetic in-memory batches for the train step's smoke runs and tests.
+"""Synthetic data: in-memory batches and on-disk datasets, from a seed.
 
-Port of ``random_action_sequence`` and ``synthetic_batch_feed`` of
-``videocad_tpu/data/synthetic.py`` (numpy only): random but valid action
-sequences (per-command param validity, end sentinel) and uint8 frames. The
-same seed gives the same batch as the JAX package's feed. The on-disk
-dataset writer comes with the data slice.
+Port of ``videocad_tpu/data/synthetic.py`` (numpy only): random but valid
+action sequences (per-command param validity, end sentinel) and uint8
+frames, either as one in-memory batch or written through the sharded store
+the dataset reader reads. The same seed gives the same batch, and the same
+files, as the JAX package's functions.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import pickle
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -37,6 +40,62 @@ def random_action_sequence(rng: np.random.Generator, length: int,
     if end_sentinel:
         actions[-1] = [1, -1, -1, END_SENTINEL, -1, -1, -1]
     return actions
+
+
+def shard_path(base: str, file_id: str, ext: str,
+               file_type: str = "frames") -> str:
+    """``<base>/<id[:4]>/<id>_<type>.<ext>`` in the sharded layout (a copy
+    of ``videocad_tpu/etl/dataset_gen.py:shard_path``); makes the shard's
+    directory."""
+    shard_dir = os.path.join(base, file_id[:4])
+    os.makedirs(shard_dir, exist_ok=True)
+    if file_type:
+        return os.path.join(shard_dir, f"{file_id}_{file_type}.{ext}")
+    return shard_dir
+
+
+def synthetic_sequence(rng: np.random.Generator, length: int,
+                       image_size: int = 224, channels: int = 3
+                       ) -> Dict[str, np.ndarray]:
+    return {
+        "frames": rng.integers(0, 256, size=(length, image_size, image_size,
+                                             channels), dtype=np.uint8),
+        "actions": random_action_sequence(rng, length),
+        "timesteps": np.arange(length, dtype=np.int64),
+    }
+
+
+def write_synthetic_dataset(out_dir: str, num_sequences: int = 8,
+                            min_len: int = 6, max_len: int = 12,
+                            image_size: int = 32, seed: int = 0,
+                            split_path: Optional[str] = None,
+                            val_fraction: float = 0.25) -> Dict[str, str]:
+    """Write a sharded dataset (pickles, two CAD view PNGs per sequence)
+    and, with ``split_path``, its split json; returns {id: split}. The
+    first ``1 - 2 * val_fraction`` of the sequences are train, the next
+    ``val_fraction`` val, the rest test."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    split_map = {}
+    n_train = int(num_sequences * (1 - 2 * val_fraction)) or 1
+    n_val = int(num_sequences * val_fraction) or 1
+    for i in range(num_sequences):
+        file_id = f"{i:08d}"
+        length = int(rng.integers(min_len, max_len + 1))
+        data = synthetic_sequence(rng, length, image_size)
+        with open(shard_path(out_dir, file_id, "pkl", "data"), "wb") as f:
+            pickle.dump(data, f)
+        for view in range(2):
+            png = data["frames"][0] if view == 0 else data["frames"][-1]
+            Image.fromarray(png).save(
+                shard_path(out_dir, file_id, "png", str(view)))
+        split_map[file_id] = ("train" if i < n_train else
+                              "val" if i < n_train + n_val else "test")
+    if split_path:
+        with open(split_path, "w") as f:
+            json.dump(split_map, f)
+    return split_map
 
 
 def synthetic_batch_feed(batch_size: int, seq_len: int, image_size: int = 224,

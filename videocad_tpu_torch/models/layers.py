@@ -19,9 +19,10 @@ ReLU feed-forward, dropout on attention weights and residual branches).
 Dropout is active only in ``train()`` mode and draws from the
 :class:`~videocad_tpu_torch.ops.dropout.DropoutRng` handed down as the
 ``rng`` argument of each ``forward``: elementwise sites from its device
-generator, the fused kernel's in-kernel dropout from a seed derived per
-call site from its CPU generator. A training-mode forward with dropout on
-and no ``rng`` raises.
+generator (``dropout_impl="xla"``) or through the standalone dropout kernel
+with a seed derived per call from its CPU generator (``"pallas"``), the
+fused attention kernel's in-kernel dropout from such a seed too. A
+training-mode forward with dropout on and no ``rng`` raises.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ def active_rate(module: nn.Module, rate: float,
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  rng: Optional[DropoutRng] = None,
+                  dropout_impl: str = "xla") -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + mask) v with an f32 softmax, and dropout
     on the weights when ``dropout_rate`` > 0.
 
@@ -119,7 +120,7 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     weights = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
-    weights = dropout(weights, generator, dropout_rate)
+    weights = dropout(weights, rng, dropout_rate, dropout_impl)
     return torch.einsum("bhts,bshd->bthd", weights, v)
 
 
@@ -137,7 +138,8 @@ class MultiHeadAttention(nn.Module):
                  head_dim: Optional[int] = None, dropout_rate: float = 0.0,
                  qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "xla", device=None):
+                 attention_impl: str = "xla", dropout_impl: str = "xla",
+                 device=None):
         super().__init__()
         if attention_impl not in ("xla", "fused"):
             raise NotImplementedError(
@@ -146,6 +148,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = head_dim or model_dim // num_heads
         self.attention_impl = attention_impl
+        self.dropout_impl = dropout_impl
         self.dropout_rate = dropout_rate
         inner = num_heads * self.head_dim
         kw = dict(dtype=dtype, device=device)
@@ -179,8 +182,7 @@ class MultiHeadAttention(nn.Module):
                                v.reshape(b, t, -1), seed, self.num_heads,
                                rate)
             return self.out(fused)
-        out = xla_attention(q, k, v, mask, rate,
-                            rng.bits if rate > 0.0 else None)
+        out = xla_attention(q, k, v, mask, rate, rng, self.dropout_impl)
         return self.out(out.reshape(b, t, self.num_heads * self.head_dim))
 
     def forward(self, q_in, kv_in, mask=None,
@@ -196,18 +198,17 @@ class TransformerDecoderLayer(nn.Module):
     def __init__(self, model_dim: int, num_heads: int, ffn_dim: int,
                  dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "xla", device=None):
+                 attention_impl: str = "xla", dropout_impl: str = "xla",
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.dropout_rate = dropout_rate
-        self.self_attn = MultiHeadAttention(model_dim, num_heads,
-                                            dropout_rate=dropout_rate,
-                                            attention_impl=attention_impl,
-                                            **kw)
-        self.cross_attn = MultiHeadAttention(model_dim, num_heads,
-                                             dropout_rate=dropout_rate,
-                                             attention_impl=attention_impl,
-                                             **kw)
+        self.dropout_impl = dropout_impl
+        attn_kw = dict(dropout_rate=dropout_rate,
+                       attention_impl=attention_impl,
+                       dropout_impl=dropout_impl, **kw)
+        self.self_attn = MultiHeadAttention(model_dim, num_heads, **attn_kw)
+        self.cross_attn = MultiHeadAttention(model_dim, num_heads, **attn_kw)
         self.linear1 = Dense(model_dim, ffn_dim, **kw)
         self.linear2 = Dense(ffn_dim, model_dim, **kw)
         self.norm1 = LayerNorm(model_dim, **kw)
@@ -217,8 +218,7 @@ class TransformerDecoderLayer(nn.Module):
     def forward(self, x, memory, tgt_mask=None, memory_mask=None,
                 rng: Optional[DropoutRng] = None):
         rate = active_rate(self, self.dropout_rate, rng)
-        bits = rng.bits if rate > 0.0 else None
-        drop = lambda y: dropout(y, bits, rate)  # noqa: E731
+        drop = lambda y: dropout(y, rng, rate, self.dropout_impl)  # noqa: E731
         x = self.norm1(x + drop(self.self_attn(x, x, tgt_mask, rng)))
         x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask, rng)))
         ffn = self.linear2(drop(F.relu(self.linear1(x))))
@@ -232,13 +232,15 @@ class TransformerDecoder(nn.Module):
     def __init__(self, model_dim: int, num_layers: int, num_heads: int,
                  ffn_dim: int, dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "xla", device=None):
+                 attention_impl: str = "xla", dropout_impl: str = "xla",
+                 device=None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 model_dim, num_heads, ffn_dim, dropout_rate=dropout_rate,
-                dtype=dtype, attention_impl=attention_impl, device=device))
+                dtype=dtype, attention_impl=attention_impl,
+                dropout_impl=dropout_impl, device=device))
 
     def forward(self, x, memory, tgt_mask=None, memory_mask=None,
                 rng: Optional[DropoutRng] = None):

@@ -109,8 +109,6 @@ def _check_supported(cfg: VideoCADFormerConfig) -> None:
          "use_pretrained_cad_model (ROADMAP slice 11)"),
         (cfg.attention_impl == "pallas",
          "attention_impl='pallas' (ROADMAP kernel K3)"),
-        (cfg.dropout_impl == "pallas",
-         "dropout_impl='pallas' (ROADMAP kernel K5)"),
         (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11)"),
         (cfg.frame_chunk != 0, "frame_chunk (ROADMAP slice 11)"),
         (cfg.remat_encoder, "remat_encoder (ROADMAP slice 11)"),
@@ -150,7 +148,8 @@ class VideoCADFormer(nn.Module):
         self.decoder = TransformerDecoder(
             cfg.hidden_size, cfg.num_decoder_layers, cfg.nhead,
             cfg.dim_feedforward, dropout_rate=cfg.dropout,
-            attention_impl=cfg.attention_impl, **kw)
+            attention_impl=cfg.attention_impl,
+            dropout_impl=cfg.dropout_impl, **kw)
         self.predict_cmd = Dense(cfg.hidden_size, cfg.num_classes,
                                  device=device)
         self.predict_params = Dense(
@@ -168,7 +167,8 @@ class VideoCADFormer(nn.Module):
             final_norm=cfg.vit_final_norm)
         return ViT(vit_cfg, dtype=cfg.compute_dtype,
                    attention_impl=cfg.vit_attention_impl,
-                   mlp_impl=cfg.vit_mlp_impl, ln_impl=cfg.ln_impl,
+                   mlp_impl=cfg.vit_mlp_impl,
+                   dropout_impl=cfg.dropout_impl, ln_impl=cfg.ln_impl,
                    device=device)
 
     @property

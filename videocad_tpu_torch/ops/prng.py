@@ -3,8 +3,8 @@ their callers.
 
 Port of ``videocad_tpu/ops/prng.py``. The uint32-threshold rule must stay
 identical wherever a kernel's forward and backward regenerate one mask, so
-it has one definition here (and one in ``csrc/mhsa_short.cu``, held equal
-on the card).
+it has one definition here (and one in each of ``csrc/mhsa_short.cu`` and
+``csrc/dropout.cu``, held equal on the card).
 
 Where the TPU kernels seed a hardware generator per batch row, the Hopper
 kernels use a counter-based function: :func:`dropout_bits` maps (seed,
@@ -12,7 +12,10 @@ batch row, head, query, key) to 32 bits with Philox4x32-10 and nothing
 else enters it, so the mask is the same for every grid and block shape,
 and the backward of a call redraws its forward's mask from the seed alone.
 The same function is written here in PyTorch integer ops, so a plain
-version draws the very mask its kernel draws.
+version draws the very mask its kernel draws. :func:`elementwise_bits` is
+the standalone dropout kernel's function: (seed, flat element index) to 32
+bits, under a second key word so that its streams never meet the attention
+kernels'.
 """
 
 from __future__ import annotations
@@ -110,3 +113,18 @@ def dropout_bits(seed: int, batch: int, heads: int, q_len: int, k_len: int,
     words = torch.broadcast_tensors(*words)
     bits = torch.stack(words, dim=-1).reshape(batch, heads, q_len, groups * 4)
     return bits[..., :k_len]
+
+
+def elementwise_bits(seed: int, numel: int, device=None) -> torch.Tensor:
+    """The standalone dropout kernel's bits: (numel,) uint32 values held in
+    int64, for the row-major flat elements of a tensor.
+
+    bits[e] is word ``e % 4`` of Philox4x32-10 with key (seed, 1) and
+    counter (low 32 bits of e // 4, high 32 bits of e // 4, 0, 0): a pure
+    function of the seed and the element index, so the bits of a flat
+    prefix are the prefix of the bits.
+    """
+    group = torch.arange((numel + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(group)
+    words = philox4x32((group & _MASK32, group >> 32, zero, zero), (seed, 1))
+    return torch.stack(words, dim=-1).reshape(-1)[:numel]

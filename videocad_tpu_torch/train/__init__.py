@@ -19,3 +19,5 @@ from videocad_tpu_torch.train.steps import (  # noqa: F401
     make_train_step,
     prepare_model_inputs,
 )
+from videocad_tpu_torch.train.checkpoint import CheckpointHandler  # noqa: F401
+from videocad_tpu_torch.train.trainer import Trainer  # noqa: F401

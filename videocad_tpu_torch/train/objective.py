@@ -15,6 +15,7 @@ Two loss modes, selected by ``use_mse``:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -73,6 +74,15 @@ class LossConfig:
             param_bin_weights=bins if not use_mse else None)
 
 
+@functools.lru_cache(maxsize=16)
+def _weights_on(weights: Tuple[float, ...], device: torch.device
+                ) -> torch.Tensor:
+    """``weights`` as a float32 tensor on ``device``, made once: a tensor
+    built from host values on every step would copy them to the card with
+    a synchronising copy and stall the training loop."""
+    return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
 def _param_correct_counts(params_pred, params_target, correct_mask, use_mse,
                           t_slice=slice(None)):
     """Per-param correct counts under the tolerance rules."""
@@ -101,8 +111,7 @@ def compute_loss_and_metrics(
     cmd_target = targets[..., 0]
     params_target = targets[..., 1:]
 
-    cmd_w = torch.tensor(config.cmd_weights, dtype=torch.float32,
-                         device=device)
+    cmd_w = _weights_on(tuple(config.cmd_weights), device)
     loss_cmd = weighted_cross_entropy(cmd_logits, cmd_target, cmd_w)
 
     loss_params = 0.0
@@ -118,8 +127,8 @@ def compute_loss_and_metrics(
             bins = None
             if (config.param_bin_weights
                     and config.param_bin_weights[i] is not None):
-                bins = torch.tensor(config.param_bin_weights[i],
-                                    dtype=torch.float32, device=device)
+                bins = _weights_on(tuple(config.param_bin_weights[i]),
+                                   device)
             loss_i = weighted_cross_entropy(logits_i, target_i, bins)
         # NaN guard, as the reference trainer has it (empty selections
         # already yield 0).
