@@ -19,7 +19,12 @@ imports nothing of JAX. Phases, each of which must pass:
      float64), hw_dropout (compared exactly, and its mask's properties),
      and one library call per kernel that has one
      (scaled_dot_product_attention, F.layer_norm and its backward,
-     F.dropout) timed beside it as a yardstick that no path uses;
+     F.dropout) timed beside it as a yardstick that no path uses; then the
+     three flash attention kernels (forward, dQ, dK/dV) at the decoder's
+     shapes, causal and banded, without and with dropout, bf16 and float32,
+     with a general mask at T != S and at B=2, T=47: values, the kept set,
+     the gradients (also against autograd through the plain forward at
+     float32), the mask's properties, gradients that repeat bit for bit;
   4. serve: the flagship config at full width in bf16 with seeded random
      weights, through the serving CLI's build_engine, behind the HTTP
      server; three staggered sessions step through ServingClient, some
@@ -43,14 +48,26 @@ imports nothing of JAX. Phases, each of which must pass:
      the test split must fall;
   9. serve from train C's last checkpoint (--checkpoint_folder), one
      session of a few steps over HTTP;
- 10. reference: at the flagship's widths in float32, with the depth cut to
+ 10. train D: cli.train.main once more on train C's dataset, with
+     attention_impl, ln_impl and dropout_impl all "pallas" (the decoder's
+     attention through the flash attention kernels): one epoch of 2 steps
+     at B=8 with validation, a checkpoint and the test evaluation, again
+     without a host synchronisation in the epoch loop;
+ 11. evaluate: videocad_tpu_torch.cli.evaluate.main on train D's
+     best_model with --sequential: the sample CSVs, the first-mistake
+     structure for every sequence of val and test, finite metrics, the
+     plot files where matplotlib is installed;
+ 12. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
      rollout's logits and one train step's loss and gradients compared,
-     the train step once more with ln_impl and dropout_impl "pallas".
+     the train step again with ln_impl and dropout_impl "pallas", and with
+     attention_impl "pallas" as well.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
-after phase 7, and again just before phase 8 and read just after it: each
-kernel must have been launched by one of the two paths. The
+after phase 7, again just before phase 8 and read just after it, and so
+around phase 10 and around phase 11: each kernel must have been launched by
+the path that claims it (the flash attention kernels by train D, their
+forward by the evaluation as well). The
 second-to-last lines are a JSON object of the kernels and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
@@ -674,6 +691,259 @@ def phase_hw_dropout(dr):
     return rows
 
 
+FLASH_SHAPE = (TRAIN_BATCH, TRAIN_SEQ - 1, 4, 256)  # the decoder's q, k, v
+FLASH_WINDOW = 10                                   # the flagship's band
+FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv")
+
+
+def flash_close(got, want, bf16):
+    """(max abs err, its limit, within?). The limit: 2e-5 of the tensor's
+    largest entry at float32 (sums over 256 columns and up to 191 keys in
+    another order); for a bf16 output that, plus one unit in the last place
+    of bf16 at the value's magnitude (the output's one rounding may fall to
+    the other side)."""
+    import torch
+
+    w = want.float()
+    tol = 2e-5 * max(1.0, w.abs().max().item())
+    err = (got.float() - w).abs()
+    excess = err
+    if bf16:
+        exponent = torch.frexp(w.abs().clamp_min(1e-30))[1]
+        excess = err - torch.ldexp(torch.ones_like(w), exponent - 8)
+    return err.max().item(), tol, excess.max().item() <= tol
+
+
+def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
+    """One shape of the flash attention kernels against their plain
+    versions; returns the three rows (forward, dQ, dK/dV)."""
+    import torch
+    import torch.nn.functional as F
+
+    h = FLASH_SHAPE[2]
+    bf16 = dtype == torch.bfloat16
+    q, g = (randn((b, t, h, d), gen, dtype) for _ in range(2))
+    k, v = (randn((b, s, h, d), gen, dtype) for _ in range(2))
+    seed = 4000 + t if rate else None
+    label = f"B={b} T={t} S={s} D={d} {dtype_name(dtype)} {kind} rate {rate}"
+    allowed = (torch.ones((t, s), dtype=torch.bool, device="cuda")
+               if mask is None else mask.tensor("cuda")
+               if isinstance(mask, fl.BandMask) else mask)
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    marks = [getattr(fl, name).launches for name in FLASH_KERNELS]
+    out = fl.flash_attention(*leaves, mask, seed, rate)
+    out.backward(g)
+    torch.cuda.synchronize()
+    check([getattr(fl, name).launches for name in FLASH_KERNELS]
+          == [m + 1 for m in marks],
+          f"flash attention {label}: autograd did not launch each of the "
+          "three kernels once")
+    grads = [x.grad for x in leaves]
+    with torch.no_grad():
+        want, want_lse = fl.flash_attention_reference(q, k, v, mask, seed,
+                                                      rate)
+        got, lse = fl.flash_attention_forward(q, k, v, mask, seed, rate)
+        want_grads = fl.flash_attention_backward_reference(
+            q, k, v, mask, seed, got, lse, g, rate)
+    fwd_err, fwd_tol, fwd_ok = flash_close(out, want, bf16)
+    lse_err = (lse - want_lse).abs().max().item()
+    checks = [flash_close(a, w, bf16) for a, w in zip(grads, want_grads)]
+    rows = [{"kernel": name, "batch": b, "q_len": t, "kv_len": s, "d": d,
+             "dtype": dtype_name(dtype), "mask": kind, "rate": rate}
+            for name in FLASH_KERNELS]
+    rows[0].update(max_abs_err=fwd_err, tolerance=fwd_tol, lse_err=lse_err)
+    rows[1].update(max_abs_err=checks[0][0], tolerance=checks[0][1])
+    rows[2].update(max_abs_err=max(checks[1][0], checks[2][0]),
+                   tolerance=min(checks[1][1], checks[2][1]))
+    check(fwd_ok and lse_err <= 1e-4,
+          f"flash attention {label}: forward max err {fwd_err} (limit "
+          f"{fwd_tol}), lse err {lse_err} (limit 1e-4)")
+    for name, (err, tol, ok) in zip(("dq", "dk", "dv"), checks):
+        check(ok, f"flash attention {label}: {name} max err {err} (limit "
+              f"{tol})")
+    if not bf16:
+        again = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = fl.flash_attention_reference(*again, mask, seed, rate)[0]
+        auto = [flash_close(a, w, False) for a, w in
+                zip(grads, torch.autograd.grad(ref, again, g))]
+        rows[1]["max_abs_err_vs_autograd"] = auto[0][0]
+        rows[2]["max_abs_err_vs_autograd"] = max(auto[1][0], auto[2][0])
+        check(all(ok for _, _, ok in auto),
+              f"flash attention {label}: gradients differ from autograd "
+              f"through the plain forward by {[a[0] for a in auto]}")
+    if rate:
+        # The kept set, read off the output under V = [I | 0] per head, and
+        # off dv under g = [I | 0]: the plain version's and the bit
+        # function's, in the forward and in the dK/dV kernel.
+        eye_v = torch.eye(s, d, device="cuda", dtype=dtype).view(
+            1, s, 1, d).expand(b, s, h, d).contiguous()
+        eye_g = torch.eye(t, d, device="cuda", dtype=dtype).view(
+            1, t, 1, d).expand(b, t, h, d).contiguous()
+        cols, rows_seen = min(s, d), min(t, d)
+        with torch.no_grad():
+            dropped, lse_d = fl.flash_attention_forward(q, k, eye_v, mask,
+                                                        seed, rate)
+            plain = fl.flash_attention_reference(q, k, eye_v, mask, seed,
+                                                 rate)[0]
+            clean = fl.flash_attention_forward(q, k, eye_v, mask)[0]
+            dv = fl.flash_attention_backward(q, k, v, mask, seed, got, lse,
+                                             eye_g, rate)[2]
+        keep = prng.keep_mask(prng.dropout_bits(
+            seed, b, h, t, s, device="cuda",
+            key_word=prng.FLASH_KEY_WORD), rate)
+        weights = lambda o: o[..., :cols].permute(0, 2, 1, 3)  # noqa: E731
+        positive = weights(clean) > 0
+        kept = weights(dropped) > 0
+        same = (torch.equal(kept, weights(plain) > 0)
+                and torch.equal(kept, keep[..., :cols] & positive))
+        # dv[b, j, h, i] = (w * drop)[b, h, i, j] for i < D.
+        kept_bwd = dv[..., :rows_seen].permute(0, 2, 3, 1) > 0
+        w_pos = (torch.exp(torch.einsum(
+            "bthd,bshd->bhts", q.float() / math.sqrt(d), k.float())
+            - lse[..., None]) > 0) & allowed
+        same_bwd = torch.equal(kept_bwd,
+                               (keep & w_pos)[:, :, :rows_seen, :])
+        share = 1.0 - kept.sum().item() / positive.sum().item()
+        sigma = math.sqrt(rate * (1 - rate) / positive.sum().item())
+        rows[0].update(kept_set_identical=same, drop_share=share)
+        rows[2].update(kept_set_identical=same_bwd)
+        check(same, f"flash attention {label}: the forward's kept set is "
+              "not the plain version's")
+        check(same_bwd, f"flash attention {label}: the dK/dV kernel's kept "
+              "set is not the forward's")
+        check(torch.equal(lse, lse_d),
+              f"flash attention {label}: the denominator did not sum the "
+              "undropped weights (lse moved with the values)")
+        check(abs(share - rate) <= 4 * sigma,
+              f"flash attention {label}: drop share {share}, more than 4 "
+              f"sigma ({4 * sigma}) from {rate}")
+    if timed:
+        pairs = allowed.sum().item() * b * h
+        itemsize = 2 if bf16 else 4
+        qo, kv = q.numel() * itemsize, k.numel() * itemsize
+        stats = lse.numel() * 4
+        mask_bytes = allowed.numel() if kind == "random" else 0
+        reps = dict(reps=10, groups=3, warmup=2)
+        heads = lambda x: x.transpose(1, 2)  # noqa: E731
+        with torch.no_grad():
+            dq, delta = fl.flash_attention_dq(q, k, v, mask, seed, got, lse,
+                                              g, rate)
+            plain_bwd = lambda: fl.flash_attention_backward_reference(  # noqa: E731
+                q, k, v, mask, seed, got, lse, g, rate)
+            rows[0]["ms"], rows[0]["plain_ms"] = in_turns(
+                lambda: fl.flash_attention_forward(q, k, v, mask, seed, rate),
+                lambda: fl.flash_attention_reference(q, k, v, mask, seed,
+                                                     rate), **reps)
+            rows[1]["ms"], rows[1]["plain_ms"] = in_turns(
+                lambda: fl.flash_attention_dq(q, k, v, mask, seed, got, lse,
+                                              g, rate), plain_bwd, **reps)
+            rows[2]["ms"] = cuda_ms(
+                lambda: fl.flash_attention_dkv(q, k, v, mask, seed, lse,
+                                               delta, g, rate), **reps)
+            rows[2]["plain_ms"] = rows[1]["plain_ms"]
+            sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
+                *(heads(y) for y in x), attn_mask=allowed, dropout_p=rate)
+            rows[0]["library_ms"] = cuda_ms(lambda: sdpa(q, k, v), **reps)
+            lib_err = (heads(sdpa(q, k, v)).float() - got.float()
+                       ).abs().max().item() if not rate else None
+            rows[0]["max_abs_diff_vs_library"] = lib_err
+        lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*lib_leaves)
+        rows[1]["library_ms"] = rows[2]["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, lib_leaves, heads(g),
+                                        retain_graph=True), **reps)
+        # The plain and the library backward compute dq, dk and dv in one.
+        rows[1]["plain_and_library_cover"] = "dq + dk + dv"
+        rows[2]["plain_and_library_cover"] = "dq + dk + dv"
+        # Operations: 2 D flops for each product over an admitted (query,
+        # key) pair: q k and p v (forward); q k, g v and ds k (dQ); q k,
+        # g v, wd g and ds q (dK/dV). Bytes: each tensor once.
+        rows[0].update(bound(2 * qo + 2 * kv + stats + mask_bytes,
+                             4.0 * d * pairs, dtype_name(dtype)))
+        rows[1].update(bound(4 * qo + 2 * kv + 2 * stats + mask_bytes,
+                             6.0 * d * pairs, dtype_name(dtype)))
+        rows[2].update(bound(2 * qo + 4 * kv + 2 * stats + mask_bytes,
+                             8.0 * d * pairs, dtype_name(dtype)))
+        for row in rows:
+            row["admitted_pairs"] = pairs
+    for row in rows:
+        print(f"{row['kernel']} {row}", flush=True)
+    return rows
+
+
+def phase_flash(fl, prng):
+    """The flash attention kernels against their plain versions at the
+    shapes the decoder gives them, and the mask's properties."""
+    import torch
+
+    start = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, t, h, d = FLASH_SHAPE
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind, mask in (("causal", fl.BandMask(t, t)),
+                           ("band", fl.BandMask(t, t, FLASH_WINDOW))):
+            for rate in (0.0, RATE):
+                rows += flash_case(fl, prng, gen, b, t, t, d, dtype, mask,
+                                   kind, rate, timed=True)
+    # T != S under a random general mask that admits a key in every row.
+    general = torch.rand((100, t), generator=gen, device="cuda") < 0.4
+    diagonal = torch.arange(100, device="cuda")
+    general[diagonal, diagonal] = True
+    rows += flash_case(fl, prng, gen, 4, 100, t, d, torch.bfloat16, general,
+                       "random", RATE, timed=True)
+    rows += flash_case(fl, prng, gen, 4, 100, t, d, torch.float32, general,
+                       "random", RATE, timed=False)
+    rows += flash_case(fl, prng, gen, 2, 47, 47, d, torch.bfloat16,
+                       fl.BandMask(47, 47, FLASH_WINDOW), "band", RATE,
+                       timed=True)
+    rows += flash_case(fl, prng, gen, 2, 47, 47, 16, torch.float32,
+                       fl.BandMask(47, 47), "causal", 0.0, timed=False)
+
+    # The mask's properties: rows 0-1 of a B = 8 call draw the bits of a
+    # B = 2 call; another seed draws another mask; the index path equals
+    # the tensor path bit for bit; two backward calls give the same bits.
+    q, g = (randn(FLASH_SHAPE, gen, torch.bfloat16) for _ in range(2))
+    k, v = (randn(FLASH_SHAPE, gen, torch.bfloat16) for _ in range(2))
+    band = fl.BandMask(t, t, FLASH_WINDOW)
+    with torch.no_grad():
+        out, lse = fl.flash_attention_forward(q, k, v, band, 51, RATE)
+        prefix = torch.equal(
+            fl.flash_attention_forward(q[:2], k[:2], v[:2], band, 51,
+                                       RATE)[0], out[:2])
+        other = not torch.equal(
+            fl.flash_attention_forward(q, k, v, band, 52, RATE)[0], out)
+        first = fl.flash_attention_backward(q, k, v, band, 51, out, lse, g,
+                                            RATE)
+        second = fl.flash_attention_backward(q, k, v, band, 51, out, lse, g,
+                                             RATE)
+        as_tensor = band.tensor("cuda")
+        out_t, lse_t = fl.flash_attention_forward(q, k, v, as_tensor, 51,
+                                                  RATE)
+        third = fl.flash_attention_backward(q, k, v, as_tensor, 51, out_t,
+                                            lse_t, g, RATE)
+    repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+    index = torch.equal(out, out_t) and all(
+        torch.equal(a, b) for a, b in zip(first, third))
+    print(f"flash attention mask: rows 0-1 of B={b} draw the bits of B=2: "
+          f"{prefix}; another seed another mask: {other}; two backward "
+          f"calls give the same bits: {repeat}; the index path equals the "
+          f"tensor path: {index}", flush=True)
+    check(prefix and other and repeat and index,
+          "flash attention's mask or its determinism failed a property")
+    try:
+        fl.flash_attention(*(randn((1, 4, 1, 320), gen, torch.float32)
+                             for _ in range(3)))
+        fail("flash_attention took D = 320 on the card")
+    except ValueError:
+        pass
+    print(f"flash attention phase: {time.monotonic() - start:.1f} s "
+          "(D = 320 raises)", flush=True)
+    return rows
+
+
 def valid_reply(reply, step: int) -> bool:
     params, action = reply.get("params"), reply.get("action")
     return (reply.get("step") == step and reply.get("cmd") in range(5)
@@ -1030,9 +1300,11 @@ class EpochWatch:
          self.handler_cls.save) = self.saved
 
 
-def phase_train_c(counters, card):
+def phase_train_c(counters, card, root):
     """Phase 8: the training entry point end to end, and phase 9, serving
-    from its checkpoint. Returns the launches of the path per kernel."""
+    from its checkpoint, under the scratch directory ``root``. Returns the
+    launches of the path per kernel and the arguments that name the
+    dataset it wrote, for the phases that reuse it."""
     import torch
 
     from videocad_tpu_torch.cli import train as cli_train
@@ -1045,151 +1317,147 @@ def phase_train_c(counters, card):
     from videocad_tpu_torch.train.checkpoint import CheckpointHandler
     from videocad_tpu_torch.train.trainer import Trainer
 
-    root = tempfile.mkdtemp(prefix="videocad_train_c_")
-    try:
-        data_dir = os.path.join(root, "data")
-        os.makedirs(data_dir)
-        split_path = os.path.join(data_dir, "dataset_split.json")
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir)
+    split_path = os.path.join(data_dir, "dataset_split.json")
+    start = time.monotonic()
+    split = write_synthetic_dataset(
+        data_dir, num_sequences=32, min_len=150, max_len=191,
+        image_size=224, seed=0, split_path=split_path)
+    sizes = [sum(1 for v in split.values() if v == name)
+             for name in ("train", "val", "test")]
+    print(f"train C: dataset written in {time.monotonic() - start:.1f} s "
+          f"(train / val / test sequences {sizes})", flush=True)
+    check(sizes == [16, 8, 8], f"split sizes {sizes}")
+
+    name = FLAGSHIP_NAME + "_pallas_ln_dropout"
+    params = dict(flagship_config(), ln_impl="pallas",
+                  dropout_impl="pallas")
+    params["train_config"] = {
+        "experiment_name": "train_c", "save_frequency": 1,
+        "val_frequency": 1, "seq_val_frequency": 2, "log_frequency": 2,
+        "sequential": True}
+    config_path = os.path.join(root, "model_config.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    argv = ["--dataset_path", data_dir, "--config_path", split_path,
+            "--model_config", config_path, "--model_name", name,
+            "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
+            "--lr", "1e-5", "--no_enable_random",
+            "--checkpoint_dir", os.path.join(root, "checkpoints"),
+            "--log_dir", os.path.join(root, "logs"),
+            "--class_weights", os.path.join(root, "no_class_weights")]
+
+    # The eval loss of the untrained weights on the test split: the
+    # experiment initialises its model from the same seed.
+    args = cli_train.parse_args(argv)
+    pipes = cli_train.build_pipelines(args, [], params)
+    test_pipe = pipes["test"]
+
+    # The host pipeline and the device feed alone, without a model: the
+    # seconds to assemble a batch (unpickle, pad, stack) and to pin and
+    # copy it to the card.
+    start = time.monotonic()
+    host_batches = list(pipes["train"].epoch(0))
+    assemble_s = (time.monotonic() - start) / len(host_batches)
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    for fed in device_prefetch(iter(host_batches), "cuda", size=2):
+        check(fed["frames"].shape == (TRAIN_BATCH, TRAIN_SEQ, 224, 224, 3),
+              f"a fed batch of shape {tuple(fed['frames'].shape)}")
+    torch.cuda.synchronize()
+    feed_s = (time.monotonic() - start) / len(host_batches)
+    batch_mb = sum(v.nbytes for v in host_batches[0].values()
+                   if hasattr(v, "nbytes")) / 1e6
+    del host_batches, fed
+    loss_config = default_loss_config({})
+    model = create_model(params, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    loss_before = mean_eval_loss(model, test_pipe, loss_config)
+
+    for reset in counters.values():
+        reset(0)                      # train C's path starts here
+    torch.cuda.reset_peak_memory_stats()
+    start = time.monotonic()
+    with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+        results = cli_train.main(argv + ["--epochs", "2"])
+        first_seconds = time.monotonic() - start
+        check(watch.resumed is None, "the first run resumed")
         start = time.monotonic()
-        split = write_synthetic_dataset(
-            data_dir, num_sequences=32, min_len=150, max_len=191,
-            image_size=224, seed=0, split_path=split_path)
-        sizes = [sum(1 for v in split.values() if v == name)
-                 for name in ("train", "val", "test")]
-        print(f"train C: dataset written in {time.monotonic() - start:.1f} s "
-              f"(train / val / test sequences {sizes})", flush=True)
-        check(sizes == [16, 8, 8], f"split sizes {sizes}")
+        resumed_results = cli_train.main(
+            argv + ["--epochs", "3", "--resume"])
+        second_seconds = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        name = FLAGSHIP_NAME + "_pallas_ln_dropout"
-        params = dict(flagship_config(), ln_impl="pallas",
-                      dropout_impl="pallas")
-        params["train_config"] = {
-            "experiment_name": "train_c", "save_frequency": 1,
-            "val_frequency": 1, "seq_val_frequency": 2, "log_frequency": 2,
-            "sequential": True}
-        config_path = os.path.join(root, "model_config.json")
-        with open(config_path, "w") as f:
-            json.dump({name: params}, f)
-        argv = ["--dataset_path", data_dir, "--config_path", split_path,
-                "--model_config", config_path, "--model_name", name,
-                "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
-                "--lr", "1e-5", "--no_enable_random",
-                "--checkpoint_dir", os.path.join(root, "checkpoints"),
-                "--log_dir", os.path.join(root, "logs"),
-                "--class_weights", os.path.join(root, "no_class_weights")]
+    check(not watch.syncs, "the epoch loop synchronised the host outside "
+          "its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+    log_dir = os.path.join(root, "logs", "train_c")
+    for file_name in TRAIN_C_FILES + ("epoch_3.json",):
+        path = os.path.join(log_dir, file_name)
+        check(os.path.isfile(path), f"train C wrote no {file_name}")
+        with open(path) as f:
+            json.load(f)
+    for result in (results, resumed_results):
+        check(result["total_predictions"] > 0
+              and math.isfinite(result["overall_accuracy"]),
+              f"test results {result}")
+    handler = CheckpointHandler("train_c",
+                                os.path.join(root, "checkpoints"))
+    check(handler.latest_epoch() == "epoch_3",
+          f"latest checkpoint {handler.latest_epoch()}")
+    check(len(watch.epochs) == 3 and all(e["steps"] == 2
+                                         for e in watch.epochs),
+          f"epochs run: {watch.epochs}")
+    saved = torch.load(os.path.join(handler.base, "epoch_2", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    resumed = watch.resumed
+    check(resumed is not None and resumed["found"]
+          and resumed["start_epoch"] == 2 and resumed["step"] == 4
+          and saved["step"] == 4,
+          f"the resumed run started at {resumed and resumed['start_epoch']}"
+          f", step {resumed and resumed['step']}")
+    check(all(torch.equal(resumed["params"][k], v)
+              for k, v in saved["params"].items()),
+          "the resumed parameters are not the checkpoint's")
+    moments = saved["opt_state"]["state"]
+    check(len(moments) == len(saved["params"])
+          and all(float(m["step"]) == 4 for m in moments.values()),
+          "the checkpoint lacks Adam's moments or step counts")
 
-        # The eval loss of the untrained weights on the test split: the
-        # experiment initialises its model from the same seed.
-        args = cli_train.parse_args(argv)
-        pipes = cli_train.build_pipelines(args, [], params)
-        test_pipe = pipes["test"]
-
-        # The host pipeline and the device feed alone, without a model: the
-        # seconds to assemble a batch (unpickle, pad, stack) and to pin and
-        # copy it to the card.
-        start = time.monotonic()
-        host_batches = list(pipes["train"].epoch(0))
-        assemble_s = (time.monotonic() - start) / len(host_batches)
-        torch.cuda.synchronize()
-        start = time.monotonic()
-        for fed in device_prefetch(iter(host_batches), "cuda", size=2):
-            check(fed["frames"].shape == (TRAIN_BATCH, TRAIN_SEQ, 224, 224, 3),
-                  f"a fed batch of shape {tuple(fed['frames'].shape)}")
-        torch.cuda.synchronize()
-        feed_s = (time.monotonic() - start) / len(host_batches)
-        batch_mb = sum(v.nbytes for v in host_batches[0].values()
-                       if hasattr(v, "nbytes")) / 1e6
-        del host_batches, fed
-        loss_config = default_loss_config({})
-        model = create_model(params, device="cuda",
-                             generator=torch.Generator().manual_seed(0))
-        loss_before = mean_eval_loss(model, test_pipe, loss_config)
-
-        for reset in counters.values():
-            reset(0)                      # train C's path starts here
-        torch.cuda.reset_peak_memory_stats()
-        start = time.monotonic()
-        with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
-            results = cli_train.main(argv + ["--epochs", "2"])
-            first_seconds = time.monotonic() - start
-            check(watch.resumed is None, "the first run resumed")
-            start = time.monotonic()
-            resumed_results = cli_train.main(
-                argv + ["--epochs", "3", "--resume"])
-            second_seconds = time.monotonic() - start
-        launches = {k: read() for k, read in counters.items()}  # and ends here
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-        check(not watch.syncs, "the epoch loop synchronised the host outside "
-              "its logging fetch:\n" + "\n".join(watch.syncs[:10]))
-        log_dir = os.path.join(root, "logs", "train_c")
-        for file_name in TRAIN_C_FILES + ("epoch_3.json",):
-            path = os.path.join(log_dir, file_name)
-            check(os.path.isfile(path), f"train C wrote no {file_name}")
-            with open(path) as f:
-                json.load(f)
-        for result in (results, resumed_results):
-            check(result["total_predictions"] > 0
-                  and math.isfinite(result["overall_accuracy"]),
-                  f"test results {result}")
-        handler = CheckpointHandler("train_c",
-                                    os.path.join(root, "checkpoints"))
-        check(handler.latest_epoch() == "epoch_3",
-              f"latest checkpoint {handler.latest_epoch()}")
-        check(len(watch.epochs) == 3 and all(e["steps"] == 2
-                                             for e in watch.epochs),
-              f"epochs run: {watch.epochs}")
-        saved = torch.load(os.path.join(handler.base, "epoch_2", "state.pt"),
-                           map_location="cpu", weights_only=True)
-        resumed = watch.resumed
-        check(resumed is not None and resumed["found"]
-              and resumed["start_epoch"] == 2 and resumed["step"] == 4
-              and saved["step"] == 4,
-              f"the resumed run started at {resumed and resumed['start_epoch']}"
-              f", step {resumed and resumed['step']}")
-        check(all(torch.equal(resumed["params"][k], v)
-                  for k, v in saved["params"].items()),
-              "the resumed parameters are not the checkpoint's")
-        moments = saved["opt_state"]["state"]
-        check(len(moments) == len(saved["params"])
-              and all(float(m["step"]) == 4 for m in moments.values()),
-              "the checkpoint lacks Adam's moments or step counts")
-
-        handler.restore_params("epoch_3", dict(model.named_parameters()))
-        loss_after = mean_eval_loss(model, test_pipe, loss_config)
-        per_step = {k: [e["launches"][k] / e["steps"] for e in watch.epochs]
-                    for k in counters}
-        step_ms = [e["seconds"] / e["steps"] * 1e3 for e in watch.epochs]
-        print(f"train C: cli.train.main, flagship bf16 with ln_impl and "
-              f"dropout_impl pallas, B={TRAIN_BATCH}, bucket 192, on {card}: "
-              f"2 epochs in {first_seconds:.1f} s, resume + 1 epoch in "
-              f"{second_seconds:.1f} s; ms per step by epoch (host clock "
-              f"around the epoch, data loading included) "
-              f"{[round(x, 1) for x in step_ms]}; launches per train step by "
-              f"epoch {per_step}; launches of the whole path {launches}; "
-              f"host pipeline alone {assemble_s:.3f} s per batch of "
-              f"{batch_mb:.0f} MB assembled (2 threads), {feed_s:.3f} s per "
-              f"batch pinned and copied to the card; checkpoint saves "
-              f"{[round(x, 2) for x in watch.save_seconds]} s; "
-              f"peak memory {peak_gb:.2f} GB; test eval loss "
-              f"{loss_before:.5f} -> {loss_after:.5f}; test accuracy "
-              f"{resumed_results['overall_accuracy']:.2f}%; host syncs in "
-              f"the epoch loops outside the logging fetch: "
-              f"{len(watch.syncs)}", flush=True)
-        check(math.isfinite(loss_after) and loss_after < loss_before,
-              f"the test eval loss did not fall: {loss_before} -> "
-              f"{loss_after}")
-        for kernel in ("layer_norm_fwd", "layer_norm_bwd", "hw_dropout",
-                       "mhsa_short", "mhsa_short_bwd"):
-            check(min(per_step[kernel]) > 0,
-                  f"train C's steps launched no {kernel} kernel")
-        del model
-        torch.cuda.empty_cache()
-        phase_serve_checkpoint(config_path, name,
-                               os.path.join(handler.base, "epoch_3"))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return launches
+    handler.restore_params("epoch_3", dict(model.named_parameters()))
+    loss_after = mean_eval_loss(model, test_pipe, loss_config)
+    per_step = {k: [e["launches"][k] / e["steps"] for e in watch.epochs]
+                for k in counters}
+    step_ms = [e["seconds"] / e["steps"] * 1e3 for e in watch.epochs]
+    print(f"train C: cli.train.main, flagship bf16 with ln_impl and "
+          f"dropout_impl pallas, B={TRAIN_BATCH}, bucket 192, on {card}: "
+          f"2 epochs in {first_seconds:.1f} s, resume + 1 epoch in "
+          f"{second_seconds:.1f} s; ms per step by epoch (host clock "
+          f"around the epoch, data loading included) "
+          f"{[round(x, 1) for x in step_ms]}; launches per train step by "
+          f"epoch {per_step}; launches of the whole path {launches}; "
+          f"host pipeline alone {assemble_s:.3f} s per batch of "
+          f"{batch_mb:.0f} MB assembled (2 threads), {feed_s:.3f} s per "
+          f"batch pinned and copied to the card; checkpoint saves "
+          f"{[round(x, 2) for x in watch.save_seconds]} s; "
+          f"peak memory {peak_gb:.2f} GB; test eval loss "
+          f"{loss_before:.5f} -> {loss_after:.5f}; test accuracy "
+          f"{resumed_results['overall_accuracy']:.2f}%; host syncs in "
+          f"the epoch loops outside the logging fetch: "
+          f"{len(watch.syncs)}", flush=True)
+    check(math.isfinite(loss_after) and loss_after < loss_before,
+          f"the test eval loss did not fall: {loss_before} -> "
+          f"{loss_after}")
+    for kernel in ("layer_norm_fwd", "layer_norm_bwd", "hw_dropout",
+                   "mhsa_short", "mhsa_short_bwd"):
+        check(min(per_step[kernel]) > 0,
+              f"train C's steps launched no {kernel} kernel")
+    del model
+    torch.cuda.empty_cache()
+    phase_serve_checkpoint(config_path, name,
+                           os.path.join(handler.base, "epoch_3"))
+    return launches, ["--dataset_path", data_dir, "--config_path", split_path]
 
 
 def phase_serve_checkpoint(config_path, name, checkpoint):
@@ -1225,6 +1493,172 @@ def phase_serve_checkpoint(config_path, name, checkpoint):
         check(valid_reply(reply, s), f"checkpoint serve step {s}: {reply}")
     print(f"serve from checkpoint: {os.path.basename(checkpoint)} answered 3 "
           f"steps, cmds {[r['cmd'] for r in replies]}", flush=True)
+
+
+ALL_PALLAS = {"attention_impl": "pallas", "ln_impl": "pallas",
+              "dropout_impl": "pallas"}
+
+
+def phase_train_d(counters, card, root, dataset_argv):
+    """Phase 10: the training entry point with the decoder's attention
+    through the flash attention kernels, on train C's dataset. Returns the
+    launches of the path per kernel and the arguments that name the model
+    and its checkpoints, for the evaluation."""
+    import torch
+
+    from videocad_tpu_torch.cli import train as cli_train
+    from videocad_tpu_torch.models.factory import (FLAGSHIP_NAME,
+                                                   flagship_config)
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+    from videocad_tpu_torch.train.trainer import Trainer
+
+    name = FLAGSHIP_NAME + "_pallas_attention_ln_dropout"
+    params = dict(flagship_config(), **ALL_PALLAS)
+    params["train_config"] = {
+        "experiment_name": "train_d", "save_frequency": 1,
+        "val_frequency": 1, "log_frequency": 2}
+    config_path = os.path.join(root, "model_config_d.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    model_argv = ["--model_config", config_path, "--model_name", name,
+                  "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
+                  "--checkpoint_dir", os.path.join(root, "checkpoints"),
+                  "--class_weights", os.path.join(root, "no_class_weights")]
+    argv = dataset_argv + model_argv + [
+        "--lr", "1e-5", "--no_enable_random", "--epochs", "1",
+        "--log_dir", os.path.join(root, "logs")]
+
+    for reset in counters.values():
+        reset(0)                          # train D's path starts here
+    torch.cuda.reset_peak_memory_stats()
+    start = time.monotonic()
+    with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+        results = cli_train.main(argv)
+    seconds = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(not watch.syncs, "train D's epoch loop synchronised the host "
+          "outside its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+    check(len(watch.epochs) == 1 and watch.epochs[0]["steps"] == 2,
+          f"train D's epochs: {watch.epochs}")
+    for file_name in ("params.json", "epoch_1.json", "val_epoch_1.json",
+                      "test.json", "results.json"):
+        check(os.path.isfile(os.path.join(root, "logs", "train_d",
+                                          file_name)),
+              f"train D wrote no {file_name}")
+    handler = CheckpointHandler("train_d", os.path.join(root, "checkpoints"))
+    for checkpoint in ("epoch_1", "best_model"):
+        check(os.path.isfile(os.path.join(handler.base, checkpoint,
+                                          "state.pt")),
+              f"train D saved no {checkpoint}")
+    check(results["total_predictions"] > 0
+          and math.isfinite(results["overall_accuracy"]),
+          f"train D's test results {results}")
+    epoch = watch.epochs[0]
+    per_step = {k: epoch["launches"][k] / epoch["steps"] for k in counters}
+    print(f"train D: cli.train.main, flagship bf16 with attention_impl, "
+          f"ln_impl and dropout_impl pallas, B={TRAIN_BATCH}, bucket 192, on "
+          f"{card}: 1 epoch of 2 steps, validation, 2 checkpoints and the "
+          f"test evaluation in {seconds:.1f} s; "
+          f"{epoch['seconds'] / epoch['steps'] * 1e3:.1f} ms per step (host "
+          f"clock around the epoch, data loading included); launches per "
+          f"train step {per_step}; launches of the whole path {launches}; "
+          f"peak memory {peak_gb:.2f} GB; test accuracy "
+          f"{results['overall_accuracy']:.2f}%; host syncs in the epoch "
+          f"loop outside the logging fetch: {len(watch.syncs)}", flush=True)
+    for kernel in FLASH_KERNELS:
+        check(per_step[kernel] == 16,
+              f"a train step of train D launched {kernel} "
+              f"{per_step[kernel]} times, expected 16 (8 layers x self and "
+              "cross attention)")
+    # One train step's 16 forward launches, and 16 more for each
+    # teacher-forced evaluation batch (validation and test: one of 8 each).
+    check(launches["flash_attention"] == 2 * 16 + 2 * 16,
+          f"train D launched the flash forward "
+          f"{launches['flash_attention']} times, expected 64")
+    for kernel in ("layer_norm_fwd", "layer_norm_bwd", "hw_dropout",
+                   "mhsa_short", "mhsa_short_bwd"):
+        check(per_step[kernel] > 0,
+              f"train D's steps launched no {kernel} kernel")
+    return launches, model_argv
+
+
+def phase_evaluate(counters, root, dataset_argv, model_argv):
+    """Phase 11: the evaluation entry point on train D's best_model."""
+    import csv
+
+    import torch
+
+    from videocad_tpu_torch.cli import evaluate as cli_evaluate
+    from videocad_tpu_torch.data.dataset import load_split_ids
+
+    out_root = os.path.join(root, "evaluate")
+    for reset in counters.values():
+        reset(0)                          # the evaluation's path starts here
+    start = time.monotonic()
+    results = cli_evaluate.main(dataset_argv + model_argv + [
+        "--checkpoint_folder", "train_d", "--output_root_dir", out_root,
+        "--sequential"])
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+
+    splits = load_split_ids(dataset_argv[3])
+    samples = os.path.join(out_root, "train_d", "samples")
+    for sample_id in splits["test"]:
+        for stem in ("pred_actions_{}.csv", "actions_{}.csv",
+                     "images_{}.png"):
+            check(os.path.isfile(os.path.join(samples,
+                                              stem.format(sample_id))),
+                  f"the evaluation wrote no {stem.format(sample_id)}")
+    with open(os.path.join(samples,
+                           f"pred_actions_{splits['test'][0]}.csv")) as f:
+        predicted = list(csv.reader(f))
+    check(len(predicted) == TRAIN_SEQ - 1 and len(predicted[0]) == 7,
+          f"a prediction CSV of {len(predicted)} rows")
+    for mode in ("val", "test"):
+        data = results["first_mistakes"][mode]
+        check(len(data) == 10, f"{len(data)} tolerance levels for {mode}")
+        for bucket in data:
+            check(len(bucket["Sequence Lengths"]) == len(splits[mode])
+                  and len(bucket["Number of Mistakes"]) == len(splits[mode]),
+                  f"the first-mistake structure of {mode} holds "
+                  f"{len(bucket['Sequence Lengths'])} sequences, not "
+                  f"{len(splits[mode])}")
+        metrics = results[mode]
+        check(metrics["total_predictions"] > 0
+              and all(math.isfinite(v) for v in metrics.values()
+                      if isinstance(v, float)),
+              f"the {mode} metrics: {metrics}")
+    check(results["test_seq"]["total_predictions"] > 0
+          and math.isfinite(results["test_seq"]["overall_accuracy"]),
+          f"the rollout metrics: {results['test_seq']}")
+    plots_dir = os.path.join(out_root, "train_d", "plots")
+    plot_files = [n for n in os.listdir(plots_dir) if n.endswith(".png")]
+    if results["plots"]:
+        # Per split: 4 sequence plots, 7 confusion matrices, 2 curves.
+        check(len(plot_files) == 26, f"{len(plot_files)} plot files, not 26")
+    else:
+        check(not plot_files, "plot files without matplotlib")
+    print(f"evaluate: cli.evaluate.main on train D's best_model in "
+          f"{seconds:.1f} s; matplotlib installed: {results['plots']} "
+          f"({len(plot_files)} plot files); {len(splits['test'])} test "
+          f"samples written; first-mistake data for {len(splits['val'])} val "
+          f"and {len(splits['test'])} test sequences at 10 tolerances; "
+          f"accuracy val {results['val']['overall_accuracy']:.2f}% test "
+          f"{results['test']['overall_accuracy']:.2f}% rollout "
+          f"{results['test_seq']['overall_accuracy']:.2f}%; launches "
+          f"{launches}", flush=True)
+    # Five teacher-forced passes (sample, two first-mistake passes, two
+    # evaluations), each one batch of 8: 16 forward launches a pass.
+    check(launches["flash_attention"] == 5 * 16,
+          f"the evaluation launched the flash forward "
+          f"{launches['flash_attention']} times, expected 80")
+    check(launches["flash_attention_dq"] == 0
+          and launches["flash_attention_dkv"] == 0,
+          "the evaluation launched a backward kernel")
+    return launches
 
 
 def phase_reference():
@@ -1314,6 +1748,7 @@ def kernel_entry(name, replaces, launches, rows, pick, extra):
     the largest error over all checks."""
     row = next(r for r in rows if r["kernel"] == name and pick(r))
     source = ("mhsa_short.cu" if name.startswith("mhsa")
+              else "flash_attention.cu" if name.startswith("flash")
               else "layernorm.cu" if name.startswith("layer_norm")
               else "dropout.cu" if name == "hw_dropout"
               else "gray_normalize.cu")
@@ -1350,6 +1785,7 @@ def main() -> None:
     import numpy as np
 
     from videocad_tpu_torch.kernels import build
+    from videocad_tpu_torch.ops import attention as fl
     from videocad_tpu_torch.ops import dropout as dr
     from videocad_tpu_torch.ops import fused_attention as fa
     from videocad_tpu_torch.ops import layernorm as ln
@@ -1365,7 +1801,7 @@ def main() -> None:
 
     start = time.monotonic()
     names = build.build_all()
-    for module in (fa, pp, ln, dr):
+    for module in (fa, pp, ln, dr, fl):
         module.load_library()
     print(f"build: {names} in {time.monotonic() - start:.1f} s", flush=True)
     for name in names:
@@ -1379,6 +1815,7 @@ def main() -> None:
     rows += phase_gray(pp)
     rows += phase_layer_norm(ln)
     rows += phase_hw_dropout(dr)
+    rows += phase_flash(fl, prng)
     torch.cuda.empty_cache()
 
     # name -> (the function that carries the count, the count's attribute);
@@ -1392,6 +1829,9 @@ def main() -> None:
         "layer_norm_fwd": (ln.layer_norm, "launches"),
         "layer_norm_bwd": (ln.layer_norm_backward, "launches"),
         "hw_dropout": (dr.hw_dropout, "launches"),
+        "flash_attention": (fl.flash_attention, "launches"),
+        "flash_attention_dq": (fl.flash_attention_dq, "launches"),
+        "flash_attention_dkv": (fl.flash_attention_dkv, "launches"),
     }
 
     def counter(name):
@@ -1411,24 +1851,42 @@ def main() -> None:
     phase_train_b(pp)
     launches = {name: read() for name, read in counters.items()}
     torch.cuda.empty_cache()             # the first main path ends here
-    launches_c = phase_train_c(counters, card)
-    torch.cuda.empty_cache()
-    for name in counters:
-        check(launches[name] > 0 or launches_c[name] > 0,
-              f"neither main path launched a {name} kernel")
-    print(f"main path launches: serve, rollout, train A and B {launches}; "
-          f"train C {launches_c}", flush=True)
-    # The path each kernel is claimed on: train C for the kernels behind
-    # ln_impl and dropout_impl, the first path for the others.
+    # Train C's dataset on disk serves train D and the evaluation too.
+    root = tempfile.mkdtemp(prefix="videocad_smoke_")
+    try:
+        launches_c, dataset_argv = phase_train_c(counters, card, root)
+        torch.cuda.empty_cache()
+        launches_d, model_argv = phase_train_d(counters, card, root,
+                                               dataset_argv)
+        torch.cuda.empty_cache()
+        launches_e = phase_evaluate(counters, root, dataset_argv, model_argv)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # The path each kernel is claimed on: train D for the flash attention
+    # kernels, train C for the kernels behind ln_impl and dropout_impl, the
+    # first path for the others.
     by_path = {name: {"serve_rollout_train_ab": launches[name],
-                      "train_c": launches_c[name]} for name in counters}
-    launches = {name: launches_c[name] if name.startswith(("layer_norm",
-                                                           "hw_dropout"))
+                      "train_c": launches_c[name],
+                      "train_d": launches_d[name],
+                      "evaluate": launches_e[name]} for name in counters}
+    print(f"main path launches: {by_path}", flush=True)
+    launches = {name: launches_d[name] if name.startswith("flash")
+                else launches_c[name] if name.startswith(("layer_norm",
+                                                          "hw_dropout"))
                 else launches[name] for name in counters}
+    for name in counters:
+        check(launches[name] > 0,
+              f"the main path of the {name} kernel did not launch it")
+    check(launches_e["flash_attention"] > 0,
+          "the evaluation launched no flash attention forward")
 
+    start = time.monotonic()
     phase_reference()
     phase_reference_train()
     phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
+    phase_reference_train(**ALL_PALLAS)
+    print(f"reference phase: {time.monotonic() - start:.1f} s", flush=True)
 
     at_train = lambda r: (r["batch"] == TRAIN_FRAMES  # noqa: E731
                           and r["dtype"] == "bfloat16")
@@ -1468,7 +1926,24 @@ def main() -> None:
         launches["hw_dropout"], rows,
         lambda r: tuple(r["shape"]) == DROPOUT_SHAPES[0]
         and r["dtype"] == "bfloat16", same)
-    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop]
+    # The flash attention kernels at the decoder's self-attention (causal)
+    # with dropout, as the train step runs it; the banded cross-attention's
+    # times beside them.
+    flash_at = lambda kind: lambda r: (  # noqa: E731
+        (r["batch"], r["q_len"], r["d"]) == (FLASH_SHAPE[0], FLASH_SHAPE[1],
+                                             FLASH_SHAPE[3])
+        and r["dtype"] == "bfloat16" and r["mask"] == kind
+        and r["rate"] == RATE)
+    flash = []
+    for name, line in zip(FLASH_KERNELS, (108, 173, 206)):
+        entry = kernel_entry(name, f"videocad_tpu/ops/attention.py:{line}",
+                             launches[name], rows, flash_at("causal"), same)
+        band = next(r for r in rows if r["kernel"] == name
+                    and flash_at("band")(r))
+        entry.update({f"{key}_band": band[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        flash.append(entry)
+    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash
     for entry in kernels:
         entry["launches_by_path"] = by_path[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

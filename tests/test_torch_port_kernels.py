@@ -11,6 +11,7 @@ jax it runs without the suite's conftest:
 import pytest
 import torch
 
+from videocad_tpu_torch.ops import attention as fl
 from videocad_tpu_torch.ops import dropout as dr
 from videocad_tpu_torch.ops import fused_attention as fa
 from videocad_tpu_torch.ops import layernorm as ln
@@ -331,3 +332,172 @@ def test_device_prefetch_on_the_card_returns_every_batch_in_order(
                                               want[key])
             count += 1
         assert count == len(source) == 6
+
+
+# ---- K3: flash attention ----
+
+def _flash_inputs(b, t, s, h, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(b, t, h, d), (b, s, h, d), (b, s, h, d), (b, t, h, d)]
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in shapes]
+
+
+def _flash_mask(kind, t, s):
+    """None, a BandMask, or a random (T, S) bool tensor that admits
+    col == min(row, S - 1) in every row."""
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return fl.BandMask(t, s)
+    if kind == "band":
+        return fl.BandMask(t, s, 10)
+    gen = torch.Generator(device="cuda").manual_seed(t * 1000 + s)
+    mask = torch.rand((t, s), generator=gen, device="cuda") < 0.4
+    rows = torch.arange(t, device="cuda")
+    mask[rows, rows.clamp_max(s - 1)] = True
+    return mask
+
+
+def _flash_close(got, want, dtype):
+    """float32: 2e-5 of the tensor's largest entry (sums over 256 columns
+    and up to 191 keys in another order). bf16: that, plus one unit in the
+    last place of bf16 at the value's magnitude (the one rounding of the
+    output may fall to the other side)."""
+    w = want.float()
+    tol = 2e-5 * max(1.0, w.abs().max().item())
+    err = (got.float() - w).abs()
+    if dtype == BF16:
+        exponent = torch.frexp(w.abs().clamp_min(1e-30))[1]
+        err = err - torch.ldexp(torch.ones_like(w), exponent - 8)
+    return err.max().item() <= tol
+
+
+FLASH_CASES = [
+    (8, 191, 191, 4, 256, BF16, "causal", 0.0),   # the decoder's self-attn
+    (8, 191, 191, 4, 256, BF16, "band", 0.1),     # its cross-attention
+    (8, 191, 191, 4, 256, F32, "causal", 0.1),
+    (2, 47, 47, 4, 256, BF16, "band", 0.0),
+    (2, 33, 70, 2, 16, F32, "random", 0.3),       # T != S, the tiny width
+    (3, 70, 33, 2, 64, BF16, "random", 0.0),
+    (2, 50, 50, 3, 40, F32, "none", 0.25),        # D off the lane grid
+    (1, 5, 7, 1, 8, F32, "causal", 0.0),
+]
+
+
+@pytest.mark.parametrize("b,t,s,h,d,dtype,kind,rate", FLASH_CASES)
+def test_flash_attention_kernels_match_plain_versions(cuda, b, t, s, h, d,
+                                                      dtype, kind, rate):
+    q, k, v, g = _flash_inputs(b, t, s, h, d, dtype, seed=b * 100 + t)
+    mask = _flash_mask(kind, t, s)
+    seed = 321 if rate else None
+    marks = (fl.flash_attention.launches, fl.flash_attention_dq.launches,
+             fl.flash_attention_dkv.launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fl.flash_attention(*leaves, mask, seed, rate)
+    # A non-contiguous gradient, as autograd may hand over.
+    out.backward(g.transpose(0, 1).contiguous().transpose(0, 1))
+    torch.cuda.synchronize()
+    assert (fl.flash_attention.launches, fl.flash_attention_dq.launches,
+            fl.flash_attention_dkv.launches) == tuple(m + 1 for m in marks)
+    with torch.no_grad():
+        want, want_lse = fl.flash_attention_reference(q, k, v, mask, seed,
+                                                      rate)
+        got, lse = fl.flash_attention_forward(q, k, v, mask, seed, rate)
+        assert torch.equal(got, out)
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+        grads = fl.flash_attention_backward_reference(
+            q, k, v, mask, seed, got, lse, g, rate)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _flash_close(out, want, dtype)
+    for leaf, w in zip(leaves, grads):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+        assert _flash_close(leaf.grad, w, dtype)
+    if dtype == F32:
+        # And against autograd through the plain forward (same mask).
+        again = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = fl.flash_attention_reference(*again, mask, seed, rate)[0]
+        for leaf, w in zip(leaves, torch.autograd.grad(ref, again, g)):
+            assert _flash_close(leaf.grad, w, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 10, 1, 40])
+def test_flash_attention_index_mask_equals_the_tensor_mask(cuda, window):
+    """The mask computed from indices, with its skipped tiles, against the
+    same mask read from a tensor, every tile visited: equal bits (the
+    skipped tiles hold only exp(-1e30 - m) = 0)."""
+    q, k, v, g = _flash_inputs(2, 191, 191, 4, 256, BF16, seed=5)
+    band = fl.BandMask(191, 191, window)
+    results = []
+    for mask in (band, band.tensor("cuda")):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fl.flash_attention(*leaves, mask, 77, 0.1)
+        out.backward(g)
+        results.append([out.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_kernels_draw_one_mask(cuda):
+    """With V = [I | 0] per head the output is the dropped weights, and
+    with g = [I | 0] dv is their transpose: the forward's and the dK/dV
+    kernel's kept sets are read off and must be the bit function's; a
+    batch prefix draws the prefix's bits; another seed another mask."""
+    b, t, h, d, rate = 4, 191, 4, 256, 0.1
+    q, k, _, _ = _flash_inputs(b, t, t, h, d, F32, seed=9)
+    eye = torch.eye(t, d, device="cuda").view(1, t, 1, d).expand(
+        b, t, h, d).contiguous()
+    with torch.no_grad():
+        clean, lse = fl.flash_attention_forward(q, k, eye)
+        out, lse_d = fl.flash_attention_forward(q, k, eye, None, 11, rate)
+        other = fl.flash_attention_forward(q, k, eye, None, 12, rate)[0]
+        want = fl.flash_attention_reference(q, k, eye, None, 11, rate)[0]
+        _, _, dv = fl.flash_attention_backward(q, k, eye, None, 11, out,
+                                               lse_d, eye, rate)
+        prefix = fl.flash_attention_forward(q[:2], k[:2], eye[:2], None, 11,
+                                            rate)[0]
+    assert torch.equal(lse, lse_d)       # the denominator sums undropped p
+    positive = clean[..., :t].permute(0, 2, 1, 3) > 0      # (B, H, T, S)
+    kept = out[..., :t].permute(0, 2, 1, 3) > 0
+    keep = prng.keep_mask(prng.dropout_bits(
+        11, b, h, t, t, device="cuda", key_word=prng.FLASH_KEY_WORD), rate)
+    assert torch.equal(kept, keep & positive)
+    assert torch.equal(kept, want[..., :t].permute(0, 2, 1, 3) > 0)
+    kept_bwd = dv[..., :t].permute(0, 2, 3, 1) > 0         # dv is (B,S,H,T)
+    assert torch.equal(kept_bwd, kept)
+    assert torch.equal(prefix, out[:2])
+    assert not torch.equal(out > 0, other > 0)
+    share = 1.0 - (kept & positive).sum().item() / positive.sum().item()
+    assert abs(share - rate) <= 4 * (0.09 / positive.sum().item()) ** 0.5
+
+
+def test_flash_attention_gradients_repeat_exactly(cuda):
+    """Every output element has one owner and nothing is summed with
+    atomics: two backward calls give the same bits."""
+    q, k, v, g = _flash_inputs(8, 191, 191, 4, 256, BF16, seed=4)
+    mask = fl.BandMask(191, 191)
+    with torch.no_grad():
+        out, lse = fl.flash_attention_forward(q, k, v, mask, 3, 0.1)
+        first = fl.flash_attention_backward(q, k, v, mask, 3, out, lse, g, 0.1)
+        second = fl.flash_attention_backward(q, k, v, mask, 3, out, lse, g,
+                                             0.1)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, _ = _flash_inputs(2, 9, 9, 2, 16, F32, seed=0)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            fl.flash_attention(q.half(), k.half(), v.half())
+        with pytest.raises(ValueError, match="contiguous"):
+            fl.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+        with pytest.raises(ValueError, match="D <= 256"):
+            fl.flash_attention(*_flash_inputs(1, 4, 4, 1, 320, F32, 1)[:3])
+        with pytest.raises(ValueError, match="BandMask of"):
+            fl.flash_attention(q, k, v, fl.BandMask(9, 8))
+        with pytest.raises(ValueError, match="bool mask"):
+            fl.flash_attention(q, k, v, torch.ones(9, 9, device="cuda"))
+        with pytest.raises(ValueError, match="explicit int32 seed"):
+            fl.flash_attention(q, k, v, None, None, 0.1)
+        assert fl.flash_attention(q[:0], k[:0], v[:0]).shape == (0, 9, 2, 16)

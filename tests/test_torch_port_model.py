@@ -226,3 +226,73 @@ def test_ln_impl_pallas_uses_the_fused_layernorm_in_the_vit_only():
     assert plain and all(n.startswith("decoder.") for n in plain)
     with pytest.raises(ValueError, match="unknown ln_impl"):
         create_model(dict(FUSED, ln_impl="mosaic"))
+
+
+# ---- attention_impl "pallas" ----
+
+@pytest.mark.parametrize("wiring", sorted(WIRINGS))
+def test_attention_impl_pallas_logits_match_jax_and_the_plain_attention(
+        wiring):
+    """The decoder's attention through flash attention: the JAX side runs
+    its Pallas kernel in interpret mode, the port its plain version, fed
+    the masks by index; 1e-4 at float32 against JAX under the same setting
+    (as the default path is held), 1e-5 against the port under
+    attention_impl "xla" with the same weights."""
+    impls = dict(WIRINGS[wiring], attention_impl="pallas")
+    jax_model, params, model = _pair(impls, seed=10)
+    plain = create_model(dict(FUSED, **WIRINGS[wiring]))
+    plain.load_state_dict(model.state_dict())     # the same names either way
+    b, t = 2, 7
+    inputs = {"frames": _u8((b, t, 32, 32, 3), seed=11),
+              "cad_image": _u8((b, 32, 32, 3), seed=12),
+              "actions": _actions(b, t, seed=13)}
+    expected = jax_model.apply({"params": params},
+                               {k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        tensors = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        got = model(tensors)
+        want_plain = plain(tensors)
+    for g, e, w in zip(got, expected, want_plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+def test_attention_impl_pallas_feeds_the_decoder_masks_by_index(monkeypatch):
+    """Under "pallas" every decoder attention site calls flash_attention
+    with a BandMask (causal for the self-attention, the window for the
+    cross-attention), never a mask tensor; the ViT's attention stays on
+    its own kernel."""
+    from videocad_tpu_torch.models import layers
+    from videocad_tpu_torch.ops.attention import BandMask
+
+    seen = []
+    real = layers.flash_attention
+
+    def spy(q, k, v, mask=None, seed=None, dropout_rate=0.0):
+        seen.append((mask, seed, dropout_rate))
+        return real(q, k, v, mask, seed, dropout_rate)
+
+    monkeypatch.setattr(layers, "flash_attention", spy)
+    model = create_model(dict(FUSED, attention_impl="pallas"))
+    t = 6
+    with torch.no_grad():
+        model({"frames": torch.from_numpy(_u8((1, t, 32, 32, 3), seed=1)),
+               "cad_image": torch.from_numpy(_u8((1, 32, 32, 3), seed=2)),
+               "actions": torch.from_numpy(_actions(1, t, seed=3))})
+    window = FUSED["window_size"]
+    assert [m for m, _, _ in seen] == [
+        BandMask(t, t), BandMask(t, t, window)] * FUSED["num_decoder_layers"]
+    assert all(seed is None and rate == 0.0 for _, seed, rate in seen)
+    # In train() mode with dropout on, each site draws a seed of its own.
+    seen.clear()
+    from videocad_tpu_torch.ops.dropout import DropoutRng
+    model = create_model(dict(FUSED, attention_impl="pallas", dropout=0.1))
+    model.train()
+    model({"frames": torch.from_numpy(_u8((1, t, 32, 32, 3), seed=1)),
+           "cad_image": torch.from_numpy(_u8((1, 32, 32, 3), seed=2)),
+           "actions": torch.from_numpy(_actions(1, t, seed=3))},
+          rng=DropoutRng(0, "cpu"))
+    seeds = [seed for _, seed, _ in seen]
+    assert len(set(seeds)) == len(seeds) == 2 * FUSED["num_decoder_layers"]
+    assert all(rate == 0.1 for _, _, rate in seen)

@@ -397,13 +397,15 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=str(Path(__file__).resolve().parents[1]))
     assert out.returncode == 0, out.stderr
-    # Every module of the package, the trainer slice's among them.
-    assert int(out.stdout.split()[-1]) >= 42
+    # Every module of the package, the trainer's and the evaluation's
+    # among them.
+    assert int(out.stdout.split()[-1]) >= 45
     package = Path(__file__).resolve().parents[1] / "videocad_tpu_torch"
     for module in ["ops/layernorm.py", "utils/io.py", "data/collate.py",
                    "data/dataset.py", "data/pipeline.py",
                    "train/checkpoint.py", "train/preempt.py",
-                   "train/trainer.py", "experiment.py", "cli/train.py"]:
+                   "train/trainer.py", "experiment.py", "cli/train.py",
+                   "ops/attention.py", "cli/evaluate.py", "cli/plots.py"]:
         assert (package / module).is_file(), module
 
 
@@ -421,7 +423,9 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
     ({"vit_attention_impl": "block"}, "K6"),
     ({"vit_mlp_impl": "block"}, "K6"),
     ({"num_views": 2}, "slice 11"),
-    ({"attention_impl": "pallas"}, "K3"),
+    ({"attention_impl": "block"}, "K6"),
+    ({"remat_encoder": True}, "slice 11"),
+    ({"use_pretrained_cad_model": True}, "slice 11"),
     ({"encoder": "resnet"}, "slice 11"),
     ({"frame_chunk": 4}, "slice 11"),
     ({"quant": "int8"}, "slice 11"),

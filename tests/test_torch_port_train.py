@@ -559,3 +559,73 @@ def test_train_step_with_pallas_dropout_repeats_for_a_seed_and_differs():
         assert all(g is not None and torch.isfinite(g).all() for g in grads)
     assert losses["a"] == losses["b"]
     assert losses["a"][0] != losses["c"][0]
+
+
+# ---- the train step under attention_impl, ln_impl and dropout_impl
+# "pallas" ----
+
+ALL_PALLAS = dict(PALLAS, attention_impl="pallas")
+
+
+def test_loss_and_gradients_match_jax_under_all_three_pallas_settings():
+    """One train step's loss and gradients with the decoder's attention
+    through flash attention as well: the JAX side differentiates through
+    its interpreted Pallas forward, dQ and dK/dV kernels, the port through
+    its plain backward (the kernels' formulas). A short batch keeps the JAX
+    side's interpreted kernels quick. Loss 1e-4 relative, gradients 1e-4 of
+    each tensor's largest entry, key biases an absolute 1e-6."""
+    jax_model, jax_st, _, model, _ = _pair(ALL_PALLAS)
+    jax_batch, port_batch = _batch(b=2, t=6, seed=2)
+
+    def loss_fn(params):
+        inputs, targets = jax_steps.prepare_model_inputs(jax_batch)
+        preds = jax_model.apply({"params": params}, inputs)
+        return jax_objective.compute_loss_and_metrics(*preds, targets,
+                                                      JAX_LOSS)[0]
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(jax_st.params)
+    inputs, targets = port_steps.prepare_model_inputs(port_batch)
+    loss = port_objective.compute_loss_and_metrics(*model(inputs), targets,
+                                                   PORT_LOSS)[0]
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    _assert_trees_close(jax_tree_from_state_dict(grads), want_grads, 1e-4,
+                        relative=True, key_bias_tol=1e-6)
+
+
+def test_train_step_under_all_three_pallas_settings_matches_the_plain_step():
+    """The port's train step under the three "pallas" settings against its
+    own step under "xla" from the same weights: the loss within 1e-5, the
+    parameters after the step within 1e-5."""
+    _, _, _, model, port_st = _pair(ALL_PALLAS)
+    _, _, _, plain, plain_st = _pair()
+    plain.load_state_dict(model.state_dict())
+    _, port_batch = _batch(seed=3)
+    _, loss, metrics = port_steps.make_train_step(model, PORT_LOSS)(
+        port_st, port_batch, 0)
+    _, want_loss, want_metrics = port_steps.make_train_step(
+        plain, PORT_LOSS)(plain_st, port_batch, 0)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for key in want_metrics:
+        assert float(metrics[key]) == float(want_metrics[key]), key
+    want = plain.state_dict()
+    for name, value in model.state_dict().items():
+        if name.endswith(".key.bias"):
+            continue     # noise gradients, which Adam turns into steps of lr
+        assert (value - want[name]).abs().max().item() <= 1e-5, name
+
+
+def test_train_step_with_flash_attention_dropout_repeats_for_a_seed():
+    _, port_batch = _batch(seed=5)
+    losses = {}
+    for run, seed in [("a", 11), ("b", 11), ("c", 12)]:
+        model = create_model(dict(FUSED, dropout=0.1, **ALL_PALLAS))
+        state = port_state.create_train_state(
+            dict(model.named_parameters()), {"lr": 1e-3})
+        step = port_steps.make_train_step(model, PORT_LOSS)
+        state, first, _ = step(state, port_batch, seed)
+        losses[run] = float(first)
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert losses["a"] == losses["b"] != losses["c"]

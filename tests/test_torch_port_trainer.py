@@ -7,7 +7,10 @@ and the port's run two epochs over it from the same weights (JAX's
 dropout off, and their epoch losses, metric counters and parameters are
 compared. Resume, preemption, early stopping, the evaluation modes and the
 first-mistake analysis are held by their properties and, for the analysis,
-against the JAX host loop on random sequences.
+against the JAX host loop on random sequences. The evaluation CLI runs on
+the CPU on a checkpoint of carried-over weights: its files, its printed
+metrics, and its first-mistake data against the JAX trainer's; the plot
+suite's numbers against the JAX module's.
 """
 
 import json
@@ -29,6 +32,9 @@ from videocad_tpu.models import create_model as jax_create_model
 from videocad_tpu.models import init_model
 from videocad_tpu.train import objective as jax_objective
 from videocad_tpu.train.trainer import Trainer as JaxTrainer
+from videocad_tpu.cli import plots as jax_plots
+from videocad_tpu_torch.cli import evaluate as port_evaluate
+from videocad_tpu_torch.cli import plots as port_plots
 from videocad_tpu_torch.cli import serve as port_serve
 from videocad_tpu_torch.cli import train as port_cli
 from videocad_tpu_torch.data.dataset import VideoCADDataset, load_split_ids
@@ -606,3 +612,184 @@ def test_default_loss_config_reads_class_weights(tmp_path):
         json.dump({"Label": [0.1, 0.2, 0.3, 0.2, 0.2]}, f)
     assert default_loss_config({}, path).cmd_weights == (0.1, 0.2, 0.3, 0.2,
                                                          0.2)
+
+
+# ---- the evaluation CLI and its plot suite ----
+
+EVAL_CONFIG = dict(CONFIG, attention_impl="pallas")
+
+
+@pytest.fixture(scope="module")
+def evaluated(env):
+    """``cli.evaluate.main`` run once on the CPU on a best_model checkpoint
+    that holds JAX's ``init_model`` weights: (its results, what it printed,
+    its output directory, the JAX model and parameters)."""
+    import contextlib
+    import io
+
+    root, store, _ = env
+    jax_model = jax_create_model(EVAL_CONFIG)
+    params = init_model(jax_model, jax.random.PRNGKey(4), batch=1, seq_len=2)
+    model = create_model(EVAL_CONFIG)
+    model.load_state_dict(state_dict_from_jax(params))
+    ckpt_dir = os.path.join(root, "evaluate", "ckpt")
+    state = port_state.create_train_state(dict(model.named_parameters()),
+                                          {"lr": 1e-5})
+    CheckpointHandler("exp", ckpt_dir).save(state, 0, 0.0, is_best=True)
+    model_config = os.path.join(root, "evaluate_model.json")
+    with open(model_config, "w") as f:
+        json.dump({"tiny": EVAL_CONFIG}, f)
+    out_root = os.path.join(root, "evaluate", "out")
+    argv = ["--device", "cpu", "--dataset_path", store,
+            "--config_path", os.path.join(store, "dataset_split.json"),
+            "--model_config", model_config, "--model_name", "tiny",
+            "--batch_size", "2", "--buckets", "8", "--tol", "3",
+            "--checkpoint_folder", "exp", "--checkpoint_dir", ckpt_dir,
+            "--output_root_dir", out_root,
+            "--class_weights", os.path.join(root, "none.json")]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        results = port_evaluate.main(argv + ["--sequential"])
+    return results, printed.getvalue(), os.path.join(out_root, "exp"), \
+        jax_model, params, argv
+
+
+def test_evaluate_cli_writes_samples_plots_and_metrics(env, evaluated):
+    results, printed, out_dir, _, _, _ = evaluated
+    splits = load_split_ids(os.path.join(env[1], "dataset_split.json"))
+    samples = sorted(os.listdir(os.path.join(out_dir, "samples")))
+    assert samples == sorted(
+        stem.format(i) for i in splits["test"]
+        for stem in ("pred_actions_{}.csv", "actions_{}.csv",
+                     "images_{}.png"))
+    # Per split: 4 sequence plots, 7 confusion matrices, 2 curves.
+    plots = os.listdir(os.path.join(out_dir, "plots"))
+    assert results["plots"] is True and len(plots) == 26
+    assert all(name.startswith("exp_") and name.endswith(".png")
+               for name in plots)
+    assert "exp_test_param_3_confusion_matrix.png" in plots
+    assert "exp_val_accuracy_vs_tolerance.png" in plots
+    assert sorted(os.listdir(os.path.join(out_dir, "logs", "exp"))) == [
+        "test.json", "test_seq.json", "val.json"]
+    for heading in ("Evaluating on Validation Set:",
+                    "Evaluating on Test Set:",
+                    "Sequential (rollout) evaluation on Test Set:",
+                    "Number of perfect sequences (val):"):
+        assert heading in printed
+    for split in ("val", "test", "test_seq"):
+        metrics = results[split]
+        assert metrics["total_predictions"] > 0
+        assert all(np.isfinite(v) for v in metrics.values())
+        assert str({k: round(v, 2) for k, v in metrics.items()
+                    if k.endswith("accuracy")}) in printed
+
+
+@pytest.mark.parametrize("mode", ["val", "test"])
+def test_evaluate_cli_first_mistakes_equal_the_jax_trainers(env, evaluated,
+                                                            mode):
+    """The same weights, the same split and tolerance through the JAX
+    ``Trainer.find_first_mistake`` (flash attention interpreted there, the
+    plain version here): the same structure, entry for entry."""
+    results, _, _, jax_model, params, _ = evaluated
+    root, store, _ = env
+    jax_pipes = _pipes(store, jax_dataset.VideoCADDataset,
+                       jax_pipeline.DataPipeline)
+    jax_trainer = JaxTrainer(
+        jax_model, jax_pipes["train"], jax_pipes["val"], jax_pipes["test"],
+        _config(root, "evaluate_jax"), JAX_LOSS, params=params,
+        log_dir=os.path.join(root, "evaluate_jax", "logs"))
+    want = jax_trainer.find_first_mistake(mode=mode, tol=3)
+    plain = lambda data: json.loads(json.dumps(data, default=int))  # noqa: E731
+    got = results["first_mistakes"][mode]
+    assert len(got) == 3
+    assert len(got[-1]["Sequence Lengths"]) == 2 * len(jax_pipes[mode])
+    assert plain(got) == plain(want)
+
+
+def test_evaluate_cli_skips_the_plots_without_matplotlib(evaluated,
+                                                         monkeypatch,
+                                                         tmp_path, capsys):
+    argv = evaluated[5]
+    monkeypatch.setattr(port_evaluate, "matplotlib_available", lambda: False)
+    out_root = str(tmp_path / "out")
+    argv = argv[:argv.index("--output_root_dir") + 1] + [out_root] + argv[
+        argv.index("--output_root_dir") + 2:]
+    results = port_evaluate.main(argv)
+    assert results["plots"] is False and "test_seq" not in results
+    assert "the plot suite is skipped" in capsys.readouterr().out
+    assert os.listdir(os.path.join(out_root, "exp", "plots")) == []
+    assert len(os.listdir(os.path.join(out_root, "exp", "samples"))) == 6
+    assert results["first_mistakes"]["test"] == evaluated[0][
+        "first_mistakes"]["test"]
+
+
+def test_evaluate_cli_refuses_cuda_without_a_card(evaluated, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = evaluated[5]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_evaluate.main(argv[2:])                      # the default
+    assert port_evaluate.parse_args(
+        ["--checkpoint_folder", "x"]).device == "cuda"
+
+
+def test_plots_module_imports_no_matplotlib():
+    import subprocess
+    import sys
+
+    code = ("import sys; import videocad_tpu_torch.cli.plots, "
+            "videocad_tpu_torch.cli.evaluate; "
+            "assert 'matplotlib' not in sys.modules")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr
+
+
+def _seeded_pairs(seed, n=400):
+    rng = np.random.default_rng(seed)
+    gt = rng.integers(0, 1000, n)
+    pred = np.clip(gt + rng.integers(-30, 30, n), 0, 999)
+    return [[int(a), int(b)] for a, b in zip(gt, pred)]
+
+
+@pytest.mark.parametrize("key", sorted(port_plots.CONFUSION_SPECS))
+@pytest.mark.parametrize("row_norm", [True, False])
+def test_confusion_matrix_equals_the_jax_modules(key, row_norm):
+    assert port_plots.CONFUSION_SPECS == jax_plots.CONFUSION_SPECS
+    dim, scale, _ = port_plots.CONFUSION_SPECS[key]
+    pairs = _seeded_pairs(len(key) + dim)
+    if key == "cmd":
+        pairs = [[a % 5, b % 5] for a, b in pairs]
+    got = port_plots.confusion_matrix(pairs, dim, scale, row_norm)
+    want = jax_plots.confusion_matrix(pairs, dim, scale, row_norm)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() > 0
+
+
+def test_plot_curves_equal_the_jax_modules(tmp_path, monkeypatch):
+    """The numbers behind the accuracy-vs-tolerance and the
+    perfect-sequence curves against what the JAX module hands to
+    ``plt.plot`` for the same first-mistake structure."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(3, 9, 12)
+    bucket = {
+        "Memory": {f"param_{i}": _seeded_pairs(i) for i in range(6)},
+        "Sequence Lengths": [[int(rng.integers(0, n + 1)), int(n)]
+                             for n in lengths],
+        "Number of Mistakes": [rng.integers(0, 2, n).tolist()
+                               for n in lengths],
+    }
+    bucket["Memory"]["param_5"] = []          # a field without labels
+    drawn = []
+    monkeypatch.setattr(jax_plots.plt, "plot",
+                        lambda x, y, **kw: drawn.append((list(x), list(y))))
+    jax_plots.plot_accuracy_vs_tolerance([bucket], str(tmp_path), "n")
+    jax_plots.plot_perfect_sequence_percentage([bucket], str(tmp_path), "n")
+    curves = port_plots.accuracy_vs_tolerance(bucket["Memory"])
+    assert list(curves) == ["param_0", "param_1", "param_5"]
+    for (x, want), got in zip(drawn[:3], curves.values()):
+        assert x == list(range(20)) and got == want
+    assert curves["param_5"] == [0.0] * 20 and curves["param_0"][-1] > 0
+    assert drawn[3] == (list(range(101)),
+                        port_plots.perfect_sequence_percentages(bucket))
+    assert port_plots.FIELD_NAMES == jax_plots.FIELD_NAMES

@@ -9,10 +9,11 @@ with all 8 lanes active (no HTTP), the CAD encode of ``open_lane``, the
 state encoder over the rollout's B*T frames, the rollout at B=2, T=187,
 and the ``mhsa_short`` kernel alone at the batches the path gives it; then
 the training path: the flagship's train step (dropout 0.1) at B=8, T=192
-and its eval step, as the JSON has the config and once more with
-``ln_impl`` and ``dropout_impl`` ``"pallas"`` (the LayerNorm and dropout
-kernels), in the same call so that the two can be compared. For each piece
-it prints one JSON line:
+and its eval step, as the JSON has the config, once more with ``ln_impl``
+and ``dropout_impl`` ``"pallas"`` (the LayerNorm and dropout kernels), and
+a third time with ``attention_impl`` ``"pallas"`` as well (the decoder's
+flash attention kernels), in the same call so that the three can be
+compared. For each piece it prints one JSON line:
 
   wall_ms     host-clock ms per iteration, without the profiler, ending in
               a device sync
@@ -23,8 +24,9 @@ it prints one JSON line:
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
-The last line holds the card's name and power limit (nvidia-smi) and the
-peak device memory.
+After each of the three settings a line holds its peak device memory; the
+last line holds the card's name and power limit (nvidia-smi) and the
+largest of those peaks.
 """
 
 from __future__ import annotations
@@ -201,20 +203,32 @@ def main(argv=None) -> None:
     model = create_model(flagship_config(), device=device)
     for report in serve_reports(model, device) + train_reports(model, device):
         print(json.dumps(report), flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"settings": "as the JSON has them",
+                      "max_memory_gb": peak_gb}), flush=True)
     del model
     torch.cuda.empty_cache()
-    kernels = create_model(dict(flagship_config(), ln_impl="pallas",
-                                dropout_impl="pallas"), device=device)
-    for report in train_reports(kernels, device,
-                                ", ln_impl and dropout_impl pallas"):
-        print(json.dumps(report), flush=True)
+    settings = {"ln_impl": "pallas", "dropout_impl": "pallas"}
+    for label in (", ln_impl and dropout_impl pallas",
+                  ", attention_impl, ln_impl and dropout_impl pallas"):
+        torch.cuda.reset_peak_memory_stats()
+        kernels = create_model(dict(flagship_config(), **settings),
+                               device=device)
+        for report in train_reports(kernels, device, label):
+            print(json.dumps(report), flush=True)
+        settings_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak_gb = max(peak_gb, settings_gb)
+        print(json.dumps({"settings": label.strip(", "),
+                          "max_memory_gb": settings_gb}), flush=True)
+        del kernels
+        torch.cuda.empty_cache()
+        settings["attention_impl"] = "pallas"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(json.dumps({"card": card[0] if card else None,
-                      "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
-          flush=True)
+                      "max_memory_gb": peak_gb}), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ JAX dtype flow:
   * :class:`LayerNorm` takes its statistics and affine in float32 and
     returns the compute dtype (flax ``nn.LayerNorm``), eps 1e-5;
   * :func:`xla_attention` computes and scales the scores in the compute
-    dtype, runs the softmax in float32, and casts the weights back.
+    dtype, runs the softmax in float32, and casts the weights back;
+  * ``attention_impl="pallas"`` runs the decoder's attention through
+    :func:`~videocad_tpu_torch.ops.attention.flash_attention` (float32
+    math inside, whatever the compute dtype).
 
 Decoder blocks follow torch.nn.TransformerDecoderLayer semantics (post-LN,
 ReLU feed-forward, dropout on attention weights and residual branches).
@@ -21,8 +24,8 @@ Dropout is active only in ``train()`` mode and draws from the
 ``rng`` argument of each ``forward``: elementwise sites from its device
 generator (``dropout_impl="xla"``) or through the standalone dropout kernel
 with a seed derived per call from its CPU generator (``"pallas"``), the
-fused attention kernel's in-kernel dropout from such a seed too. A
-training-mode forward with dropout on and no ``rng`` raises.
+fused and the flash attention kernels' in-kernel dropout from such a seed
+too. A training-mode forward with dropout on and no ``rng`` raises.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from videocad_tpu_torch.ops.attention import BandMask, flash_attention
 from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_attention import mhsa_short
 from videocad_tpu_torch.ops.prng import derive_seed
@@ -76,18 +80,20 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def causal_mask(seq_len: int, device=None) -> torch.Tensor:
-    """(T, T) bool, True = may attend: col <= row."""
-    pos = torch.arange(seq_len, device=device)
-    return pos[None, :] <= pos[:, None]
+def causal_mask(seq_len: int, device=None, by_index: bool = False):
+    """(T, T) bool, True = may attend: col <= row. ``by_index``: the same
+    mask as a :class:`BandMask`, which the flash attention kernels compute
+    from indices instead of reading a tensor."""
+    mask = BandMask(seq_len, seq_len)
+    return mask if by_index else mask.tensor(device)
 
 
-def banded_mask(q_len: int, kv_len: int, window: int,
-                device=None) -> torch.Tensor:
-    """(q_len, kv_len) bool banded window: row t attends cols (t-window, t]."""
-    rows = torch.arange(q_len, device=device)[:, None]
-    cols = torch.arange(kv_len, device=device)[None, :]
-    return (cols > rows - window) & (cols <= rows)
+def banded_mask(q_len: int, kv_len: int, window: int, device=None,
+                by_index: bool = False):
+    """(q_len, kv_len) bool banded window: row t attends cols (t-window, t].
+    ``by_index``: as for :func:`causal_mask`."""
+    mask = BandMask(q_len, kv_len, window)
+    return mask if by_index else mask.tensor(device)
 
 
 def active_rate(module: nn.Module, rate: float,
@@ -127,11 +133,14 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class MultiHeadAttention(nn.Module):
     """MHA with separate q/kv inputs and a pluggable core.
 
-    ``attention_impl``: ``"xla"`` (plain PyTorch), or ``"fused"``, which
+    ``attention_impl``: ``"xla"`` (plain PyTorch); ``"fused"``, which
     routes unmasked attention through the hand-written ``mhsa_short``
-    kernel exactly where the JAX module calls its Pallas kernel, with the
-    attention-weight dropout inside the kernel. The flash kernel
-    (``"pallas"``) is not ported yet.
+    kernel exactly where the JAX module calls its Pallas kernel; or
+    ``"pallas"``, the hand-written flash attention kernels
+    (``ops/attention.py``), which take the mask as a bool tensor or, from
+    ``causal_mask`` / ``banded_mask`` with ``by_index``, as a
+    :class:`BandMask`. Both kernel paths run the attention-weight dropout
+    inside the kernel.
     """
 
     def __init__(self, model_dim: int, num_heads: int,
@@ -141,10 +150,10 @@ class MultiHeadAttention(nn.Module):
                  attention_impl: str = "xla", dropout_impl: str = "xla",
                  device=None):
         super().__init__()
-        if attention_impl not in ("xla", "fused"):
+        if attention_impl not in ("xla", "fused", "pallas"):
             raise NotImplementedError(
                 f"attention_impl={attention_impl!r} is not ported yet "
-                "(ROADMAP kernel K3 for 'pallas', K6 for 'block')")
+                "(ROADMAP kernel K6 for 'block')")
         self.num_heads = num_heads
         self.head_dim = head_dim or model_dim // num_heads
         self.attention_impl = attention_impl
@@ -182,7 +191,12 @@ class MultiHeadAttention(nn.Module):
                                v.reshape(b, t, -1), seed, self.num_heads,
                                rate)
             return self.out(fused)
-        out = xla_attention(q, k, v, mask, rate, rng, self.dropout_impl)
+        if self.attention_impl == "pallas":
+            # Kept with dropout on as well, for the same reason.
+            seed = derive_seed(rng.seeds) if rate > 0.0 else None
+            out = flash_attention(q, k, v, mask, seed, rate)
+        else:
+            out = xla_attention(q, k, v, mask, rate, rng, self.dropout_impl)
         return self.out(out.reshape(b, t, self.num_heads * self.head_dim))
 
     def forward(self, q_in, kv_in, mask=None,

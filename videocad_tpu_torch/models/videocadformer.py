@@ -107,8 +107,6 @@ def _check_supported(cfg: VideoCADFormerConfig) -> None:
         (cfg.num_views > 0, "num_views > 0 (ROADMAP slice 11)"),
         (cfg.use_pretrained_cad_model,
          "use_pretrained_cad_model (ROADMAP slice 11)"),
-        (cfg.attention_impl == "pallas",
-         "attention_impl='pallas' (ROADMAP kernel K3)"),
         (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11)"),
         (cfg.frame_chunk != 0, "frame_chunk (ROADMAP slice 11)"),
         (cfg.remat_encoder, "remat_encoder (ROADMAP slice 11)"),
@@ -277,12 +275,15 @@ class VideoCADFormer(nn.Module):
         seq_length = actions.shape[1]
         combined, ui_emb = self.encode_context(
             inputs["cad_image"], inputs.get("frames"), seq_length, rng)
+        # The flash attention kernels compute both masks from indices.
+        by_index = cfg.attention_impl == "pallas"
         band = banded_mask(seq_length, seq_length, cfg.window_size,
-                           device=self.device)
+                           device=self.device, by_index=by_index)
         if cfg.enable_past_actions:
             hidden = self.decoder(self.embed_actions(actions), combined,
                                   tgt_mask=causal_mask(seq_length,
-                                                       device=self.device),
+                                                       device=self.device,
+                                                       by_index=by_index),
                                   memory_mask=band, rng=rng)
         elif cfg.enable_past_states:
             hidden = self.decoder(ui_emb, combined, tgt_mask=band,

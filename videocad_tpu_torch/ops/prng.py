@@ -3,8 +3,9 @@ their callers.
 
 Port of ``videocad_tpu/ops/prng.py``. The uint32-threshold rule must stay
 identical wherever a kernel's forward and backward regenerate one mask, so
-it has one definition here (and one in each of ``csrc/mhsa_short.cu`` and
-``csrc/dropout.cu``, held equal on the card).
+it has one definition here (and one in each of ``csrc/mhsa_short.cu``,
+``csrc/flash_attention.cu`` and ``csrc/dropout.cu``, held equal on the
+card).
 
 Where the TPU kernels seed a hardware generator per batch row, the Hopper
 kernels use a counter-based function: :func:`dropout_bits` maps (seed,
@@ -14,8 +15,10 @@ and the backward of a call redraws its forward's mask from the seed alone.
 The same function is written here in PyTorch integer ops, so a plain
 version draws the very mask its kernel draws. :func:`elementwise_bits` is
 the standalone dropout kernel's function: (seed, flat element index) to 32
-bits, under a second key word so that its streams never meet the attention
-kernels'.
+bits. Each kernel family has a key word of its own, so that no two of them
+ever share a stream under one seed: the short-sequence attention kernels
+``(seed, 0)``, the standalone dropout ``(seed, 1)``, the flash attention
+kernels ``(seed, 2)`` (:data:`FLASH_KEY_WORD`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57    # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85    # Philox key increments (Weyl)
 _MASK32 = 0xFFFFFFFF
 _INT32_MAX = 2 ** 31 - 1
+FLASH_KEY_WORD = 2    # the flash attention kernels' second key word
 
 
 def dropout_threshold(rate: float) -> int:
@@ -95,13 +99,15 @@ def philox4x32(counter, key):
 
 
 def dropout_bits(seed: int, batch: int, heads: int, q_len: int, k_len: int,
-                 device=None, batch_offset: int = 0) -> torch.Tensor:
+                 device=None, batch_offset: int = 0,
+                 key_word: int = 0) -> torch.Tensor:
     """The attention kernels' dropout bits: (batch, heads, q_len, k_len)
     uint32 values held in int64.
 
-    bits[b, h, i, j] is word ``j % 4`` of Philox4x32-10 with key (seed, 0)
-    and counter (j // 4, i, h, batch_offset + b): a pure function of the
-    seed and the four indices.
+    bits[b, h, i, j] is word ``j % 4`` of Philox4x32-10 with key
+    (seed, key_word) and counter (j // 4, i, h, batch_offset + b): a pure
+    function of the seed and the four indices. ``key_word`` is 0 for the
+    short-sequence kernels and :data:`FLASH_KEY_WORD` for flash attention.
     """
     arange = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     groups = (k_len + 3) // 4
@@ -109,7 +115,7 @@ def dropout_bits(seed: int, batch: int, heads: int, q_len: int, k_len: int,
                arange(q_len).view(1, 1, q_len, 1),
                arange(heads).view(1, heads, 1, 1),
                (arange(batch) + batch_offset).view(batch, 1, 1, 1))
-    words = philox4x32(counter, (seed, 0))
+    words = philox4x32(counter, (seed, key_word))
     words = torch.broadcast_tensors(*words)
     bits = torch.stack(words, dim=-1).reshape(batch, heads, q_len, groups * 4)
     return bits[..., :k_len]
