@@ -25,6 +25,13 @@ imports nothing of JAX. Phases, each of which must pass:
      with a general mask at T != S and at B=2, T=47: values, the kept set,
      the gradients (also against autograd through the plain forward at
      float32), the mask's properties, gradients that repeat bit for bit;
+     then the four fused ViT sub-block entries (attention and MLP, forward
+     and backward) at the flagship's widths, 1,528, 8 and 1 frames, bf16 and
+     float32, dropout off and on: values, every gradient, the kept set of
+     each of the four dropout sites read off outputs under constructed
+     parameters, gradients against autograd through the plain forwards at
+     float32, bit-equal repeats, and the port's own unfused sub-block timed
+     beside them;
   4. serve: the flagship config at full width in bf16 with seeded random
      weights, through the serving CLI's build_engine, behind the HTTP
      server; three staggered sessions step through ServingClient, some
@@ -57,17 +64,26 @@ imports nothing of JAX. Phases, each of which must pass:
      best_model with --sequential: the sample CSVs, the first-mistake
      structure for every sequence of val and test, finite metrics, the
      plot files where matplotlib is installed;
- 12. reference: at the flagship's widths in float32, with the depth cut to
+ 12. train E: cli.train.main once more on train C's dataset, with
+     vit_attention_impl "block" on top of train D's settings (every ViT
+     block through the fused sub-block kernels): one epoch of 2 steps at
+     B=8 with validation, a checkpoint and the test evaluation, without a
+     host synchronisation in the epoch loop, 12 launches of each of the
+     four entries a step and none of mhsa_short, and a peak device memory
+     below train D's;
+ 13. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
      rollout's logits and one train step's loss and gradients compared,
-     the train step again with ln_impl and dropout_impl "pallas", and with
-     attention_impl "pallas" as well.
+     the train step again with ln_impl and dropout_impl "pallas", with
+     attention_impl "pallas" as well, with vit_attention_impl "block" on
+     top, and with vit_attention_impl "fused" beside vit_mlp_impl "block".
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
-around phase 10 and around phase 11: each kernel must have been launched by
+around phases 10, 11 and 12: each kernel must have been launched by
 the path that claims it (the flash attention kernels by train D, their
-forward by the evaluation as well). The
+forward by the evaluation as well, the fused sub-block kernels by train E).
+The
 second-to-last lines are a JSON object of the kernels and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
@@ -944,6 +960,376 @@ def phase_flash(fl, prng):
     return rows
 
 
+BLOCK_KERNELS = ("attn_block", "attn_block_bwd", "mlp_block",
+                 "mlp_block_bwd")
+BLOCK_DIM, BLOCK_MLP = 512, 512       # the flagship ViT: dim and mlp_dim
+BLOCK_BATCHES = (TRAIN_FRAMES, 8, 1)  # a train step, a served tick, CAD encode
+
+
+def block_params(gen, scale=1.0):
+    """The parameters of one ViT block at the flagship's widths, seeded: each
+    weight the (in, out) view of a matrix stored (out, in), as the model
+    hands it to the kernels. Returns (mlp, attn) argument tuples."""
+    import torch
+
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    lin = lambda i, o: (randn(o, i) * (scale * i ** -0.5)).t()  # noqa: E731
+    vec = lambda n: randn(n) * 0.3  # noqa: E731
+    d, f = BLOCK_DIM, BLOCK_MLP
+    mlp = (lin(d, f), vec(f), lin(f, d), vec(d), 1 + vec(d) * 0.3, vec(d))
+    attn = (lin(d, WIDTH), lin(d, WIDTH), lin(d, WIDTH), lin(WIDTH, d),
+            vec(d), 1 + vec(d) * 0.3, vec(d))
+    return mlp, attn
+
+
+def block_close(got, want, dtype):
+    """(largest error, its limit, all within?) over a tuple of tensors. The
+    limit is a share of each tensor's largest entry: 2e-5 at float32 (sums
+    of up to 1,024 products, and of 76,400 rows in a parameter gradient, in
+    another order); 2^-6 at bf16, two bf16 units in the last place at the
+    top of the range (both versions round at the same places, a sum taken
+    in another order can flip such a rounding, and the output's own rounding
+    can carry that to a second unit)."""
+    import torch
+
+    share = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    worst, limit, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        tol = share * max(w.float().abs().max().item(), 1e-30)
+        if err > tol:
+            ok = False
+        if err >= worst:
+            worst, limit = err, tol
+    return worst, limit, ok
+
+
+def block_flops(batch, name):
+    """Operations of one call at the flagship's widths, 2 per multiply-add:
+    what the function needs, whatever computes it."""
+    t, d, f, inner = SEQ, BLOCK_DIM, BLOCK_MLP, WIDTH
+    proj, core, out = 2 * t * d * inner, 2 * t * t * inner, 2 * t * inner * d
+    per_frame = {
+        # q, k, v; q k^T and p v; the output projection
+        "attn_block": 3 * proj + 2 * core + out,
+        # recompute q, k, v, q k^T, p v; da = do Wo^T; da v^T; dq, dk, dv;
+        # dh from dq, dk, dv; dWo; dWq, dWk, dWv
+        "attn_block_bwd": (3 * proj + 2 * core) + out + core + 3 * core
+        + 3 * proj + out + 3 * proj,
+        "mlp_block": 2 * t * d * f * 2,
+        # recompute z; da = do W2^T; dh = dz W1^T; dW1; dW2
+        "mlp_block_bwd": 2 * t * d * f * 5,
+    }[name]
+    return float(batch) * per_frame
+
+
+def block_bytes(batch, name, itemsize):
+    """Bytes of one call: x (and gy) read once, y or dx written once, the
+    weights read once in the I/O dtype, the parameter gradients written once
+    in float32."""
+    t, d, f, inner = SEQ, BLOCK_DIM, BLOCK_MLP, WIDTH
+    stream = batch * t * d * itemsize
+    weights = (4 * d * inner if name.startswith("attn") else 2 * d * f)
+    vectors = (3 * d if name.startswith("attn") else 3 * d + f) * 4
+    if name.endswith("_bwd"):
+        return 3 * stream + weights * (itemsize + 4) + 2 * vectors
+    return 2 * stream + weights * itemsize + vectors
+
+
+def unfused_sub_blocks(dtype):
+    """The port's own unfused sub-blocks at the flagship's widths (K4 + the
+    library's GEMMs + K1 + K5: vit_attention_impl "fused" with ln_impl and
+    dropout_impl "pallas"), as functions of (x, rng) for the attention and
+    the MLP half of one ViT block."""
+    import torch
+    import torch.nn.functional as F
+
+    from videocad_tpu_torch.models.layers import active_rate
+    from videocad_tpu_torch.models.vit import ViTBlock, ViTConfig
+    from videocad_tpu_torch.ops.dropout import dropout
+
+    block = ViTBlock(ViTConfig(), dtype, attention_impl="fused",
+                     dropout_impl="pallas", ln_impl="pallas", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        for p in block.parameters():
+            if p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * p.shape[1] ** -0.5)
+
+    def attn_half(x, rng):
+        rate = active_rate(block, block.dropout_rate, rng)
+        h = block.attn_norm(x)
+        return x + dropout(block.attn(h, h, rng=rng), rng, rate, "pallas")
+
+    def mlp_half(x, rng):
+        rate = active_rate(block, block.dropout_rate, rng)
+        drop = lambda y: dropout(y, rng, rate, "pallas")  # noqa: E731
+        h = block.mlp_in(block.mlp_norm(x))
+        return x + drop(block.mlp_out(drop(F.gelu(h))))
+
+    return block, attn_half, mlp_half
+
+
+def block_kept_sets(fb, prng, batch, dtype, rate, seed):
+    """The kept set of each of the four dropout sites, read off the kernels'
+    outputs under constructed parameters, against the plain versions' and
+    the bit function's. Returns {site: (entries that differ from the plain
+    version's set, from the bit function's)} and the drop shares."""
+    import torch
+
+    t, d, f, hd = SEQ, BLOCK_DIM, BLOCK_MLP, WIDTH // HEADS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mlp, attn = block_params(gen)
+    zero = torch.zeros((batch, t, d), device="cuda", dtype=dtype)
+    keep = lambda site, heads, rows, cols: prng.keep_mask(  # noqa: E731
+        prng.block_site_bits(seed, site, batch, heads, rows, cols,
+                             device="cuda"), rate)
+    # (entries where the kernel's kept set differs from the plain version's,
+    # from the bit function's)
+    differ = lambda kept, plain, bits: (  # noqa: E731
+        (kept != plain).sum().item(), (kept != bits).sum().item())
+    same, shares = {}, {}
+    with torch.no_grad():
+        # Sites 1 and 3, the residual branches: with x = 0 the output is the
+        # dropped branch itself, non-zero exactly where it was kept. The
+        # branch's bias is set to 50, far above the product's entries (a few
+        # units), so that no kept entry cancels to zero.
+        offset = torch.full((d,), 50.0, device="cuda")
+        attn = attn[:4] + (offset,) + attn[5:]
+        mlp = mlp[:3] + (offset,) + mlp[4:]
+        for site, got, want in (
+                (prng.SITE_ATTN_RES,
+                 fb.attn_block(zero, *attn, seed, HEADS, rate),
+                 fb.attn_block_reference(zero, *attn, seed, HEADS, rate)),
+                (prng.SITE_MLP_RES, fb.mlp_block(zero, *mlp, seed, rate),
+                 fb.mlp_block_reference(zero, *mlp, seed, rate))):
+            kept = got != 0
+            same[site] = differ(kept, want != 0, keep(site, 1, t, d)[:, 0])
+            shares[site] = 1.0 - kept.float().mean().item()
+        # Site 2, the hidden layer: W2 = I and b2 = 0 pass the dropped hidden
+        # layer through, so with x = 0 the output is non-zero where sites 2
+        # and 3 both kept.
+        eye = torch.eye(f, d, device="cuda")
+        through = (mlp[0], mlp[1], eye, torch.zeros(d, device="cuda"),
+                   mlp[4], mlp[5])
+        got = fb.mlp_block(zero, *through, seed, rate)
+        want = fb.mlp_block_reference(zero, *through, seed, rate)
+        clean = fb.mlp_block_reference(zero, *through, None, 0.0) != 0
+        both = (keep(prng.SITE_MLP_HID, 1, t, f)[:, 0]
+                & keep(prng.SITE_MLP_RES, 1, t, d)[:, 0])
+        same[prng.SITE_MLP_HID] = differ(got != 0, want != 0, both & clean)
+        hid = keep(prng.SITE_MLP_HID, 1, t, f)
+        shares[prng.SITE_MLP_HID] = 1.0 - hid.float().mean().item()
+        # Site 0, the attention weights. Token j is the one-hot row e_j, so
+        # LN(x)_j = rstd (e_j - 1/D) with LN scale 1 and bias 0; Wq = Wk = 0
+        # make every weight 1/T; Wv puts 1/rstd at (j, head column j), so
+        # the head's values are I - 1/D up to rounding and its output row i
+        # is (kept_ij - n_kept_i / D) / (T (1 - rate)) at column j: above
+        # half of 1 / (T (1 - rate)) where the weight (i, j) was kept,
+        # below 0 where it was dropped. Wo copies 8 heads a call into the
+        # 512 output columns, times 16, and site 1 drops on top.
+        x = torch.zeros((batch, t, d), device="cuda", dtype=dtype)
+        rows = torch.arange(t, device="cuda")
+        x[:, rows, rows] = 1.0
+        rstd = (1.0 / d * (1.0 - 1.0 / d) + 1e-5) ** -0.5
+        wv = torch.zeros((WIDTH, d), device="cuda")
+        wv.view(HEADS, hd, d)[:, rows, rows] = 1.0 / rstd
+        nothing = torch.zeros((WIDTH, d), device="cuda").t()
+        ones, zeros_d = (torch.ones(d, device="cuda"),
+                         torch.zeros(d, device="cuda"))
+        keep_w = keep(prng.SITE_ATTN_W, HEADS, t, t)
+        keep_res = keep(prng.SITE_ATTN_RES, 1, t, d)[:, 0]
+        level = 16.0 / (t * (1.0 - rate))
+        differing = (0, 0)
+        for first in (0, HEADS // 2):
+            wo = torch.zeros((d, WIDTH), device="cuda")
+            slots = torch.arange(HEADS // 2, device="cuda")
+            cols = torch.arange(hd, device="cuda")
+            wo.view(HEADS // 2, hd, HEADS, hd)[
+                slots[:, None], cols[None, :], first + slots[:, None],
+                cols[None, :]] = 16.0
+            args = (nothing, nothing, wv.t(), wo.t(), zeros_d, ones, zeros_d)
+            got = fb.attn_block(x, *args, seed, HEADS, rate).float() - x.float()
+            want = fb.attn_block_reference(x, *args, seed, HEADS,
+                                           rate).float() - x.float()
+            kept = got.view(batch, t, HEADS // 2, hd)[..., :t] > level / 2
+            plain = want.view(batch, t, HEADS // 2, hd)[..., :t] > level / 2
+            bits = (keep_w[:, first:first + HEADS // 2].permute(0, 2, 1, 3)
+                    & keep_res.view(batch, t, HEADS // 2, hd)[..., :t])
+            differing = tuple(a + b for a, b in zip(
+                differing, differ(kept, plain, bits)))
+        same[prng.SITE_ATTN_W] = differing
+        shares[prng.SITE_ATTN_W] = 1.0 - keep_w.float().mean().item()
+    return same, shares
+
+
+def block_case(fb, prng, gen, batch, dtype, rate, unfused):
+    """The four fused sub-block entries at one batch, dtype and rate against
+    their plain versions, timed in turns; returns their four rows."""
+    import torch
+
+    from videocad_tpu_torch.ops.dropout import DropoutRng
+
+    f32 = dtype == torch.float32
+    mlp, attn = block_params(gen)
+    x, gy = (randn((batch, SEQ, BLOCK_DIM), gen, dtype) for _ in range(2))
+    seed = 6000 + batch if rate else None
+    label = f"B={batch} {dtype_name(dtype)} rate {rate}"
+    wrappers = (fb.attn_block, fb.attn_block_backward, fb.mlp_block,
+                fb.mlp_block_backward)
+    marks = [w.launches for w in wrappers]
+
+    # Through autograd, as the model calls them: one launch of each entry.
+    leaves = [p.detach().clone().requires_grad_() for p in (x,) + attn + mlp]
+    xx, a, m = leaves[0], leaves[1:8], leaves[8:]
+    mid = fb.attn_block(xx, *a, seed, HEADS, rate)
+    out = fb.mlp_block(mid, *m, seed, rate)
+    grads = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    check([w.launches for w in wrappers] == [c + 1 for c in marks],
+          f"fused blocks {label}: autograd did not launch each of the four "
+          "entries once")
+    again = torch.autograd.grad(
+        fb.mlp_block(fb.attn_block(xx, *a, seed, HEADS, rate), *m, seed,
+                     rate), leaves, gy)
+    repeat = all(torch.equal(g1, g2) for g1, g2 in zip(grads, again))
+    check(repeat, f"fused blocks {label}: two backward runs differ in a bit")
+
+    with torch.no_grad():
+        y_attn = fb.attn_block(x, *attn, seed, HEADS, rate)
+        y_mlp = fb.mlp_block(x, *mlp, seed, rate)
+        g_attn = fb.attn_block_backward(x, *attn, gy, seed, HEADS, rate)
+        g_mlp = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
+        checks = {
+            "attn_block": block_close([y_attn], [fb.attn_block_reference(
+                x, *attn, seed, HEADS, rate)], dtype),
+            "attn_block_bwd": block_close(
+                g_attn, fb.attn_block_backward_reference(
+                    x, *attn, gy, seed, HEADS, rate), dtype),
+            "mlp_block": block_close([y_mlp], [fb.mlp_block_reference(
+                x, *mlp, seed, rate)], dtype),
+            "mlp_block_bwd": block_close(
+                g_mlp, fb.mlp_block_backward_reference(
+                    x, *mlp, gy, seed, rate), dtype),
+        }
+    rows = {name: {"kernel": name, "batch": batch,
+                   "dtype": dtype_name(dtype), "rate": rate,
+                   "max_abs_err": err, "tolerance": tol,
+                   "gradients_bit_equal": repeat}
+            for name, (err, tol, _) in checks.items()}
+    for name, (err, tol, ok) in checks.items():
+        check(ok, f"fused blocks {label}: {name} max err {err} (limit {tol})")
+    if f32:
+        # The whole chain's gradients against autograd through the plain
+        # forwards: 1e-4 of each gradient's largest entry.
+        ref = [p.detach().clone().requires_grad_() for p in leaves]
+        want = torch.autograd.grad(fb.mlp_block_reference(
+            fb.attn_block_reference(ref[0], *ref[1:8], seed, HEADS, rate),
+            *ref[8:], seed, rate), ref, gy)
+        worst = max((g - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-30)
+                    for g, w in zip(grads, want))
+        rows["attn_block_bwd"]["rel_err_vs_autograd"] = worst
+        rows["mlp_block_bwd"]["rel_err_vs_autograd"] = worst
+        check(worst <= 1e-4, f"fused blocks {label}: gradients differ from "
+              f"autograd through the plain forwards by {worst} of their "
+              "largest entry")
+    if rate:
+        same, shares = block_kept_sets(fb, prng, batch, dtype, rate,
+                                       7000 + batch)
+        for site, name in ((prng.SITE_ATTN_W, "attn_block"),
+                           (prng.SITE_ATTN_RES, "attn_block"),
+                           (prng.SITE_MLP_HID, "mlp_block"),
+                           (prng.SITE_MLP_RES, "mlp_block")):
+            rows[name].setdefault("kept_set_identical", {})[site] = (
+                same[site] == (0, 0))
+            rows[name].setdefault("drop_share", {})[site] = shares[site]
+            check(same[site] == (0, 0),
+                  f"fused blocks {label}: the kept set of dropout site "
+                  f"{site} differs from the plain version's in "
+                  f"{same[site][0]} entries and from the bit function's in "
+                  f"{same[site][1]}")
+            cells = batch * SEQ * (HEADS * SEQ if site == prng.SITE_ATTN_W
+                                   else BLOCK_DIM)
+            sigma = math.sqrt(rate * (1 - rate) / cells)
+            check(abs(shares[site] - rate) <= 4 * sigma + 1e-9,
+                  f"fused blocks {label}: site {site} drops "
+                  f"{shares[site]}, more than 4 sigma from {rate}")
+
+    # Times: the kernel and its plain version in turns; beside them the
+    # port's own unfused sub-block (forward, and forward + backward less the
+    # forward) on the same x.
+    reps = (dict(reps=2, groups=3, warmup=1) if batch > 64
+            else dict(reps=20, groups=3, warmup=2))
+    calls = {
+        "attn_block": (
+            lambda: fb.attn_block(x, *attn, seed, HEADS, rate),
+            lambda: fb.attn_block_reference(x, *attn, seed, HEADS, rate)),
+        "attn_block_bwd": (
+            lambda: fb.attn_block_backward(x, *attn, gy, seed, HEADS, rate),
+            lambda: fb.attn_block_backward_reference(x, *attn, gy, seed,
+                                                     HEADS, rate)),
+        "mlp_block": (
+            lambda: fb.mlp_block(x, *mlp, seed, rate),
+            lambda: fb.mlp_block_reference(x, *mlp, seed, rate)),
+        "mlp_block_bwd": (
+            lambda: fb.mlp_block_backward(x, *mlp, gy, seed, rate),
+            lambda: fb.mlp_block_backward_reference(x, *mlp, gy, seed, rate)),
+    }
+    with torch.no_grad():
+        for name, (kernel, plain) in calls.items():
+            rows[name]["ms"], rows[name]["plain_ms"] = in_turns(kernel, plain,
+                                                                **reps)
+    block, attn_half, mlp_half = unfused
+    block.train(rate > 0)
+    rng = DropoutRng(5, "cuda") if rate else None
+    xg = x.detach().clone().requires_grad_()
+    for half, fwd_name in ((attn_half, "attn_block"), (mlp_half, "mlp_block")):
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: half(x, rng), **reps)
+        params = [xg] + list(block.parameters())
+        both = cuda_ms(lambda: torch.autograd.grad(
+            half(xg, rng), params, gy, allow_unused=True), **reps)
+        rows[fwd_name]["unfused_ms"] = fwd
+        rows[fwd_name + "_bwd"]["unfused_ms"] = both - fwd
+    itemsize = 4 if f32 else 2
+    for name, row in rows.items():
+        row["library_ms"] = None
+        row.update(bound(block_bytes(batch, name, itemsize),
+                         block_flops(batch, name), dtype_name(dtype)))
+        print(f"{name} {row}", flush=True)
+    return list(rows.values())
+
+
+def phase_block(fb, prng):
+    """The fused ViT sub-block kernels (attention and MLP, forward and
+    backward) against their plain versions at the flagship's widths: a
+    train step's 1,528 frames, a served tick's 8, the CAD encode's 1; bf16
+    and float32; dropout off and on."""
+    import torch
+
+    start = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        unfused = unfused_sub_blocks(dtype)
+        for batch in BLOCK_BATCHES:
+            for rate in (0.0, RATE):
+                rows += block_case(fb, prng, gen, batch, dtype, rate, unfused)
+                torch.cuda.empty_cache()
+    x = randn((2, SEQ + 15, BLOCK_DIM), gen, torch.float32)
+    mlp, attn = block_params(gen)
+    try:
+        fb.attn_block(x, *attn, None, HEADS)
+        fail("attn_block took T = 65 on the card")
+    except ValueError:
+        pass
+    print(f"fused block phase: {time.monotonic() - start:.1f} s (T = 65 "
+          "raises)", flush=True)
+    return rows
+
+
 def valid_reply(reply, step: int) -> bool:
     params, action = reply.get("params"), reply.get("action")
     return (reply.get("step") == step and reply.get("cmd") in range(5)
@@ -1581,7 +1967,107 @@ def phase_train_d(counters, card, root, dataset_argv):
                    "mhsa_short", "mhsa_short_bwd"):
         check(per_step[kernel] > 0,
               f"train D's steps launched no {kernel} kernel")
-    return launches, model_argv
+    return launches, model_argv, peak_gb
+
+
+BLOCK = dict(ALL_PALLAS, vit_attention_impl="block")
+
+
+def phase_train_e(counters, card, root, dataset_argv, peak_d_gb):
+    """Phase 12: the training entry point with the ViT through the fused
+    sub-block kernels (its memory mode), on train C's dataset. Returns the
+    launches of the path per kernel."""
+    import torch
+
+    from videocad_tpu_torch.cli import train as cli_train
+    from videocad_tpu_torch.models.factory import (FLAGSHIP_NAME,
+                                                   flagship_config)
+    from videocad_tpu_torch.models.videocadformer import VideoCADFormerConfig
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+    from videocad_tpu_torch.train.trainer import Trainer
+
+    name = FLAGSHIP_NAME + "_vit_block"
+    params = dict(flagship_config(), **BLOCK)
+    params["train_config"] = {
+        "experiment_name": "train_e", "save_frequency": 1,
+        "val_frequency": 1, "log_frequency": 2}
+    config_path = os.path.join(root, "model_config_e.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    argv = dataset_argv + [
+        "--model_config", config_path, "--model_name", name,
+        "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
+        "--checkpoint_dir", os.path.join(root, "checkpoints"),
+        "--class_weights", os.path.join(root, "no_class_weights"),
+        "--lr", "1e-5", "--no_enable_random", "--epochs", "1",
+        "--log_dir", os.path.join(root, "logs")]
+
+    for reset in counters.values():
+        reset(0)                          # train E's path starts here
+    torch.cuda.reset_peak_memory_stats()
+    start = time.monotonic()
+    with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+        results = cli_train.main(argv)
+    seconds = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(not watch.syncs, "train E's epoch loop synchronised the host "
+          "outside its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+    check(len(watch.epochs) == 1 and watch.epochs[0]["steps"] == 2,
+          f"train E's epochs: {watch.epochs}")
+    for file_name in ("params.json", "epoch_1.json", "val_epoch_1.json",
+                      "test.json", "results.json"):
+        check(os.path.isfile(os.path.join(root, "logs", "train_e",
+                                          file_name)),
+              f"train E wrote no {file_name}")
+    handler = CheckpointHandler("train_e", os.path.join(root, "checkpoints"))
+    for checkpoint in ("epoch_1", "best_model"):
+        check(os.path.isfile(os.path.join(handler.base, checkpoint,
+                                          "state.pt")),
+              f"train E saved no {checkpoint}")
+    check(results["total_predictions"] > 0
+          and math.isfinite(results["overall_accuracy"]),
+          f"train E's test results {results}")
+    epoch = watch.epochs[0]
+    per_step = {k: epoch["launches"][k] / epoch["steps"] for k in counters}
+    print(f"train E: cli.train.main, flagship bf16 with vit_attention_impl "
+          f"block and attention_impl, ln_impl and dropout_impl pallas, "
+          f"B={TRAIN_BATCH}, bucket 192, on {card}: 1 epoch of 2 steps, "
+          f"validation, 2 checkpoints and the test evaluation in "
+          f"{seconds:.1f} s; "
+          f"{epoch['seconds'] / epoch['steps'] * 1e3:.1f} ms per step (host "
+          f"clock around the epoch, data loading included); launches per "
+          f"train step {per_step}; launches of the whole path {launches}; "
+          f"peak memory {peak_gb:.2f} GB against train D's "
+          f"{peak_d_gb:.2f} GB; test accuracy "
+          f"{results['overall_accuracy']:.2f}%; host syncs in the epoch "
+          f"loop outside the logging fetch: {len(watch.syncs)}", flush=True)
+    depth = VideoCADFormerConfig.from_json(flagship_config()).vit_depth
+    for kernel in BLOCK_KERNELS:
+        # Two encoders (the frames' and the CAD image's) of 6 blocks each.
+        check(per_step[kernel] == 2 * depth,
+              f"a train step of train E launched {kernel} "
+              f"{per_step[kernel]} times, expected {2 * depth} ({depth} "
+              "blocks x 2 encoders)")
+    # Two train steps, and one forward each for the validation and the test
+    # batch.
+    for kernel, passes in (("attn_block", 4), ("mlp_block", 4),
+                           ("attn_block_bwd", 2), ("mlp_block_bwd", 2)):
+        check(launches[kernel] == passes * 2 * depth,
+              f"train E launched {kernel} {launches[kernel]} times, expected "
+              f"{passes * 2 * depth}")
+    check(launches["mhsa_short"] == 0 and launches["mhsa_short_bwd"] == 0,
+          "train E launched the short-sequence attention kernels, which "
+          "the fused sub-blocks replace")
+    for kernel in FLASH_KERNELS + ("layer_norm_fwd", "layer_norm_bwd",
+                                   "hw_dropout"):
+        check(per_step[kernel] > 0,
+              f"train E's steps launched no {kernel} kernel")
+    check(peak_gb < peak_d_gb,
+          f"train E's peak memory {peak_gb:.2f} GB is not below train D's "
+          f"{peak_d_gb:.2f} GB")
+    return launches
 
 
 def phase_evaluate(counters, root, dataset_argv, model_argv):
@@ -1751,6 +2237,7 @@ def kernel_entry(name, replaces, launches, rows, pick, extra):
               else "flash_attention.cu" if name.startswith("flash")
               else "layernorm.cu" if name.startswith("layer_norm")
               else "dropout.cu" if name == "hw_dropout"
+              else "fused_block.cu" if name in BLOCK_KERNELS
               else "gray_normalize.cu")
     entry = {"name": name, "route": "cuda",
              "source": "videocad_tpu_torch/csrc/" + source,
@@ -1788,6 +2275,7 @@ def main() -> None:
     from videocad_tpu_torch.ops import attention as fl
     from videocad_tpu_torch.ops import dropout as dr
     from videocad_tpu_torch.ops import fused_attention as fa
+    from videocad_tpu_torch.ops import fused_block as fb
     from videocad_tpu_torch.ops import layernorm as ln
     from videocad_tpu_torch.ops import preprocess as pp
     from videocad_tpu_torch.ops import prng
@@ -1801,7 +2289,7 @@ def main() -> None:
 
     start = time.monotonic()
     names = build.build_all()
-    for module in (fa, pp, ln, dr, fl):
+    for module in (fa, pp, ln, dr, fl, fb):
         module.load_library()
     print(f"build: {names} in {time.monotonic() - start:.1f} s", flush=True)
     for name in names:
@@ -1816,6 +2304,8 @@ def main() -> None:
     rows += phase_layer_norm(ln)
     rows += phase_hw_dropout(dr)
     rows += phase_flash(fl, prng)
+    torch.cuda.empty_cache()
+    rows += phase_block(fb, prng)
     torch.cuda.empty_cache()
 
     # name -> (the function that carries the count, the count's attribute);
@@ -1832,6 +2322,10 @@ def main() -> None:
         "flash_attention": (fl.flash_attention, "launches"),
         "flash_attention_dq": (fl.flash_attention_dq, "launches"),
         "flash_attention_dkv": (fl.flash_attention_dkv, "launches"),
+        "attn_block": (fb.attn_block, "launches"),
+        "attn_block_bwd": (fb.attn_block_backward, "launches"),
+        "mlp_block": (fb.mlp_block, "launches"),
+        "mlp_block_bwd": (fb.mlp_block_backward, "launches"),
     }
 
     def counter(name):
@@ -1856,29 +2350,36 @@ def main() -> None:
     try:
         launches_c, dataset_argv = phase_train_c(counters, card, root)
         torch.cuda.empty_cache()
-        launches_d, model_argv = phase_train_d(counters, card, root,
-                                               dataset_argv)
+        launches_d, model_argv, peak_d_gb = phase_train_d(
+            counters, card, root, dataset_argv)
         torch.cuda.empty_cache()
-        launches_e = phase_evaluate(counters, root, dataset_argv, model_argv)
+        launches_eval = phase_evaluate(counters, root, dataset_argv,
+                                       model_argv)
+        torch.cuda.empty_cache()
+        launches_e = phase_train_e(counters, card, root, dataset_argv,
+                                   peak_d_gb)
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # The path each kernel is claimed on: train D for the flash attention
-    # kernels, train C for the kernels behind ln_impl and dropout_impl, the
-    # first path for the others.
+    # The path each kernel is claimed on: train E for the fused sub-block
+    # kernels, train D for the flash attention kernels, train C for the
+    # kernels behind ln_impl and dropout_impl, the first path for the
+    # others.
     by_path = {name: {"serve_rollout_train_ab": launches[name],
                       "train_c": launches_c[name],
                       "train_d": launches_d[name],
-                      "evaluate": launches_e[name]} for name in counters}
+                      "evaluate": launches_eval[name],
+                      "train_e": launches_e[name]} for name in counters}
     print(f"main path launches: {by_path}", flush=True)
-    launches = {name: launches_d[name] if name.startswith("flash")
+    launches = {name: launches_e[name] if name in BLOCK_KERNELS
+                else launches_d[name] if name.startswith("flash")
                 else launches_c[name] if name.startswith(("layer_norm",
                                                           "hw_dropout"))
                 else launches[name] for name in counters}
     for name in counters:
         check(launches[name] > 0,
               f"the main path of the {name} kernel did not launch it")
-    check(launches_e["flash_attention"] > 0,
+    check(launches_eval["flash_attention"] > 0,
           "the evaluation launched no flash attention forward")
 
     start = time.monotonic()
@@ -1886,6 +2387,8 @@ def main() -> None:
     phase_reference_train()
     phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
     phase_reference_train(**ALL_PALLAS)
+    phase_reference_train(**BLOCK)
+    phase_reference_train(vit_attention_impl="fused", vit_mlp_impl="block")
     print(f"reference phase: {time.monotonic() - start:.1f} s", flush=True)
 
     at_train = lambda r: (r["batch"] == TRAIN_FRAMES  # noqa: E731
@@ -1943,7 +2446,16 @@ def main() -> None:
         entry.update({f"{key}_band": band[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
         flash.append(entry)
-    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash
+    # The fused sub-block kernels at a train step's frames with dropout;
+    # the time of the port's unfused sub-block stands beside them.
+    blocks = []
+    for name, line in zip(BLOCK_KERNELS, (486, 504, 277, 289)):
+        entry = kernel_entry(name, f"videocad_tpu/ops/fused_block.py:{line}",
+                             launches[name], rows, pick_train, same)
+        row = next(r for r in rows if r["kernel"] == name and pick_train(r))
+        entry["unfused_ms"] = row["unfused_ms"]
+        blocks.append(entry)
+    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash + blocks
     for entry in kernels:
         entry["launches_by_path"] = by_path[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

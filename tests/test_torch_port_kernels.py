@@ -14,6 +14,7 @@ import torch
 from videocad_tpu_torch.ops import attention as fl
 from videocad_tpu_torch.ops import dropout as dr
 from videocad_tpu_torch.ops import fused_attention as fa
+from videocad_tpu_torch.ops import fused_block as fb
 from videocad_tpu_torch.ops import layernorm as ln
 from videocad_tpu_torch.ops import preprocess as pp
 from videocad_tpu_torch.ops import prng
@@ -501,3 +502,195 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="explicit int32 seed"):
             fl.flash_attention(q, k, v, None, None, 0.1)
         assert fl.flash_attention(q[:0], k[:0], v[:0]).shape == (0, 9, 2, 16)
+
+
+# ---- the fused ViT sub-block kernels (csrc/fused_block.cu) ----
+
+def _block_params(d, f, inner, seed):
+    """x-independent parameters as the model hands them over: each weight
+    the (in, out) view of a matrix stored (out, in)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    lin = lambda i, o: (randn(o, i) * i ** -0.5).t()  # noqa: E731
+    vec = lambda n: randn(n) * 0.3  # noqa: E731
+    mlp = (lin(d, f), vec(f), lin(f, d), vec(d), 1 + vec(d) * 0.3, vec(d))
+    attn = (lin(d, inner), lin(d, inner), lin(d, inner), lin(inner, d),
+            vec(d), 1 + vec(d) * 0.3, vec(d))
+    return mlp, attn
+
+
+def _block_inputs(b, t, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, t, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2)]
+
+
+def _assert_block_close(got, want, dtype, what):
+    """float32: 2e-5 of the tensor's largest entry (sums in another order).
+    bf16: both versions round at the same places, so an output is within
+    one or two bf16 ulps (2^-7 relative) of the other's and a parameter
+    gradient, a sum of many such products, within 1e-2 of its largest
+    entry."""
+    tol = 2e-5 if dtype == F32 else 1.6e-2
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, i)
+        scale = max(w.float().abs().max().item(), 1e-30)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (what, i, err, scale)
+
+
+BLOCK_SHAPES = [
+    # b, t, d, f, heads, head_dim
+    (8, 50, 512, 512, 16, 64),     # the flagship ViT, one served tick
+    (1, 50, 512, 512, 16, 64),     # CAD encode
+    (3, 13, 64, 48, 2, 8),         # T < 32, narrow heads, ragged F
+    (2, 64, 192, 100, 3, 64),      # T at the kernels' limit
+    (5, 33, 96, 130, 3, 24),       # nothing a multiple of the tiles
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d,f,heads,head_dim", BLOCK_SHAPES)
+def test_fused_block_kernels_match_their_plain_versions(cuda, b, t, d, f,
+                                                        heads, head_dim,
+                                                        rate, dtype):
+    mlp, attn = _block_params(d, f, heads * head_dim, seed=b * 100 + t)
+    x, gy = _block_inputs(b, t, d, dtype, seed=t)
+    seed = 4242 if rate else None
+    counts = lambda: (fb.mlp_block.launches, fb.mlp_block_backward.launches,  # noqa: E731
+                      fb.attn_block.launches, fb.attn_block_backward.launches)
+    before = counts()
+    with torch.no_grad():
+        y = fb.mlp_block(x, *mlp, seed, rate)
+        grads = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
+        ya = fb.attn_block(x, *attn, seed, heads, rate)
+        grads_a = fb.attn_block_backward(x, *attn, gy, seed, heads, rate)
+        torch.cuda.synchronize()
+        assert counts() == tuple(c + 1 for c in before)
+        _assert_block_close([y], [fb.mlp_block_reference(x, *mlp, seed, rate)],
+                            dtype, "mlp forward")
+        _assert_block_close(grads, fb.mlp_block_backward_reference(
+            x, *mlp, gy, seed, rate), dtype, "mlp backward")
+        _assert_block_close([ya], [fb.attn_block_reference(
+            x, *attn, seed, heads, rate)], dtype, "attn forward")
+        _assert_block_close(grads_a, fb.attn_block_backward_reference(
+            x, *attn, gy, seed, heads, rate), dtype, "attn backward")
+    assert grads[0].dtype == dtype and grads[1].dtype == F32
+
+
+@pytest.mark.parametrize("op", ["mlp", "attn"])
+def test_fused_block_kernels_draw_the_plain_versions_masks(cuda, op):
+    """The residual branch's kept set is read off y - x; the inner site's
+    (hidden layer, attention weights) shows in the values, which must agree
+    with the plain version's and differ under another seed."""
+    b, t, d, f, heads = 4, 50, 128, 256, 2
+    mlp, attn = _block_params(d, f, heads * 64, seed=1)
+    x, _ = _block_inputs(b, t, d, F32, seed=2)
+    rate = 0.3
+    with torch.no_grad():
+        if op == "mlp":
+            run = lambda fn, seed: fn(x, *mlp, seed, rate)  # noqa: E731
+            got, want = run(fb.mlp_block, 9), run(fb.mlp_block_reference, 9)
+            other = run(fb.mlp_block, 10)
+        else:
+            run = lambda fn, seed: fn(x, *attn, seed, heads, rate)  # noqa: E731
+            got, want = run(fb.attn_block, 9), run(fb.attn_block_reference, 9)
+            other = run(fb.attn_block, 10)
+    assert torch.equal(got - x != 0, want - x != 0)
+    share = (got - x == 0).float().mean().item()
+    assert abs(share - rate) < 0.02
+    _assert_block_close([got], [want], F32, op)
+    assert not torch.equal(got - x != 0, other - x != 0)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_fused_block_gradients_under_autograd_and_bit_equal_repeats(cuda,
+                                                                    dtype):
+    """Through the autograd Functions, as the model calls them; float32
+    gradients also against autograd through the plain forward (1e-4 of the
+    largest entry); two runs give the same bits (no atomics)."""
+    b, t, d, f, heads = 6, 50, 512, 512, 16
+    mlp, attn = _block_params(d, f, heads * 64, seed=3)
+    x, gy = _block_inputs(b, t, d, dtype, seed=4)
+
+    def grads_of(fn_mlp, fn_attn):
+        leaves = [p.detach().clone().requires_grad_()
+                  for p in (x,) + mlp + attn]
+        xx, m, a = leaves[0], leaves[1:7], leaves[7:]
+        y = fn_mlp(fn_attn(xx, *a, 77, heads, 0.1), *m, 78, 0.1)
+        return torch.autograd.grad(y, leaves, gy)
+
+    first = grads_of(fb.mlp_block, fb.attn_block)
+    second = grads_of(fb.mlp_block, fb.attn_block)
+    torch.cuda.synchronize()
+    for i, (g1, g2) in enumerate(zip(first, second)):
+        assert torch.equal(g1, g2), f"gradient {i} differs between two runs"
+    if dtype == F32:
+        want = grads_of(fb.mlp_block_reference, fb.attn_block_reference)
+        for i, (g, w) in enumerate(zip(first, want)):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), (i, err)
+
+
+def test_fused_block_kernels_refuse_what_they_do_not_take(cuda):
+    mlp, attn = _block_params(64, 64, 64, seed=5)
+    x, _ = _block_inputs(2, 10, 64, F32, seed=6)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fb.mlp_block(x.half(), *mlp, None)
+        with pytest.raises(ValueError, match="contiguous"):
+            fb.mlp_block(x.transpose(0, 1).contiguous().transpose(0, 1),
+                         *mlp, None)
+        wide_mlp, wide_attn = _block_params(576, 64, 64, seed=7)
+        wide = torch.zeros(1, 4, 576, device="cuda")
+        with pytest.raises(ValueError, match="D <= 512"):
+            fb.mlp_block(wide, *wide_mlp, None)
+        with pytest.raises(ValueError, match="D <= 512"):
+            fb.attn_block(wide, *wide_attn, None, 1)
+        long = torch.zeros(1, 65, 64, device="cuda")
+        with pytest.raises(ValueError, match="T <= 64"):
+            fb.attn_block(long, *attn, None, 1)
+        # The MLP kernels take any T: their blocks own rows, not frames.
+        assert fb.mlp_block(long, *mlp, None).shape == long.shape
+        _, fat = _block_params(64, 64, 128, seed=8)
+        with pytest.raises(ValueError, match="heads of at most 64"):
+            fb.attn_block(x, *fat, None, 1)
+
+
+def test_block_model_train_step_on_the_card_matches_the_cpu(cuda):
+    """The tiny model under "block" with dropout off, float32: one train
+    step's loss and gradients on the card (kernels) against the CPU (plain
+    versions), and the launch counters move by the model's depth."""
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state, make_train_step)
+
+    cfg = dict(hidden_size=32, num_decoder_layers=2, dim_feedforward=32,
+               nhead=2, dropout=0.0, encoder="vit", enable_past_actions=True,
+               enable_past_states=True, enable_timestep_embedding=True,
+               window_size=3, image_size=32, vit_patch=16, vit_dim=16,
+               vit_depth=2, vit_heads=2, vit_head_dim=8, vit_mlp_dim=16,
+               vit_attention_impl="block")
+    data = synthetic_batch_feed(2, 6, image_size=32, seed=1)
+    outs = {}
+    before = (fb.attn_block.launches, fb.mlp_block_backward.launches)
+    for device in ("cuda", "cpu"):
+        model = create_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(3))
+        state = create_train_state(dict(model.named_parameters()),
+                                   {"lr": 1e-5})
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        _, loss, _ = make_train_step(
+            model, LossConfig(REFERENCE_CMD_WEIGHTS))(state, batch, 0)
+        outs[device] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()})
+    assert fb.attn_block.launches == before[0] + 4       # 2 encoders x 2
+    assert fb.mlp_block_backward.launches == before[1] + 4
+    assert abs(outs["cuda"][0] - outs["cpu"][0]) <= 1e-4
+    for name, want in outs["cpu"][1].items():
+        if name.endswith(".key.bias"):
+            continue
+        err = (outs["cuda"][1][name] - want).abs().max().item()
+        assert err <= 1e-3 * max(want.abs().max().item(), 1e-30), name

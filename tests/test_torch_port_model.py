@@ -296,3 +296,119 @@ def test_attention_impl_pallas_feeds_the_decoder_masks_by_index(monkeypatch):
     seeds = [seed for _, seed, _ in seen]
     assert len(set(seeds)) == len(seeds) == 2 * FUSED["num_decoder_layers"]
     assert all(rate == 0.1 for _, _, rate in seen)
+
+
+# ---- vit_attention_impl / vit_mlp_impl "block" ----
+
+BLOCK_SETTINGS = {
+    "block": {"vit_attention_impl": "block"},
+    "fused_attention_block_mlp": {"vit_attention_impl": "fused",
+                                  "vit_mlp_impl": "block"},
+    "block_with_pallas": {"vit_attention_impl": "block", "ln_impl": "pallas",
+                          "dropout_impl": "pallas",
+                          "attention_impl": "pallas"},
+}
+
+
+@pytest.mark.parametrize("setting", sorted(BLOCK_SETTINGS))
+def test_block_impl_logits_match_jax_and_the_unfused_path(setting):
+    """The tiny config (depth 2) with the ViT through the fused sub-block
+    kernels: the JAX side runs its Pallas kernels in interpret mode, the
+    port its plain versions; 1e-4 at float32 against JAX under the same
+    setting (as the default path is held), 1e-5 against the port under
+    "fused" with the same weights."""
+    impls = dict(BLOCK_SETTINGS[setting], vit_depth=2)
+    jax_model, params, model = _pair(impls, seed=14)
+    plain = create_model(dict(FUSED, vit_depth=2))
+    plain.load_state_dict(model.state_dict())     # the same names either way
+    assert list(model.state_dict()) == list(plain.state_dict())
+    b, t = 2, 5
+    inputs = {"frames": _u8((b, t, 32, 32, 3), seed=15),
+              "cad_image": _u8((b, 32, 32, 3), seed=16),
+              "actions": _actions(b, t, seed=17)}
+    expected = jax_model.apply({"params": params},
+                               {k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        tensors = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        got = model(tensors)
+        want_plain = plain(tensors)
+    for g, e, w in zip(got, expected, want_plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("setting,attn_calls,mlp_calls", [
+    ("block", 2 * 2, 2 * 2), ("fused_attention_block_mlp", 0, 2 * 2)])
+def test_block_impl_calls_the_fused_sub_blocks(monkeypatch, setting,
+                                               attn_calls, mlp_calls):
+    """Two encoders of depth 2: "block" sends every sub-block through
+    attn_block and mlp_block and none through mhsa_short; "fused" with
+    vit_mlp_impl "block" keeps mhsa_short and sends the MLPs through
+    mlp_block. In train() mode each call draws a seed of its own."""
+    from videocad_tpu_torch.models import layers, vit
+    from videocad_tpu_torch.ops.dropout import DropoutRng
+
+    seen = {"attn": [], "mlp": [], "mhsa": []}
+    real_attn, real_mlp, real_mhsa = (vit.attn_block, vit.mlp_block,
+                                      layers.mhsa_short)
+
+    def spy_attn(x, *args):
+        seen["attn"].append(args[7:])       # seed, heads, rate, eps
+        return real_attn(x, *args)
+
+    def spy_mlp(x, *args):
+        seen["mlp"].append(args[6:])        # seed, rate, eps
+        return real_mlp(x, *args)
+
+    def spy_mhsa(*args):
+        seen["mhsa"].append(args[3:])
+        return real_mhsa(*args)
+
+    monkeypatch.setattr(vit, "attn_block", spy_attn)
+    monkeypatch.setattr(vit, "mlp_block", spy_mlp)
+    monkeypatch.setattr(layers, "mhsa_short", spy_mhsa)
+    cfg = dict(FUSED, vit_depth=2, dropout=0.1, **BLOCK_SETTINGS[setting])
+    model = create_model(cfg)
+    inputs = {"frames": torch.from_numpy(_u8((1, 4, 32, 32, 3), seed=1)),
+              "cad_image": torch.from_numpy(_u8((1, 32, 32, 3), seed=2)),
+              "actions": torch.from_numpy(_actions(1, 4, seed=3))}
+    model.eval()
+    with torch.no_grad():
+        model(inputs)
+    assert len(seen["attn"]) == attn_calls and len(seen["mlp"]) == mlp_calls
+    assert len(seen["mhsa"]) == (0 if attn_calls else 2 * 2)
+    assert all(a[0] is None and a[2] == 0.0 for a in seen["attn"])
+    assert all(m[0] is None and m[1] == 0.0 for m in seen["mlp"])
+    for calls in seen.values():
+        calls.clear()
+    model.train()
+    model(inputs, rng=DropoutRng(0, "cpu"))
+    seeds = [a[0] for a in seen["attn"]] + [m[0] for m in seen["mlp"]]
+    assert len(seeds) == attn_calls + mlp_calls == len(set(seeds))
+    assert all(a[2] == 0.1 for a in seen["attn"])
+    assert all(m[1] == 0.1 for m in seen["mlp"])
+
+
+def test_a_state_dict_saved_under_fused_loads_under_block(tmp_path):
+    fused = create_model(dict(FUSED, vit_depth=2),
+                         generator=torch.Generator().manual_seed(5))
+    path = tmp_path / "fused.pt"
+    torch.save(fused.state_dict(), path)
+    inputs = {"frames": torch.from_numpy(_u8((1, 4, 32, 32, 3), seed=1)),
+              "cad_image": torch.from_numpy(_u8((1, 32, 32, 3), seed=2)),
+              "actions": torch.from_numpy(_actions(1, 4, seed=3))}
+    with torch.no_grad():
+        want = fused(inputs)
+    for setting in BLOCK_SETTINGS.values():
+        block = create_model(dict(FUSED, vit_depth=2, **setting))
+        missing = block.load_state_dict(torch.load(path), strict=True)
+        assert not missing.missing_keys and not missing.unexpected_keys
+        with torch.no_grad():
+            got = block(inputs)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                       rtol=0)
+        # And back.
+        again = create_model(dict(FUSED, vit_depth=2))
+        again.load_state_dict(block.state_dict())

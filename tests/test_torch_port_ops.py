@@ -405,7 +405,8 @@ def test_port_imports_no_jax():
                    "data/dataset.py", "data/pipeline.py",
                    "train/checkpoint.py", "train/preempt.py",
                    "train/trainer.py", "experiment.py", "cli/train.py",
-                   "ops/attention.py", "cli/evaluate.py", "cli/plots.py"]:
+                   "ops/attention.py", "cli/evaluate.py", "cli/plots.py",
+                   "ops/fused_block.py"]:
         assert (package / module).is_file(), module
 
 
@@ -420,10 +421,7 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"vit_attention_impl": "block"}, "K6"),
-    ({"vit_mlp_impl": "block"}, "K6"),
     ({"num_views": 2}, "slice 11"),
-    ({"attention_impl": "block"}, "K6"),
     ({"remat_encoder": True}, "slice 11"),
     ({"use_pretrained_cad_model": True}, "slice 11"),
     ({"encoder": "resnet"}, "slice 11"),
@@ -433,6 +431,76 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
         create_model(dict(TINY_CONFIG, **override))
+
+
+def _tiny_inputs(t=4):
+    rng = np.random.default_rng(0)
+    acts = np.concatenate([rng.integers(0, 5, (1, t, 1)),
+                           rng.integers(-1, 1000, (1, t, 6))], -1)
+    return {"frames": torch.from_numpy(rng.integers(
+                0, 256, (1, t, 32, 32, 3), dtype=np.uint8)),
+            "cad_image": torch.from_numpy(rng.integers(
+                0, 256, (1, 32, 32, 3), dtype=np.uint8)),
+            "actions": torch.from_numpy(
+                (acts / np.asarray([4.0] + [1000.0] * 6)).astype(np.float32))}
+
+
+@pytest.mark.parametrize("override", [
+    {"vit_attention_impl": "block"},
+    {"vit_mlp_impl": "block"},
+    {"vit_attention_impl": "fused", "vit_mlp_impl": "block"},
+    {"vit_attention_impl": "block", "vit_mlp_impl": "block"},
+    {"vit_attention_impl": "block", "ln_impl": "pallas"},
+    {"vit_attention_impl": "block", "dtype": "bfloat16"},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_block_settings_build_and_run(override):
+    """The fused sub-block settings, once refused as unported, build, keep
+    the parameter names and give finite logits equal to the plain ViT's (a
+    bf16 model within bf16's rounding of its own plain path)."""
+    model = create_model(dict(TINY_CONFIG, **override),
+                         generator=torch.Generator().manual_seed(1))
+    plain = create_model(dict(TINY_CONFIG, dtype=override.get("dtype",
+                                                              "float32")))
+    assert list(model.state_dict()) == list(plain.state_dict())
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, want = model(_tiny_inputs()), plain(_tiny_inputs())
+    tol = 1e-5 if "dtype" not in override else 5e-2
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("override", [{"vit_attention_impl": "mosaic"},
+                                      {"vit_mlp_impl": "fused"},
+                                      {"attention_impl": "mosaic"}],
+                         ids=lambda o: "-".join(o.values()))
+def test_unknown_impl_names_raise(override):
+    with pytest.raises(ValueError, match="unknown"):
+        create_model(dict(TINY_CONFIG, **override))
+
+
+def test_decoder_attention_impl_block_runs_the_plain_core():
+    """As in the JAX decoder, where neither the "fused" nor the "pallas"
+    branch matches "block": the plain core runs, with the same weights the
+    same logits to the bit, and no kernel wrapper is entered."""
+    from videocad_tpu_torch.ops import attention, fused_attention, fused_block
+
+    model = create_model(dict(TINY_CONFIG, attention_impl="block"),
+                         generator=torch.Generator().manual_seed(2))
+    plain = create_model(TINY_CONFIG)
+    plain.load_state_dict(model.state_dict())
+    counts = lambda: (attention.flash_attention.launches,  # noqa: E731
+                      fused_attention.mhsa_short.launches,
+                      fused_block.attn_block.launches)
+    before = counts()
+    with torch.no_grad():
+        got, want = model(_tiny_inputs(6)), plain(_tiny_inputs(6))
+    assert counts() == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(m.attention_impl == "block" for n, m in model.named_modules()
+               if n.startswith("decoder.") and hasattr(m, "attention_impl"))
 
 
 def test_flagship_config_matches_the_jax_package():

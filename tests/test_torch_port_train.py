@@ -629,3 +629,85 @@ def test_train_step_with_flash_attention_dropout_repeats_for_a_seed():
         grads = [p.grad for p in model.parameters()]
         assert all(g is not None and torch.isfinite(g).all() for g in grads)
     assert losses["a"] == losses["b"] != losses["c"]
+
+
+# ---- the train step under vit_attention_impl / vit_mlp_impl "block" ----
+
+BLOCK_SETTINGS = {
+    "block": {"vit_attention_impl": "block", "vit_depth": 2},
+    "fused_attention_block_mlp": {"vit_attention_impl": "fused",
+                                  "vit_mlp_impl": "block", "vit_depth": 2},
+}
+
+
+@pytest.mark.parametrize("setting", sorted(BLOCK_SETTINGS))
+def test_loss_and_gradients_match_jax_under_block(setting):
+    """One train step's loss and gradients with the ViT through the fused
+    sub-block kernels (depth 2): the JAX side differentiates through its
+    interpreted Pallas forward and backward kernels, the port through its
+    written-out plain backward. Loss 1e-4 relative, gradients 1e-4 of each
+    tensor's largest entry, key biases an absolute 1e-6."""
+    jax_model, jax_st, _, model, _ = _pair(BLOCK_SETTINGS[setting])
+    jax_batch, port_batch = _batch(b=2, t=6, seed=4)
+
+    def loss_fn(params):
+        inputs, targets = jax_steps.prepare_model_inputs(jax_batch)
+        preds = jax_model.apply({"params": params}, inputs)
+        return jax_objective.compute_loss_and_metrics(*preds, targets,
+                                                      JAX_LOSS)[0]
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(jax_st.params)
+    inputs, targets = port_steps.prepare_model_inputs(port_batch)
+    loss = port_objective.compute_loss_and_metrics(*model(inputs), targets,
+                                                   PORT_LOSS)[0]
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    assert all(g is not None and g.dtype == torch.float32
+               for g in grads.values())
+    _assert_trees_close(jax_tree_from_state_dict(grads), want_grads, 1e-4,
+                        relative=True, key_bias_tol=1e-6)
+
+
+@pytest.mark.parametrize("setting", sorted(BLOCK_SETTINGS))
+def test_train_step_under_block_matches_the_unfused_step(setting):
+    """The port's train step under "block" against its own step under
+    "fused" from the same weights: the loss within 1e-5, the metrics equal,
+    the gradients the step left within 1e-5 of each tensor's largest entry
+    (the parameters themselves are not compared: Adam turns the rounding
+    noise of a near-zero gradient into a step of lr)."""
+    overrides = BLOCK_SETTINGS[setting]
+    _, _, _, model, port_st = _pair(overrides)
+    _, _, _, plain, plain_st = _pair({"vit_depth": 2})
+    plain.load_state_dict(model.state_dict())
+    _, port_batch = _batch(seed=3)
+    _, loss, metrics = port_steps.make_train_step(model, PORT_LOSS)(
+        port_st, port_batch, 0)
+    _, want_loss, want_metrics = port_steps.make_train_step(
+        plain, PORT_LOSS)(plain_st, port_batch, 0)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for key in want_metrics:
+        assert float(metrics[key]) == float(want_metrics[key]), key
+    want = dict(plain.named_parameters())
+    for name, param in model.named_parameters():
+        if name.endswith(".key.bias"):
+            continue     # zero in exact arithmetic: rounding noise
+        scale = want[name].grad.abs().max().item()
+        err = (param.grad - want[name].grad).abs().max().item()
+        assert err <= 1e-5 * scale, (name, err, scale)
+
+
+def test_train_step_with_block_dropout_repeats_for_a_seed_and_differs():
+    _, port_batch = _batch(seed=5)
+    losses = {}
+    for run, seed in [("a", 11), ("b", 11), ("c", 12)]:
+        model = create_model(dict(FUSED, dropout=0.1, dropout_impl="pallas",
+                                  **BLOCK_SETTINGS["block"]))
+        state = port_state.create_train_state(
+            dict(model.named_parameters()), {"lr": 1e-3})
+        step = port_steps.make_train_step(model, PORT_LOSS)
+        state, first, _ = step(state, port_batch, seed)
+        losses[run] = float(first)
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert losses["a"] == losses["b"] != losses["c"]

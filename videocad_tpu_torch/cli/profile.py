@@ -12,8 +12,10 @@ the training path: the flagship's train step (dropout 0.1) at B=8, T=192
 and its eval step, as the JSON has the config, once more with ``ln_impl``
 and ``dropout_impl`` ``"pallas"`` (the LayerNorm and dropout kernels), and
 a third time with ``attention_impl`` ``"pallas"`` as well (the decoder's
-flash attention kernels), in the same call so that the three can be
-compared. For each piece it prints one JSON line:
+flash attention kernels), and a fourth with ``vit_attention_impl``
+``"block"`` on top (the ViT's fused sub-block kernels, its memory mode), in
+the same call so that the four can be compared. For each piece it prints
+one JSON line:
 
   wall_ms     host-clock ms per iteration, without the profiler, ending in
               a device sync
@@ -24,7 +26,7 @@ compared. For each piece it prints one JSON line:
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
-After each of the three settings a line holds its peak device memory; the
+After each of the four settings a line holds its peak device memory; the
 last line holds the card's name and power limit (nvidia-smi) and the
 largest of those peaks.
 """
@@ -208,9 +210,16 @@ def main(argv=None) -> None:
                       "max_memory_gb": peak_gb}), flush=True)
     del model
     torch.cuda.empty_cache()
-    settings = {"ln_impl": "pallas", "dropout_impl": "pallas"}
-    for label in (", ln_impl and dropout_impl pallas",
-                  ", attention_impl, ln_impl and dropout_impl pallas"):
+    two = {"ln_impl": "pallas", "dropout_impl": "pallas"}
+    three = dict(two, attention_impl="pallas")
+    # The fourth setting: the ViT's fused sub-block kernels beside the
+    # three kernel settings (the ViT's memory mode).
+    block = dict(three, vit_attention_impl="block")
+    for label, settings in (
+            (", ln_impl and dropout_impl pallas", two),
+            (", attention_impl, ln_impl and dropout_impl pallas", three),
+            (", vit_attention_impl block, attention_impl, ln_impl and "
+             "dropout_impl pallas", block)):
         torch.cuda.reset_peak_memory_stats()
         kernels = create_model(dict(flagship_config(), **settings),
                                device=device)
@@ -222,7 +231,6 @@ def main(argv=None) -> None:
                           "max_memory_gb": settings_gb}), flush=True)
         del kernels
         torch.cuda.empty_cache()
-        settings["attention_impl"] = "pallas"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

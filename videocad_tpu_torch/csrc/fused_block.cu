@@ -1,0 +1,1539 @@
+// The ViT's two pre-LN sub-blocks, each as one fused kernel, forward and
+// backward, with dropout inside the kernels, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of videocad_tpu/ops/fused_block.py:
+//   attn_block_fwd  <- _attn_fwd  (-> pl.pallas_call, body _attn_fwd_kernel)
+//   attn_block_bwd  <- _attn_bwd_vjp (body _attn_bwd_kernel)
+//   mlp_block_fwd   <- _mlp_fwd   (body _mlp_fwd_kernel)
+//   mlp_block_bwd   <- _mlp_bwd_vjp (body _mlp_bwd_kernel)
+// They compute the same functions over x (B, T, D):
+//   attention: y = x + drop1(MHSA_drop0(LN(x) Wq, LN(x) Wk, LN(x) Wv) Wo + bo)
+//   MLP:       y = x + drop3(drop2(gelu(LN(x) W1 + b1)) W2 + b2), erf GELU
+// with the rounding points of the Pallas bodies: LayerNorm statistics in
+// f32; h = LN(x) rounded to the I/O dtype before each projection; every
+// product accumulated in f32; q, k, v rounded before the score product; the
+// softmax in f32; the dropped weights rounded before the product with v;
+// the merged heads, the hidden layer, the masked output gradient, ds, dq,
+// dk, dv and dz rounded before the products that consume them. The
+// backward recomputes everything from x and redraws the masks from the
+// seed: only x, the parameters and the seed live between the two.
+// GELU uses erff (the Pallas body a rational approximation of erf, error
+// 1.5e-7, because its compiler has none).
+//
+// Weights are read where PyTorch keeps them, by strides: a weight arrives
+// as a (in, out) view with element strides (s_in, s_out), so nn.Linear's
+// (out, in) storage is read without a transposed copy.
+//
+// The dropout bits. The TPU kernels seed a hardware generator per (frame,
+// site). Here bits(seed, site, frame, head, row, col) is word col % 4 of
+// Philox4x32-10 with key (seed, 3 + site) and counter (col / 4, row, head,
+// frame); site 0 the attention weights (row = query, col = key), site 1 the
+// attention branch (head 0, col < D), site 2 the hidden layer (col < F),
+// site 3 the MLP branch. A function of the indices only, so forward and
+// backward draw one mask whatever their grids, and key words 3..6 are used
+// by no other kernel family (0, 1, 2 are taken).
+// videocad_tpu_torch/ops/prng.py computes the same function in PyTorch
+// integer ops for the plain versions.
+//
+// What bounds them on the card: operations. At the flagship's shapes (T =
+// 50, D = 512, 16 heads of 64, F = 512) the attention forward does about
+// 220 MFLOP a frame against 100 KB of bf16 I/O, the MLP forward 52 MFLOP,
+// the backwards two to three times that with the weight gradients: far
+// right of the card's ridge, so the floor is the tensor cores' rate (0.34,
+// 0.94, 0.08 and 0.20 ms at 1,528 frames in bf16). Every product of a
+// block goes through one routine, gemm_tile: a 64 x 64 output tile, both
+// operands staged 32 deep through shared memory, one tile ahead through
+// registers. In bf16 the tiles move as 16-byte groups and are multiplied on
+// the tensor cores (mma.sync m16n16k16 through nvcuda::wmma, f32
+// accumulation); float32, and bf16 shapes that do not allow 16-byte groups,
+// run as f32 FMAs on a 4 x 4 register tile a thread. What holds the
+// kernels above the floor: one block of 8 warps an SM (the f32 sums take
+// 128 KB of its shared memory), so every tile's chain of load, stage,
+// barrier, multiply, barrier is exposed; a 32-deep tile is one mma.sync
+// pair a warp; and the softmax core runs one warp a query row in scalar
+// f32, as mhsa_short.cu does. wgmma with TMA-fed multi-stage tiles is the
+// next step.
+//
+// What the design does where the TPU design does not carry over:
+//   * Weights in persistent VMEM -> the weights stay in device memory (the
+//     L2 holds all of them) and every block streams 32-deep tiles of them
+//     through shared memory.
+//   * A block owns 64 token rows: one frame (T <= 64, rows past T are
+//     padding) in the attention kernels, because the softmax core needs the
+//     frame whole; any 64 rows of the flattened (B*T, D) stream in the MLP
+//     kernels. At B = 1 and 8 (CAD encode, a served tick) the attention
+//     kernels therefore fill 1 or 8 of the 132 SMs and the MLP kernels 1 or
+//     7: those launches are latency-bound, not throughput-bound.
+//   * The 1,024-wide q, k, v never reach device memory: the forward loops
+//     over heads, forms one head's q, k, v (T x 64 each) in shared memory,
+//     runs the softmax core there (one warp per query row, as
+//     mhsa_short.cu does), and adds a_h Wo[head rows] into a (64, D) f32
+//     sum in shared memory. That sum and h = LN(x) (64 x D) do not both fit
+//     the 227 KB of a block beside the head's operands, so h goes through a
+//     scratch buffer in device memory that the wrapper allocates for the
+//     call (the backward emits h anyway); the block reads back only what it
+//     wrote itself, after a __syncthreads().
+//   * A sequential grid that carries the parameter gradients -> two passes
+//     and no atomics. The backward kernels emit, in the I/O dtype, the two
+//     operands of every weight-gradient product (h, dz, the hidden layer
+//     and the masked output gradient for the MLP; the merged heads and the
+//     masked output gradient for the attention, beside h and dqkv, which
+//     the wrapper multiplies outside as the JAX wrapper does), and
+//     grad_weight_kernel computes A^T B over all B*T tokens: a block owns a
+//     64 x 64 output tile and a range of tokens, partials are summed in a
+//     fixed order. The bias and LayerNorm gradients are column sums: each
+//     block writes one partial row, sum_rows_kernel adds the rows in a
+//     fixed order. Gradients therefore repeat bit for bit. The buffers live
+//     only inside one backward call.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBM = 64;          // token rows a block owns
+constexpr int kBN = 64;          // output columns of one product tile
+constexpr int kBK = 32;          // depth of one staged tile
+constexpr int kLd = kBM + 4;     // staged f32 rows: 68 keep float4 aligned
+constexpr int kLdH = kBM + 8;    // staged bf16 rows: 72 keep 32-byte fragments
+constexpr int kMaxD = 512;       // widest row a warp holds in registers
+constexpr int kPerLane = kMaxD / 32;
+constexpr int kMaxHeadDim = 64;
+constexpr int kHeadLd = kMaxHeadDim + 1;   // lane j reads row j: no conflicts
+constexpr int kStageFloats = 2 * kBK * kLd;   // As and Bs
+constexpr int kMaxSplits = 8;
+static_assert(kBM == kBN && kBM * kBK % kThreads == 0 && kThreads == 256,
+              "gemm_tile stages both tiles with one index scheme and gives "
+              "each of 16 x 16 threads a 4 x 4 piece");
+static_assert(kBK * kLdH * 2 <= kBK * kLd * 4 &&
+                  kBM * (kBK + 8) * 2 <= kBK * kLd * 4 &&
+                  kBM * kLd == kStageFloats,
+              "the bf16 tiles and the f32 output tile fit the staging area");
+
+typedef long long i64;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);   // round to nearest even
+}
+// x rounded to the I/O dtype, held in f32.
+template <typename T>
+__device__ __forceinline__ float round_io(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+struct Drop {
+  uint32_t seed;
+  uint32_t threshold;   // bits below it are dropped; 0 turns dropout off
+  float inv_keep;       // 1 / (1 - rate)
+};
+
+// The four words of Philox4x32-10, key (seed, 3 + site), counter
+// (group, row, head, frame).
+__device__ __forceinline__ void philox4(uint32_t seed, uint32_t site,
+                                        uint32_t group, uint32_t row,
+                                        uint32_t head, uint32_t frame,
+                                        uint32_t (&out)[4]) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+  uint32_t c0 = group, c1 = row, c2 = head, c3 = frame;
+  uint32_t k0 = seed, k1 = 3u + site;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += kW0;
+    k1 += kW1;
+  }
+  out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
+}
+
+__device__ __forceinline__ uint32_t philox1(uint32_t seed, uint32_t site,
+                                            uint32_t col, uint32_t row,
+                                            uint32_t head, uint32_t frame) {
+  uint32_t w[4];
+  philox4(seed, site, col >> 2, row, head, frame, w);
+  const uint32_t word = col & 3u;
+  return word == 0u ? w[0] : word == 1u ? w[1] : word == 2u ? w[2] : w[3];
+}
+
+// keep[j] for the four columns group * 4 + j of an elementwise site.
+__device__ __forceinline__ void keep4(const Drop& drop, uint32_t site,
+                                      uint32_t group, uint32_t row,
+                                      uint32_t frame, bool (&keep)[4]) {
+  if (drop.threshold == 0u) {
+    keep[0] = keep[1] = keep[2] = keep[3] = true;
+    return;
+  }
+  uint32_t w[4];
+  philox4(drop.seed, site, group, row, 0u, frame, w);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) keep[j] = w[j] >= drop.threshold;
+}
+
+// ---------------------------------------------------------------------------
+// The block-level product: acc[i][j] += sum_k A(m, k) B(k, n) for the
+// thread's rows m = ty * 4 + i and columns n = tx * 4 + j of a 64 x 64 tile
+// (tx = tid % 16, ty = tid / 16). A(m, k) = A[m * sam + k * sak] and
+// B(k, n) = B[k * sbk + n * sbn] may lie in device or in shared memory;
+// entries with m >= m_valid, n >= n_valid or k >= K count as 0. Both
+// operands are staged through ``stage`` (kStageFloats floats of shared
+// memory), 32 deep. Every thread of the block must call it, after a
+// __syncthreads() behind whatever wrote A; it ends with a __syncthreads().
+//
+// bf16 operands whose layout allows 16-byte loads go to the tensor cores
+// (gemm_tile_tc); everything else (float32, odd widths, unaligned views)
+// runs as f32 FMAs on a 4 x 4 register tile a thread.
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+// Eight consecutive values as bf16 in one 16-byte register group. A float
+// source holds bf16 values already (rounded where the Pallas body rounds),
+// so the conversion is exact.
+__device__ __forceinline__ uint4 load8(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 load8(const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  uint4 out;
+  __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&out);
+  pairs[0] = __floats2bfloat162_rn(lo.x, lo.y);
+  pairs[1] = __floats2bfloat162_rn(lo.z, lo.w);
+  pairs[2] = __floats2bfloat162_rn(hi.x, hi.y);
+  pairs[3] = __floats2bfloat162_rn(hi.z, hi.w);
+  return out;
+}
+
+constexpr int kLdK = kBK + 8;   // bf16 rows of a tile kept k-contiguous: 40
+
+// The tensor-core product. AK: A is contiguous along k, A(m, k) =
+// A[m * lda + k], and is staged as [m][k] (wmma row-major A); otherwise it
+// is contiguous along m, A(m, k) = A[k * lda + m], staged as [k][m]
+// (col-major A). BK likewise for B(k, n) = B[n * ldb + k] (col-major B) or
+// B[k * ldb + n] (row-major B). Each thread moves one 16-byte group of
+// eight values of each operand a tile: row tid / 4 and depth 8 (tid % 4)
+// along k, or depth tid / 8 and columns 8 (tid % 8) otherwise; the groups
+// travel through registers one tile ahead of the products. Warp w owns
+// rows (w / 2) * 16 and columns (w % 2) * 32 of the output as two
+// 16 x 16 x 16 fragments (mma.sync through nvcuda::wmma, f32
+// accumulation); at the end the tile goes through the staging area, as
+// 64 x kLd floats, to the threads' 4 x 4 pieces.
+template <typename TA, bool AK, bool BK>
+__device__ __noinline__ void gemm_tile_tc(const TA* A, i64 lda, int m_valid,
+                                          const bf16* B, i64 ldb, int n_valid,
+                                          int K, float* acc, float* stage) {
+  namespace wmma = nvcuda::wmma;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4, warp = tid >> 5;
+  bf16* Ah = reinterpret_cast<bf16*>(stage);
+  bf16* Bh = reinterpret_cast<bf16*>(stage + kBK * kLd);
+  // This thread's group: (row or column, depth) of its first value.
+  const int a_mn = AK ? tid >> 2 : (tid & 7) * 8;
+  const int a_kk = AK ? (tid & 3) * 8 : tid >> 3;
+  const int b_mn = BK ? tid >> 2 : (tid & 7) * 8;
+  const int b_kk = BK ? (tid & 3) * 8 : tid >> 3;
+  const TA* pa = AK ? A + a_mn * lda + a_kk : A + a_kk * lda + a_mn;
+  const bf16* pb = BK ? B + b_mn * ldb + b_kk : B + b_kk * ldb + b_mn;
+  const i64 a_tile = AK ? (i64)kBK : kBK * lda;
+  const i64 b_tile = BK ? (i64)kBK : kBK * ldb;
+  const int a_dst = AK ? a_mn * kLdK + a_kk : a_kk * kLdH + a_mn;
+  const int b_dst = BK ? b_mn * kLdK + b_kk : b_kk * kLdH + b_mn;
+  const bool a_row_ok = a_mn < m_valid, b_row_ok = b_mn < n_valid;
+  uint4 va, vb;
+  bool a_ok, b_ok;
+  // A group out of range loads the operand's first group instead, so that
+  // no load sits behind a branch, and is staged as zeros.
+  auto fetch = [&](int k0) {
+    a_ok = a_row_ok && k0 + a_kk < K;
+    b_ok = b_row_ok && k0 + b_kk < K;
+    vb = load8(b_ok ? pb : B);
+    va = load8(a_ok ? pa : A);
+    pa += a_tile;
+    pb += b_tile;
+  };
+  const int m0 = (warp >> 1) * 16, n0 = (warp & 1) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
+  wmma::fill_fragment(c0, 0.f);
+  wmma::fill_fragment(c1, 0.f);
+  using ALayout =
+      typename std::conditional<AK, wmma::row_major, wmma::col_major>::type;
+  using BLayout =
+      typename std::conditional<BK, wmma::col_major, wmma::row_major>::type;
+  constexpr int a_ld = AK ? kLdK : kLdH, b_ld = BK ? kLdK : kLdH;
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(Ah + a_dst) = a_ok ? va : zero;
+    *reinterpret_cast<uint4*>(Bh + b_dst) = b_ok ? vb : zero;
+    __syncthreads();
+    if (k0 + kBK < K) fetch(k0 + kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b0, b1;
+      const bf16* at_a = AK ? Ah + m0 * kLdK + kk : Ah + kk * kLdH + m0;
+      const bf16* at_b = BK ? Bh + n0 * kLdK + kk : Bh + kk * kLdH + n0;
+      wmma::load_matrix_sync(a, at_a, a_ld);
+      wmma::load_matrix_sync(b0, at_b, b_ld);
+      wmma::load_matrix_sync(b1, at_b + (BK ? 16 * kLdK : 16), b_ld);
+      wmma::mma_sync(c0, a, b0, c0);
+      wmma::mma_sync(c1, a, b1, c1);
+    }
+    __syncthreads();
+  }
+  float* Cs = stage;   // 64 x kLd floats: exactly the staging area
+  wmma::store_matrix_sync(Cs + m0 * kLd + n0, c0, kLd, wmma::mem_row_major);
+  wmma::store_matrix_sync(Cs + m0 * kLd + n0 + 16, c1, kLd,
+                          wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 c =
+        *reinterpret_cast<const float4*>(&Cs[(ty * 4 + i) * kLd + tx * 4]);
+    acc[i * 4 + 0] += c.x;
+    acc[i * 4 + 1] += c.y;
+    acc[i * 4 + 2] += c.z;
+    acc[i * 4 + 3] += c.w;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
+}
+
+template <typename TA, typename TB>
+__device__ __forceinline__ void gemm_tile(const TA* A, i64 sam, i64 sak,
+                                          int m_valid, const TB* B, i64 sbk,
+                                          i64 sbn, int n_valid, int K,
+                                          float (&acc)[4][4], float* As,
+                                          float* Bs) {
+  const bool a_k = sak == 1, b_k = sbk == 1;
+  if constexpr (std::is_same<TB, bf16>::value) {
+    // 16-byte groups need: a unit stride along k or along the rows, the
+    // other stride and the pointer on 16-byte boundaries, and whole groups
+    // (K a multiple of 8 where k is grouped, the row count where rows are).
+    const i64 lda = a_k ? sam : sak, ldb = b_k ? sbn : sbk;
+    const bool grouped =
+        (a_k || sam == 1) && (b_k || sbn == 1) &&
+        (K % 8 == 0 || !(a_k || b_k)) && lda * (i64)sizeof(TA) % 16 == 0 &&
+        ldb % 8 == 0 && aligned16(A) && aligned16(B) &&
+        (a_k || m_valid % 8 == 0) && (b_k || n_valid % 8 == 0);
+    if (grouped) {
+      if (a_k && b_k)
+        gemm_tile_tc<TA, true, true>(A, lda, m_valid, B, ldb, n_valid, K,
+                                     &acc[0][0], As);
+      else if (a_k)
+        gemm_tile_tc<TA, true, false>(A, lda, m_valid, B, ldb, n_valid, K,
+                                      &acc[0][0], As);
+      else if (b_k)
+        gemm_tile_tc<TA, false, true>(A, lda, m_valid, B, ldb, n_valid, K,
+                                      &acc[0][0], As);
+      else
+        gemm_tile_tc<TA, false, false>(A, lda, m_valid, B, ldb, n_valid, K,
+                                       &acc[0][0], As);
+      return;
+    }
+  }
+  constexpr int kPerThread = kBM * kBK / kThreads;   // 8 entries of each tile
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  // Entry s of this thread in a staged tile. Read along k (stride 1 there):
+  // depth tid % 32, row tid / 32 + 8 s. Read along the rows: row tid % 64,
+  // depth tid / 64 + 4 s. Either way the address, the place in shared
+  // memory and the bounds advance by a constant from one entry to the next,
+  // and the address by kBK * stride from one tile to the next.
+  const int a_mn = a_k ? tid >> 5 : tid & 63, a_kk = a_k ? tid & 31 : tid >> 6;
+  const int b_mn = b_k ? tid >> 5 : tid & 63, b_kk = b_k ? tid & 31 : tid >> 6;
+  const TA* pa = A + a_mn * sam + a_kk * sak;
+  const TB* pb = B + b_kk * sbk + b_mn * sbn;
+  const i64 a_step = a_k ? 8 * sam : 4 * sak, b_step = b_k ? 8 * sbn : 4 * sbk;
+  const int a_mn_step = a_k ? 8 : 0, a_kk_step = a_k ? 0 : 4;
+  const int b_mn_step = b_k ? 8 : 0, b_kk_step = b_k ? 0 : 4;
+  // The next tiles travel through registers, as loaded: all 16 loads of a
+  // thread are in flight together (an entry out of range loads the tile's
+  // first element instead, so that no load sits behind a branch, and counts
+  // as 0 when it is staged; nothing uses a loaded value before that), and
+  // they are issued before the products of the tile at hand, which hide
+  // their latency.
+  TA va[kPerThread];
+  TB vb[kPerThread];
+  unsigned a_ok = 0u, b_ok = 0u;
+  auto fetch = [&](int k0) {
+    a_ok = b_ok = 0u;
+#pragma unroll
+    for (int s = 0; s < kPerThread; ++s) {
+      const bool in_a = a_mn + s * a_mn_step < m_valid &&
+                        k0 + a_kk + s * a_kk_step < K;
+      const bool in_b = b_mn + s * b_mn_step < n_valid &&
+                        k0 + b_kk + s * b_kk_step < K;
+      va[s] = *(in_a ? pa + s * a_step : A);
+      vb[s] = *(in_b ? pb + s * b_step : B);
+      a_ok |= (unsigned)in_a << s;
+      b_ok |= (unsigned)in_b << s;
+    }
+    pa += kBK * sak;
+    pb += kBK * sbk;
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int s = 0; s < kPerThread; ++s) {
+      As[(a_kk + s * a_kk_step) * kLd + a_mn + s * a_mn_step] =
+          (a_ok >> s & 1u) ? to_f32(va[s]) : 0.f;
+      Bs[(b_kk + s * b_kk_step) * kLd + b_mn + s * b_mn_step] =
+          (b_ok >> s & 1u) ? to_f32(vb[s]) : 0.f;
+    }
+    __syncthreads();
+    if (k0 + kBK < K) fetch(k0 + kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(&As[kk * kLd + ty * 4]);
+      const float4 b =
+          *reinterpret_cast<const float4*>(&Bs[kk * kLd + tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Row passes: one warp owns one row of D <= 512 values, 16 to a lane; lane
+// value e is column ((e / 4) * 32 + lane) * 4 + e % 4, so a lane owns whole
+// groups of four columns (one Philox call each).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int col_of(int e, int lane) {
+  return ((e >> 2) * 32 + lane) * 4 + (e & 3);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_row(const T* row, int d, int lane,
+                                         float (&v)[kPerLane]) {
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    v[e] = col < d ? to_f32(row[col]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_param(const float* p, int d, int lane,
+                                           float (&v)[kPerLane]) {
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    v[e] = col < d ? p[col] : 0.f;
+  }
+}
+
+// x -> xhat in place (0 past d); returns rstd. The centred second moment,
+// as the Pallas body's _layer_norm_f32.
+__device__ __forceinline__ float normalize_row(float (&v)[kPerLane], int d,
+                                               int lane, float eps) {
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) sum += v[e];
+  const float mean = warp_sum(sum) / (float)d;
+  float sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const float centered = col_of(e, lane) < d ? v[e] - mean : 0.f;
+    v[e] = centered;
+    sq = fmaf(centered, centered, sq);
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / (float)d + eps);
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) v[e] *= rstd;
+  return rstd;
+}
+
+// h = LN(x) of one row, rounded to the I/O dtype, written to ``h_row``;
+// leaves xhat in v and returns rstd.
+template <typename T>
+__device__ __forceinline__ float ln_row(const T* x_row, T* h_row,
+                                        const float (&sc)[kPerLane],
+                                        const float (&bi)[kPerLane], int d,
+                                        int lane, float eps,
+                                        float (&v)[kPerLane]) {
+  load_row<T>(x_row, d, lane, v);
+  const float rstd = normalize_row(v, d, lane, eps);
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    if (col < d)
+      h_row[col] = from_f32<T>(__fadd_rn(__fmul_rn(v[e], sc[e]), bi[e]));
+  }
+  return rstd;
+}
+
+// do = keep ? gy / (1 - rate) : 0 for one row (elementwise site ``site``);
+// writes do rounded to the I/O dtype to ``dob_row`` and adds do to ``sum``.
+template <typename T>
+__device__ __forceinline__ void masked_grad_row(const T* gy_row, T* dob_row,
+                                                const Drop& drop,
+                                                uint32_t site, uint32_t row,
+                                                uint32_t frame, int d,
+                                                int lane,
+                                                float (&sum)[kPerLane]) {
+  float gy[kPerLane];
+  load_row<T>(gy_row, d, lane, gy);
+#pragma unroll
+  for (int c = 0; c < kPerLane / 4; ++c) {
+    const int group = c * 32 + lane;
+    if (group * 4 >= d) continue;
+    bool keep[4];
+    keep4(drop, site, (uint32_t)group, row, frame, keep);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = c * 4 + j;
+      const int col = group * 4 + j;
+      if (col < d) {
+        const float g = drop.threshold == 0u
+                            ? gy[e] : (keep[j] ? gy[e] * drop.inv_keep : 0.f);
+        sum[e] += g;
+        dob_row[col] = from_f32<T>(g);
+      }
+    }
+  }
+}
+
+// The LayerNorm backward of one row: dx = gy + rstd * (dxhat - mean(dxhat) -
+// xhat * mean(dxhat * xhat)), dxhat = dh * g; adds dh * xhat and dh to the
+// lane's dg and dbe sums.
+template <typename T>
+__device__ __forceinline__ void ln_bwd_row(const T* x_row, const T* gy_row,
+                                           const float* dh_row, T* dx_row,
+                                           const float (&sc)[kPerLane], int d,
+                                           int lane, float eps,
+                                           float (&dg)[kPerLane],
+                                           float (&dbe)[kPerLane]) {
+  float xhat[kPerLane], gy[kPerLane], dh[kPerLane];
+  load_row<T>(x_row, d, lane, xhat);
+  const float rstd = normalize_row(xhat, d, lane, eps);
+  load_row<T>(gy_row, d, lane, gy);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    dh[e] = col < d ? dh_row[col] : 0.f;
+    dg[e] = fmaf(dh[e], xhat[e], dg[e]);
+    dbe[e] += dh[e];
+    dh[e] *= sc[e];
+    s1 += dh[e];
+    s2 = fmaf(dh[e], xhat[e], s2);
+  }
+  const float m1 = warp_sum(s1) / (float)d;
+  const float m2 = warp_sum(s2) / (float)d;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    if (col < d)
+      dx_row[col] =
+          from_f32<T>(gy[e] + rstd * (dh[e] - m1 - xhat[e] * m2));
+  }
+}
+
+// The warps' per-lane column sums -> one row of d values in ``out``, summed
+// over the warps in a fixed order through ``buf`` (kWarps * d floats of
+// shared memory). Ends with a __syncthreads().
+__device__ __forceinline__ void block_col_sums(const float (&sum)[kPerLane],
+                                               int d, float* buf, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    if (col < d) buf[warp * d + col] = sum[e];
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < d; col += kThreads) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += buf[w * d + col];
+    out[col] = total;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float gelu(float z) {
+  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+}
+__device__ __forceinline__ float dgelu(float z) {
+  const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
+  const float pdf = expf(-0.5f * z * z) * 0.3989422804014327f;
+  return cdf + z * pdf;
+}
+
+// A weight as a (in, out) view: element (i, o) at p[i * s_in + o * s_out].
+template <typename T>
+struct Weight {
+  const T* p;
+  i64 s_in, s_out;
+};
+
+// ---------------------------------------------------------------------------
+// MLP sub-block
+// ---------------------------------------------------------------------------
+
+// Shared memory of the MLP kernels, in floats: As, Bs, the hidden chunk
+// (kBM x kLd), the chunk's column sums (16 x kBN; backward only) and the
+// (kBM, d) f32 sum.
+__host__ __device__ constexpr int mlp_shared_floats(int d) {
+  return kStageFloats + kBM * kLd + 16 * kBN + kBM * d;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mlp_fwd_kernel(const T* __restrict__ x, Weight<T> w1,
+               const float* __restrict__ b1, Weight<T> w2,
+               const float* __restrict__ b2, const float* __restrict__ g,
+               const float* __restrict__ be, T* hbuf, T* __restrict__ y,
+               i64 rows, int seq, int d, int f, float eps, Drop drop) {
+  extern __shared__ __align__(128) float smem[];
+  float* As = smem;
+  float* Bs = As + kBK * kLd;
+  float* cs = Bs + kBK * kLd;            // the hidden chunk, rounded
+  float* os = cs + kBM * kLd + 16 * kBN; // (kBM, d) sum of the output product
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const i64 r0 = (i64)blockIdx.x * kBM;
+  const int m_valid = (int)((rows - r0) < kBM ? (rows - r0) : kBM);
+
+  {
+    float sc[kPerLane], bi[kPerLane], v[kPerLane];
+    load_param(g, d, lane, sc);
+    load_param(be, d, lane, bi);
+    for (int i = warp; i < m_valid; i += kWarps)
+      ln_row<T>(x + (r0 + i) * d, hbuf + (r0 + i) * d, sc, bi, d, lane, eps,
+                v);
+  }
+  for (int idx = tid; idx < kBM * d; idx += kThreads) os[idx] = 0.f;
+  __syncthreads();
+
+  const T* h0 = hbuf + r0 * d;
+  for (int c0 = 0; c0 < f; c0 += kBN) {
+    const int f_valid = (f - c0) < kBN ? (f - c0) : kBN;
+    float acc[4][4];
+    zero_acc(acc);
+    gemm_tile<T, T>(h0, d, 1, m_valid, w1.p + c0 * w1.s_out, w1.s_in,
+                    w1.s_out, f_valid, d, acc, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = ty * 4 + i;
+      const i64 r = r0 + m;
+      bool keep[4];
+      keep4(drop, 2u, (uint32_t)((c0 + tx * 4) >> 2), (uint32_t)(r % seq),
+            (uint32_t)(r / seq), keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + tx * 4 + j;
+        float a = 0.f;
+        if (m < m_valid && col < f) {
+          a = gelu(acc[i][j] + b1[col]);
+          if (drop.threshold != 0u) a = keep[j] ? a * drop.inv_keep : 0.f;
+        }
+        cs[m * kLd + tx * 4 + j] = round_io<T>(a);
+      }
+    }
+    __syncthreads();
+    for (int n0 = 0; n0 < d; n0 += kBN) {
+      const int n_valid = (d - n0) < kBN ? (d - n0) : kBN;
+      float out[4][4];
+      zero_acc(out);
+      gemm_tile<float, T>(cs, kLd, 1, kBM, w2.p + c0 * w2.s_in + n0 * w2.s_out,
+                          w2.s_in, w2.s_out, n_valid, f_valid, out, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + tx * 4 + j;
+          if (col < d) os[(ty * 4 + i) * d + col] += out[i][j];
+        }
+    }
+  }
+
+  // y = x + drop3(o + b2); a thread finishes the entries it summed itself.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = ty * 4 + i;
+    if (m >= m_valid) continue;
+    const i64 r = r0 + m;
+    for (int n0 = 0; n0 < d; n0 += kBN) {
+      bool keep[4];
+      keep4(drop, 3u, (uint32_t)((n0 + tx * 4) >> 2), (uint32_t)(r % seq),
+            (uint32_t)(r / seq), keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        if (col >= d) continue;
+        float o = os[m * d + col] + b2[col];
+        if (drop.threshold != 0u) o = keep[j] ? o * drop.inv_keep : 0.f;
+        y[r * d + col] = from_f32<T>(to_f32(x[r * d + col]) + o);
+      }
+    }
+  }
+}
+
+// parts: (gridDim.x, 3 d + f) f32; a block writes one row [db2 | dg | dbe |
+// db1]. hbuf, dobbuf (rows, d), abbuf, dzbuf (rows, f): the operands of the
+// weight-gradient products, in the I/O dtype.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mlp_bwd_kernel(const T* __restrict__ x, Weight<T> w1,
+               const float* __restrict__ b1, Weight<T> w2,
+               const float* __restrict__ g, const float* __restrict__ be,
+               const T* __restrict__ gy, T* hbuf, T* dobbuf, T* abbuf,
+               T* dzbuf, T* __restrict__ dx, float* __restrict__ parts,
+               i64 rows, int seq, int d, int f, float eps, Drop drop) {
+  extern __shared__ __align__(128) float smem[];
+  float* As = smem;
+  float* Bs = As + kBK * kLd;
+  float* dzs = Bs + kBK * kLd;          // the chunk's dz, rounded
+  float* colsum = dzs + kBM * kLd;      // (16, kBN)
+  float* dhs = colsum + 16 * kBN;       // (kBM, d) f32: dh
+  float* rowbuf = As;                   // (kWarps, d): idle outside products
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const i64 r0 = (i64)blockIdx.x * kBM;
+  const int m_valid = (int)((rows - r0) < kBM ? (rows - r0) : kBM);
+  float* my_parts = parts + (i64)blockIdx.x * (3 * d + f);
+
+  float sc[kPerLane];
+  load_param(g, d, lane, sc);
+  {
+    float bi[kPerLane], v[kPerLane], sum[kPerLane];
+    load_param(be, d, lane, bi);
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) sum[e] = 0.f;
+    for (int i = warp; i < m_valid; i += kWarps) {
+      const i64 r = r0 + i;
+      ln_row<T>(x + r * d, hbuf + r * d, sc, bi, d, lane, eps, v);
+      masked_grad_row<T>(gy + r * d, dobbuf + r * d, drop, 3u,
+                         (uint32_t)(r % seq), (uint32_t)(r / seq), d, lane,
+                         sum);
+    }
+    block_col_sums(sum, d, rowbuf, my_parts);            // db2
+  }
+  for (int idx = tid; idx < kBM * d; idx += kThreads) dhs[idx] = 0.f;
+  __syncthreads();
+
+  const T* h0 = hbuf + r0 * d;
+  const T* dob0 = dobbuf + r0 * d;
+  for (int c0 = 0; c0 < f; c0 += kBN) {
+    const int f_valid = (f - c0) < kBN ? (f - c0) : kBN;
+    float z[4][4], dad[4][4];
+    zero_acc(z);
+    zero_acc(dad);
+    gemm_tile<T, T>(h0, d, 1, m_valid, w1.p + c0 * w1.s_out, w1.s_in,
+                    w1.s_out, f_valid, d, z, As, Bs);
+    // dad[n, f] = sum_d dob[n, d] W2[f, d]
+    gemm_tile<T, T>(dob0, d, 1, m_valid, w2.p + c0 * w2.s_in, w2.s_out,
+                    w2.s_in, f_valid, d, dad, As, Bs);
+    float sums[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = ty * 4 + i;
+      const i64 r = r0 + m;
+      bool keep[4];
+      keep4(drop, 2u, (uint32_t)((c0 + tx * 4) >> 2), (uint32_t)(r % seq),
+            (uint32_t)(r / seq), keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + tx * 4 + j;
+        float dz = 0.f;
+        if (m < m_valid && col < f) {
+          const float zz = z[i][j] + b1[col];
+          float a = gelu(zz);
+          float da = dad[i][j];
+          if (drop.threshold != 0u) {
+            a = keep[j] ? a * drop.inv_keep : 0.f;
+            da = keep[j] ? da * drop.inv_keep : 0.f;
+          }
+          dz = da * dgelu(zz);
+          abbuf[r * f + col] = from_f32<T>(a);
+          dzbuf[r * f + col] = from_f32<T>(dz);
+        }
+        sums[j] += dz;
+        dzs[m * kLd + tx * 4 + j] = round_io<T>(dz);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) colsum[ty * kBN + tx * 4 + j] = sums[j];
+    __syncthreads();
+    if (tid < f_valid) {
+      float total = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) total += colsum[r * kBN + tid];
+      my_parts[3 * d + c0 + tid] = total;                // db1
+    }
+    // dh[n, d] += sum_f dz[n, f] W1[d, f]
+    for (int n0 = 0; n0 < d; n0 += kBN) {
+      const int n_valid = (d - n0) < kBN ? (d - n0) : kBN;
+      float out[4][4];
+      zero_acc(out);
+      gemm_tile<float, T>(dzs, kLd, 1, kBM,
+                          w1.p + n0 * w1.s_in + c0 * w1.s_out, w1.s_out,
+                          w1.s_in, n_valid, f_valid, out, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + tx * 4 + j;
+          if (col < d) dhs[(ty * 4 + i) * d + col] += out[i][j];
+        }
+    }
+  }
+  __syncthreads();
+
+  float dg[kPerLane], dbe[kPerLane];
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) dg[e] = dbe[e] = 0.f;
+  for (int i = warp; i < m_valid; i += kWarps) {
+    const i64 r = r0 + i;
+    ln_bwd_row<T>(x + r * d, gy + r * d, dhs + i * d, dx + r * d, sc, d, lane,
+                  eps, dg, dbe);
+  }
+  block_col_sums(dg, d, rowbuf, my_parts + d);
+  block_col_sums(dbe, d, rowbuf, my_parts + 2 * d);
+}
+
+// ---------------------------------------------------------------------------
+// Attention sub-block
+// ---------------------------------------------------------------------------
+
+// The scaled scores of one query row against keys j0 = lane and j1 = lane +
+// 32, then the row softmax. Padded key columns get weight 0.
+__device__ __forceinline__ void softmax_row(const float* q_row,
+                                            const float* ks, int seq,
+                                            int head_dim, float scale, int j0,
+                                            int j1, float* w0, float* w1) {
+  float s0 = -INFINITY, s1 = -INFINITY;
+  if (j0 < seq) {
+    float acc = 0.f;
+    for (int c = 0; c < head_dim; ++c)
+      acc = fmaf(q_row[c], ks[j0 * kHeadLd + c], acc);
+    s0 = acc * scale;
+  }
+  if (j1 < seq) {
+    float acc = 0.f;
+    for (int c = 0; c < head_dim; ++c)
+      acc = fmaf(q_row[c], ks[j1 * kHeadLd + c], acc);
+    s1 = acc * scale;
+  }
+  const float m = warp_max(fmaxf(s0, s1));
+  const float e0 = j0 < seq ? expf(s0 - m) : 0.f;
+  const float e1 = j1 < seq ? expf(s1 - m) : 0.f;
+  const float sum = warp_sum(e0 + e1);
+  *w0 = e0 / sum;
+  *w1 = e1 / sum;
+}
+
+// One head's projection of h: dst (kBM x kHeadLd, f32) = round(h W[:, head]).
+template <typename T>
+__device__ __forceinline__ void project_head(const T* h0, int seq, int d,
+                                             Weight<T> w, int head,
+                                             int head_dim, float* dst,
+                                             float* As, float* Bs) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[4][4];
+  zero_acc(acc);
+  gemm_tile<T, T>(h0, d, 1, seq, w.p + (i64)head * head_dim * w.s_out, w.s_in,
+                  w.s_out, head_dim, d, acc, As, Bs);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dst[(ty * 4 + i) * kHeadLd + tx * 4 + j] = round_io<T>(acc[i][j]);
+}
+
+// Forward shared memory in floats: As, Bs, q, k, v (kBM x kHeadLd each), the
+// head's output (kBM x kLd), one row of weights per warp, the (kBM, d) sum.
+__host__ __device__ constexpr int attn_fwd_shared_floats(int d) {
+  return kStageFloats + 3 * kBM * kHeadLd + kBM * kLd + kWarps * kBM +
+         kBM * d;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const T* __restrict__ x, Weight<T> wq, Weight<T> wk,
+                Weight<T> wv, Weight<T> wo, const float* __restrict__ bo,
+                const float* __restrict__ g, const float* __restrict__ be,
+                T* hbuf, T* __restrict__ y, int seq, int d, int heads,
+                int head_dim, float scale, float eps, Drop drop) {
+  extern __shared__ __align__(128) float smem[];
+  float* As = smem;
+  float* Bs = As + kBK * kLd;
+  float* qs = Bs + kBK * kLd;
+  float* ks = qs + kBM * kHeadLd;
+  float* vs = ks + kBM * kHeadLd;
+  float* ahs = vs + kBM * kHeadLd;       // the head's output, rounded
+  float* ps = ahs + kBM * kLd;           // (kWarps, kBM)
+  float* os = ps + kWarps * kBM;         // (kBM, d)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int frame = blockIdx.x;
+  const i64 r0 = (i64)frame * seq;
+
+  {
+    float sc[kPerLane], bi[kPerLane], v[kPerLane];
+    load_param(g, d, lane, sc);
+    load_param(be, d, lane, bi);
+    for (int i = warp; i < seq; i += kWarps)
+      ln_row<T>(x + (r0 + i) * d, hbuf + (r0 + i) * d, sc, bi, d, lane, eps,
+                v);
+  }
+  for (int idx = tid; idx < kBM * d; idx += kThreads) os[idx] = 0.f;
+  __syncthreads();
+
+  const T* h0 = hbuf + r0 * d;
+  const int j0 = lane, j1 = lane + 32;
+  for (int head = 0; head < heads; ++head) {
+    project_head<T>(h0, seq, d, wq, head, head_dim, qs, As, Bs);
+    project_head<T>(h0, seq, d, wk, head, head_dim, ks, As, Bs);
+    project_head<T>(h0, seq, d, wv, head, head_dim, vs, As, Bs);
+    __syncthreads();
+    for (int i = warp; i < seq; i += kWarps) {
+      float w0, w1;
+      softmax_row(qs + i * kHeadLd, ks, seq, head_dim, scale, j0, j1, &w0,
+                  &w1);
+      if (drop.threshold != 0u) {
+        w0 = philox1(drop.seed, 0u, j0, i, head, frame) >= drop.threshold
+                 ? w0 * drop.inv_keep : 0.f;
+        w1 = philox1(drop.seed, 0u, j1, i, head, frame) >= drop.threshold
+                 ? w1 * drop.inv_keep : 0.f;
+      }
+      if (j0 < seq) ps[warp * kBM + j0] = round_io<T>(w0);
+      if (j1 < seq) ps[warp * kBM + j1] = round_io<T>(w1);
+      __syncwarp();
+      for (int c = lane; c < head_dim; c += 32) {
+        float acc = 0.f;
+        for (int j = 0; j < seq; ++j)
+          acc = fmaf(ps[warp * kBM + j], vs[j * kHeadLd + c], acc);
+        ahs[i * kLd + c] = round_io<T>(acc);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // o += a_h Wo[head rows, :]
+    for (int n0 = 0; n0 < d; n0 += kBN) {
+      const int n_valid = (d - n0) < kBN ? (d - n0) : kBN;
+      float out[4][4];
+      zero_acc(out);
+      gemm_tile<float, T>(ahs, kLd, 1, seq,
+                          wo.p + (i64)head * head_dim * wo.s_in +
+                              n0 * wo.s_out,
+                          wo.s_in, wo.s_out, n_valid, head_dim, out, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + tx * 4 + j;
+          if (col < d) os[(ty * 4 + i) * d + col] += out[i][j];
+        }
+    }
+  }
+
+  // y = x + drop1(o + bo)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = ty * 4 + i;
+    if (m >= seq) continue;
+    const i64 r = r0 + m;
+    for (int n0 = 0; n0 < d; n0 += kBN) {
+      bool keep[4];
+      keep4(drop, 1u, (uint32_t)((n0 + tx * 4) >> 2), (uint32_t)m,
+            (uint32_t)frame, keep);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        if (col >= d) continue;
+        float o = os[m * d + col] + bo[col];
+        if (drop.threshold != 0u) o = keep[j] ? o * drop.inv_keep : 0.f;
+        y[r * d + col] = from_f32<T>(to_f32(x[r * d + col]) + o);
+      }
+    }
+  }
+}
+
+// Backward shared memory in floats: As, Bs, then a region that holds q, k,
+// v, da (kBM x kHeadLd each) and the dropped weights and ds (kBM x kBM each)
+// during the head loop and the (kBM, d) f32 dh afterwards.
+__host__ __device__ constexpr int attn_bwd_shared_floats(int d) {
+  const int heads_part = 4 * kBM * kHeadLd + 2 * kBM * kBM;
+  return kStageFloats + (heads_part > kBM * d ? heads_part : kBM * d);
+}
+
+// parts: (gridDim.x, 3 d) f32, a block's row [dbo | dg | dbe]. hbuf, dobbuf
+// (B*T, d), a2buf (B*T, inner), dqkv (B*T, 3 inner): emitted in the I/O
+// dtype for the weight-gradient products.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_kernel(const T* __restrict__ x, Weight<T> wq, Weight<T> wk,
+                Weight<T> wv, Weight<T> wo, const float* __restrict__ g,
+                const float* __restrict__ be, const T* __restrict__ gy,
+                T* hbuf, T* dobbuf, T* a2buf, T* dqkv, T* __restrict__ dx,
+                float* __restrict__ parts, int seq, int d, int heads,
+                int head_dim, float scale, float eps, Drop drop) {
+  extern __shared__ __align__(128) float smem[];
+  float* As = smem;
+  float* Bs = As + kBK * kLd;
+  float* qs = Bs + kBK * kLd;
+  float* ks = qs + kBM * kHeadLd;
+  float* vs = ks + kBM * kHeadLd;
+  float* das = vs + kBM * kHeadLd;       // d(merged heads) of this head
+  float* ps = das + kBM * kHeadLd;       // dropped weights, rounded
+  float* dss = ps + kBM * kBM;           // ds, rounded
+  float* dhs = qs;                       // (kBM, d), after the head loop
+  float* rowbuf = As;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int frame = blockIdx.x;
+  const i64 r0 = (i64)frame * seq;
+  const int inner = heads * head_dim;
+  float* my_parts = parts + (i64)frame * 3 * d;
+
+  float sc[kPerLane];
+  load_param(g, d, lane, sc);
+  {
+    float bi[kPerLane], v[kPerLane], sum[kPerLane];
+    load_param(be, d, lane, bi);
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) sum[e] = 0.f;
+    for (int i = warp; i < seq; i += kWarps) {
+      const i64 r = r0 + i;
+      ln_row<T>(x + r * d, hbuf + r * d, sc, bi, d, lane, eps, v);
+      masked_grad_row<T>(gy + r * d, dobbuf + r * d, drop, 1u, (uint32_t)i,
+                         (uint32_t)frame, d, lane, sum);
+    }
+    block_col_sums(sum, d, rowbuf, my_parts);            // dbo
+  }
+
+  const T* h0 = hbuf + r0 * d;
+  const T* dob0 = dobbuf + r0 * d;
+  const int j0 = lane, j1 = lane + 32;
+  for (int head = 0; head < heads; ++head) {
+    project_head<T>(h0, seq, d, wq, head, head_dim, qs, As, Bs);
+    project_head<T>(h0, seq, d, wk, head, head_dim, ks, As, Bs);
+    project_head<T>(h0, seq, d, wv, head, head_dim, vs, As, Bs);
+    {
+      // da[n, i] = sum_d dob[n, d] Wo[i, d] for this head's i
+      float acc[4][4];
+      zero_acc(acc);
+      gemm_tile<T, T>(dob0, d, 1, seq, wo.p + (i64)head * head_dim * wo.s_in,
+                      wo.s_out, wo.s_in, head_dim, d, acc, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          das[(ty * 4 + i) * kHeadLd + tx * 4 + j] = round_io<T>(acc[i][j]);
+    }
+    __syncthreads();
+
+    // Pass 1, one warp per query row: the row of dropped weights and of
+    // ds; the head's output row (for dWo) and dq.
+    for (int i = warp; i < seq; i += kWarps) {
+      float w0, w1;
+      softmax_row(qs + i * kHeadLd, ks, seq, head_dim, scale, j0, j1, &w0,
+                  &w1);
+      bool keep0 = true, keep1 = true;
+      if (drop.threshold != 0u) {
+        keep0 = philox1(drop.seed, 0u, j0, i, head, frame) >= drop.threshold;
+        keep1 = philox1(drop.seed, 0u, j1, i, head, frame) >= drop.threshold;
+      }
+      const float* da_row = das + i * kHeadLd;
+      float dd0 = 0.f, dd1 = 0.f;
+      if (j0 < seq)
+        for (int c = 0; c < head_dim; ++c)
+          dd0 = fmaf(da_row[c], vs[j0 * kHeadLd + c], dd0);
+      if (j1 < seq)
+        for (int c = 0; c < head_dim; ++c)
+          dd1 = fmaf(da_row[c], vs[j1 * kHeadLd + c], dd1);
+      float p0 = w0, p1 = w1, dw0 = dd0, dw1 = dd1;
+      if (drop.threshold != 0u) {
+        p0 = keep0 ? w0 * drop.inv_keep : 0.f;
+        p1 = keep1 ? w1 * drop.inv_keep : 0.f;
+        dw0 = keep0 ? dd0 * drop.inv_keep : 0.f;
+        dw1 = keep1 ? dd1 * drop.inv_keep : 0.f;
+      }
+      const float dot = warp_sum(dw0 * w0 + dw1 * w1);
+      if (j0 < seq) {
+        ps[i * kBM + j0] = round_io<T>(p0);
+        dss[i * kBM + j0] = round_io<T>(w0 * (dw0 - dot) * scale);
+      }
+      if (j1 < seq) {
+        ps[i * kBM + j1] = round_io<T>(p1);
+        dss[i * kBM + j1] = round_io<T>(w1 * (dw1 - dot) * scale);
+      }
+      __syncwarp();
+      const float* p_row = ps + i * kBM;
+      const float* ds_row = dss + i * kBM;
+      for (int c = lane; c < head_dim; c += 32) {
+        float acc_a = 0.f, acc_q = 0.f;
+        for (int j = 0; j < seq; ++j) {
+          acc_a = fmaf(p_row[j], vs[j * kHeadLd + c], acc_a);
+          acc_q = fmaf(ds_row[j], ks[j * kHeadLd + c], acc_q);
+        }
+        a2buf[(r0 + i) * inner + head * head_dim + c] = from_f32<T>(acc_a);
+        dqkv[(r0 + i) * 3 * inner + head * head_dim + c] = from_f32<T>(acc_q);
+      }
+    }
+    __syncthreads();
+    // Pass 2, one warp per key row: dk_j = sum_i ds_ij q_i and
+    // dv_j = sum_i dropped_ij da_i.
+    for (int j = warp; j < seq; j += kWarps) {
+      for (int c = lane; c < head_dim; c += 32) {
+        float acc_k = 0.f, acc_v = 0.f;
+        for (int i = 0; i < seq; ++i) {
+          acc_k = fmaf(dss[i * kBM + j], qs[i * kHeadLd + c], acc_k);
+          acc_v = fmaf(ps[i * kBM + j], das[i * kHeadLd + c], acc_v);
+        }
+        const i64 at = (r0 + j) * 3 * inner + head * head_dim + c;
+        dqkv[at + inner] = from_f32<T>(acc_k);
+        dqkv[at + 2 * inner] = from_f32<T>(acc_v);
+      }
+    }
+    __syncthreads();
+  }
+
+  // dh[n, d] = sum_i dq[n, i] Wq[d, i] + dk[n, i] Wk[d, i] + dv[n, i] Wv[d, i]
+  const T* dqkv0 = dqkv + r0 * 3 * inner;
+  for (int n0 = 0; n0 < d; n0 += kBN) {
+    const int n_valid = (d - n0) < kBN ? (d - n0) : kBN;
+    float acc[4][4];
+    zero_acc(acc);
+    gemm_tile<T, T>(dqkv0, 3 * inner, 1, seq, wq.p + n0 * wq.s_in, wq.s_out,
+                    wq.s_in, n_valid, inner, acc, As, Bs);
+    gemm_tile<T, T>(dqkv0 + inner, 3 * inner, 1, seq, wk.p + n0 * wk.s_in,
+                    wk.s_out, wk.s_in, n_valid, inner, acc, As, Bs);
+    gemm_tile<T, T>(dqkv0 + 2 * inner, 3 * inner, 1, seq,
+                    wv.p + n0 * wv.s_in, wv.s_out, wv.s_in, n_valid, inner,
+                    acc, As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        if (col < d) dhs[(ty * 4 + i) * d + col] = acc[i][j];
+      }
+  }
+  __syncthreads();
+
+  float dg[kPerLane], dbe[kPerLane];
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) dg[e] = dbe[e] = 0.f;
+  for (int i = warp; i < seq; i += kWarps) {
+    const i64 r = r0 + i;
+    ln_bwd_row<T>(x + r * d, gy + r * d, dhs + i * d, dx + r * d, sc, d, lane,
+                  eps, dg, dbe);
+  }
+  block_col_sums(dg, d, rowbuf, my_parts + d);
+  block_col_sums(dbe, d, rowbuf, my_parts + 2 * d);
+}
+
+// ---------------------------------------------------------------------------
+// The second pass: weight gradients and the sums of the partial rows
+// ---------------------------------------------------------------------------
+
+// C(m, n) = sum over the block's rows r of A[r, m] B[r, n]; A (rows, M) and
+// B (rows, N) row-major with row strides lda, ldb. grid (N tiles, M tiles,
+// splits): split s owns rows [s * per, (s + 1) * per). With one split the
+// tile goes to c (element strides scm, scn); otherwise to partial
+// (splits, M, N), which sum_partials_kernel adds up.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+grad_weight_kernel(const T* A, i64 lda, const T* B, i64 ldb, float* c,
+                   i64 scm, i64 scn, float* partial, int M, int N, i64 rows,
+                   i64 per) {
+  __shared__ __align__(128) float stage[kStageFloats];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const i64 first = (i64)blockIdx.z * per;
+  i64 count = rows - first;
+  if (count > per) count = per;
+  float acc[4][4];
+  zero_acc(acc);
+  if (count > 0)
+    gemm_tile<T, T>(A + first * lda + m0, 1, lda, M - m0 < kBM ? M - m0 : kBM,
+                    B + first * ldb + n0, ldb, 1, N - n0 < kBN ? N - n0 : kBN,
+                    (int)count, acc, stage, stage + kBK * kLd);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m >= M || n >= N) continue;
+      if (gridDim.z == 1) c[m * scm + n * scn] = acc[i][j];
+      else partial[((i64)blockIdx.z * M + m) * N + n] = acc[i][j];
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const float* __restrict__ partial, int splits, int M,
+                    int N, float* __restrict__ c, i64 scm, i64 scn) {
+  const i64 idx = (i64)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (i64)M * N) return;
+  float total = 0.f;
+  for (int s = 0; s < splits; ++s) total += partial[(i64)s * M * N + idx];
+  c[(idx / N) * scm + (idx % N) * scn] = total;
+}
+
+// out[col] = sum over p of parts[p, col], in a fixed order; a block of
+// (32, 32) threads owns 32 columns.
+__global__ void __launch_bounds__(1024)
+sum_rows_kernel(const float* __restrict__ parts, int nparts, int width,
+                float* __restrict__ out) {
+  __shared__ float tile[32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (col < width)
+    for (int p = threadIdx.y; p < nparts; p += 32)
+      acc += parts[(i64)p * width + col];
+  tile[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < width) {
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) total += tile[r][threadIdx.x];
+    out[col] = total;
+  }
+}
+
+inline int splits_for(i64 rows) {
+  const i64 want = rows / 2048;
+  return (int)(want < 1 ? 1 : want > kMaxSplits ? kMaxSplits : want);
+}
+
+// dW (M x N, element strides scm, scn) = A^T B over ``rows`` rows.
+template <typename T>
+int launch_grad_weight(const void* A, i64 lda, const void* B, i64 ldb,
+                       void* c, i64 scm, i64 scn, float* partial, int M,
+                       int N, i64 rows, cudaStream_t s) {
+  const int splits = splits_for(rows);
+  // A multiple of the staged depth, so that every split starts on a
+  // 16-byte boundary of its operands.
+  const i64 per = ((rows + splits - 1) / splits + kBK - 1) / kBK * kBK;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  grad_weight_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(A), lda, static_cast<const T*>(B), ldb,
+      static_cast<float*>(c), scm, scn, partial, M, N, rows, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const i64 cells = (i64)M * N;
+  sum_partials_kernel<<<(unsigned)((cells + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(partial, splits, M, N,
+                                          static_cast<float*>(c), scm, scn);
+  return (int)cudaGetLastError();
+}
+
+int launch_sum_rows(const float* parts, int nparts, int width, float* out,
+                    cudaStream_t s) {
+  sum_rows_kernel<<<(width + 31) / 32, dim3(32, 32), 0, s>>>(parts, nparts,
+                                                             width, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int allow_shared(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+bool bad_attn(i64 batch, int seq, int d, int heads, int head_dim) {
+  return batch < 1 || batch > 0x7fffffffLL || seq < 1 || seq > kBM || d < 1 ||
+         d > kMaxD || heads < 1 || head_dim < 1 || head_dim > kMaxHeadDim;
+}
+
+bool bad_mlp(i64 rows, int seq, int d, int f) {
+  return rows < 1 || (rows + kBM - 1) / kBM > 0x7fffffffLL || seq < 1 ||
+         d < 1 || d > kMaxD || f < 1;
+}
+
+template <typename T>
+Weight<T> weight(const void* p, i64 s_in, i64 s_out) {
+  return Weight<T>{static_cast<const T*>(p), s_in, s_out};
+}
+
+template <typename T>
+int run_mlp_fwd(const void* x, const void* w1, const i64* s1, const void* b1,
+                const void* w2, const i64* s2, const void* b2, const void* g,
+                const void* be, void* hbuf, void* y, i64 rows, int seq, int d,
+                int f, float eps, Drop drop, cudaStream_t s) {
+  const int bytes = mlp_shared_floats(d) * (int)sizeof(float);
+  int err = allow_shared(mlp_fwd_kernel<T>, bytes);
+  if (err != 0) return err;
+  const unsigned blocks = (unsigned)((rows + kBM - 1) / kBM);
+  mlp_fwd_kernel<T><<<blocks, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), weight<T>(w1, s1[0], s1[1]),
+      static_cast<const float*>(b1), weight<T>(w2, s2[0], s2[1]),
+      static_cast<const float*>(b2), static_cast<const float*>(g),
+      static_cast<const float*>(be), static_cast<T*>(hbuf),
+      static_cast<T*>(y), rows, seq, d, f, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_mlp_bwd(const void* x, const void* w1, const i64* s1, const void* b1,
+                const void* w2, const i64* s2, const void* g, const void* be,
+                const void* gy, void* hbuf, void* dobbuf, void* abbuf,
+                void* dzbuf, void* dx, void* dw1, const i64* sd1, void* dw2,
+                const i64* sd2, void* small, float* work, i64 rows, int seq,
+                int d, int f, float eps, Drop drop, cudaStream_t s) {
+  const int bytes = mlp_shared_floats(d) * (int)sizeof(float);
+  int err = allow_shared(mlp_bwd_kernel<T>, bytes);
+  if (err != 0) return err;
+  const int blocks = (int)((rows + kBM - 1) / kBM);
+  const int width = 3 * d + f;
+  float* parts = work;
+  float* partial = work + (i64)blocks * width;
+  mlp_bwd_kernel<T><<<blocks, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), weight<T>(w1, s1[0], s1[1]),
+      static_cast<const float*>(b1), weight<T>(w2, s2[0], s2[1]),
+      static_cast<const float*>(g), static_cast<const float*>(be),
+      static_cast<const T*>(gy), static_cast<T*>(hbuf),
+      static_cast<T*>(dobbuf), static_cast<T*>(abbuf), static_cast<T*>(dzbuf),
+      static_cast<T*>(dx), parts, rows, seq, d, f, eps, drop);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = launch_sum_rows(parts, blocks, width, static_cast<float*>(small), s);
+  if (err != 0) return err;
+  // dW1 (d, f) = h^T dz; dW2 (f, d) = a^T do
+  err = launch_grad_weight<T>(hbuf, d, dzbuf, f, dw1, sd1[0], sd1[1], partial,
+                              d, f, rows, s);
+  if (err != 0) return err;
+  return launch_grad_weight<T>(abbuf, f, dobbuf, d, dw2, sd2[0], sd2[1],
+                               partial, f, d, rows, s);
+}
+
+template <typename T>
+int run_attn_fwd(const void* x, const void* const* w, const i64* strides,
+                 const void* bo, const void* g, const void* be, void* hbuf,
+                 void* y, int batch, int seq, int d, int heads, int head_dim,
+                 float scale, float eps, Drop drop, cudaStream_t s) {
+  const int bytes = attn_fwd_shared_floats(d) * (int)sizeof(float);
+  int err = allow_shared(attn_fwd_kernel<T>, bytes);
+  if (err != 0) return err;
+  attn_fwd_kernel<T><<<batch, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), weight<T>(w[0], strides[0], strides[1]),
+      weight<T>(w[1], strides[2], strides[3]),
+      weight<T>(w[2], strides[4], strides[5]),
+      weight<T>(w[3], strides[6], strides[7]), static_cast<const float*>(bo),
+      static_cast<const float*>(g), static_cast<const float*>(be),
+      static_cast<T*>(hbuf), static_cast<T*>(y), seq, d, heads, head_dim,
+      scale, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_attn_bwd(const void* x, const void* const* w, const i64* strides,
+                 const void* g, const void* be, const void* gy, void* hbuf,
+                 void* dobbuf, void* a2buf, void* dqkv, void* dx, void* dwo,
+                 const i64* sdo, void* small, float* work, int batch, int seq,
+                 int d, int heads, int head_dim, float scale, float eps,
+                 Drop drop, cudaStream_t s) {
+  const int bytes = attn_bwd_shared_floats(d) * (int)sizeof(float);
+  int err = allow_shared(attn_bwd_kernel<T>, bytes);
+  if (err != 0) return err;
+  const int inner = heads * head_dim;
+  const i64 rows = (i64)batch * seq;
+  float* parts = work;
+  float* partial = work + (i64)batch * 3 * d;
+  attn_bwd_kernel<T><<<batch, kThreads, bytes, s>>>(
+      static_cast<const T*>(x), weight<T>(w[0], strides[0], strides[1]),
+      weight<T>(w[1], strides[2], strides[3]),
+      weight<T>(w[2], strides[4], strides[5]),
+      weight<T>(w[3], strides[6], strides[7]), static_cast<const float*>(g),
+      static_cast<const float*>(be), static_cast<const T*>(gy),
+      static_cast<T*>(hbuf), static_cast<T*>(dobbuf), static_cast<T*>(a2buf),
+      static_cast<T*>(dqkv), static_cast<T*>(dx), parts, seq, d, heads,
+      head_dim, scale, eps, drop);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = launch_sum_rows(parts, batch, 3 * d, static_cast<float*>(small), s);
+  if (err != 0) return err;
+  // dWo (inner, d) = a2^T do
+  return launch_grad_weight<T>(a2buf, inner, dobbuf, d, dwo, sdo[0], sdo[1],
+                               partial, inner, d, rows, s);
+}
+
+}  // namespace
+
+// Conventions of every entry: dtype 0 = float32, 1 = bfloat16 for x, y, gy,
+// dx, the weights and the scratch buffers; biases, LayerNorm parameters and
+// every parameter gradient are float32. x, y, gy, dx and the scratch buffers
+// are contiguous; a weight is given as a pointer and two element strides
+// (s_in, s_out) of its (in, out) view. ``threshold`` is the u32 dropout
+// cutoff (0 turns dropout off), ``inv_keep`` 1 / (1 - rate). Launches go to
+// ``stream`` and do not synchronise. Returns the first CUDA error, 0 for
+// none, cudaErrorInvalidValue for a shape or dtype the kernels do not take
+// (T > 64, D > 512, a head wider than 64).
+
+// Floats of f32 workspace that mlp_block_bwd needs.
+extern "C" long long mlp_block_bwd_workspace(long long rows, int d, int f) {
+  if (rows < 1) return 0;
+  const long long blocks = (rows + kBM - 1) / kBM;
+  const int splits = splits_for(rows);
+  return blocks * (3LL * d + f) + (splits > 1 ? (long long)splits * d * f : 0);
+}
+
+// Floats of f32 workspace that attn_block_bwd needs.
+extern "C" long long attn_block_bwd_workspace(long long batch, int seq, int d,
+                                              int inner) {
+  if (batch < 1) return 0;
+  const int splits = splits_for(batch * seq);
+  return batch * 3LL * d + (splits > 1 ? (long long)splits * inner * d : 0);
+}
+
+// y = x + drop3(drop2(gelu(LN(x) W1 + b1)) W2 + b2) over x (rows, d), rows =
+// B * seq; hbuf: (rows, d) scratch.
+extern "C" int mlp_block_fwd(const void* x, const void* w1, long long s1_in,
+                             long long s1_out, const void* b1, const void* w2,
+                             long long s2_in, long long s2_out, const void* b2,
+                             const void* g, const void* be, void* hbuf,
+                             void* y, long long rows, int seq, int d, int f,
+                             float eps, int dtype, unsigned int seed,
+                             unsigned int threshold, float inv_keep,
+                             void* stream) {
+  if (bad_mlp(rows, seq, d, f)) return (int)cudaErrorInvalidValue;
+  const i64 s1[2] = {s1_in, s1_out}, s2[2] = {s2_in, s2_out};
+  const Drop drop{seed, threshold, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_mlp_fwd<float>(x, w1, s1, b1, w2, s2, b2, g, be, hbuf, y, rows,
+                              seq, d, f, eps, drop, s);
+  if (dtype == 1)
+    return run_mlp_fwd<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, g, be, hbuf,
+                                      y, rows, seq, d, f, eps, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The MLP backward: dx, dW1 (strides sd1), dW2 (strides sd2) and small =
+// [db2 (d) | dLN scale (d) | dLN bias (d) | db1 (f)]. hbuf, dobbuf: (rows, d)
+// scratch; abbuf, dzbuf: (rows, f) scratch; work: mlp_block_bwd_workspace
+// floats.
+extern "C" int mlp_block_bwd(
+    const void* x, const void* w1, long long s1_in, long long s1_out,
+    const void* b1, const void* w2, long long s2_in, long long s2_out,
+    const void* g, const void* be, const void* gy, void* hbuf, void* dobbuf,
+    void* abbuf, void* dzbuf, void* dx, void* dw1, long long sd1_in,
+    long long sd1_out, void* dw2, long long sd2_in, long long sd2_out,
+    void* small, void* work, long long rows, int seq, int d, int f, float eps,
+    int dtype, unsigned int seed, unsigned int threshold, float inv_keep,
+    void* stream) {
+  if (bad_mlp(rows, seq, d, f)) return (int)cudaErrorInvalidValue;
+  const i64 s1[2] = {s1_in, s1_out}, s2[2] = {s2_in, s2_out};
+  const i64 sd1[2] = {sd1_in, sd1_out}, sd2[2] = {sd2_in, sd2_out};
+  const Drop drop{seed, threshold, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
+  if (dtype == 0)
+    return run_mlp_bwd<float>(x, w1, s1, b1, w2, s2, g, be, gy, hbuf, dobbuf,
+                              abbuf, dzbuf, dx, dw1, sd1, dw2, sd2, small, w,
+                              rows, seq, d, f, eps, drop, s);
+  if (dtype == 1)
+    return run_mlp_bwd<__nv_bfloat16>(x, w1, s1, b1, w2, s2, g, be, gy, hbuf,
+                                      dobbuf, abbuf, dzbuf, dx, dw1, sd1, dw2,
+                                      sd2, small, w, rows, seq, d, f, eps,
+                                      drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// y = x + drop1(MHSA_drop0(LN(x) Wq, LN(x) Wk, LN(x) Wv) Wo + bo) over x
+// (batch, seq, d). weights: the four pointers wq, wk, wv, wo; strides: their
+// eight element strides (in, out each). hbuf: (batch * seq, d) scratch.
+extern "C" int attn_block_fwd(const void* x, const void* const* weights,
+                              const long long* strides, const void* bo,
+                              const void* g, const void* be, void* hbuf,
+                              void* y, int batch, int seq, int d, int heads,
+                              int head_dim, float scale, float eps, int dtype,
+                              unsigned int seed, unsigned int threshold,
+                              float inv_keep, void* stream) {
+  if (bad_attn(batch, seq, d, heads, head_dim))
+    return (int)cudaErrorInvalidValue;
+  const Drop drop{seed, threshold, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_attn_fwd<float>(x, weights, strides, bo, g, be, hbuf, y, batch,
+                               seq, d, heads, head_dim, scale, eps, drop, s);
+  if (dtype == 1)
+    return run_attn_fwd<__nv_bfloat16>(x, weights, strides, bo, g, be, hbuf, y,
+                                       batch, seq, d, heads, head_dim, scale,
+                                       eps, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The attention backward: dx, dWo (strides sdo_in, sdo_out), small = [dbo |
+// dLN scale | dLN bias] (3 d), and the emitted h (hbuf) and dqkv (batch * seq,
+// 3 * heads * head_dim) whose product the caller takes for dWq, dWk, dWv.
+// dobbuf: (batch * seq, d) scratch; a2buf: (batch * seq, inner) scratch;
+// work: attn_block_bwd_workspace floats.
+extern "C" int attn_block_bwd(
+    const void* x, const void* const* weights, const long long* strides,
+    const void* g, const void* be, const void* gy, void* hbuf, void* dobbuf,
+    void* a2buf, void* dqkv, void* dx, void* dwo, long long sdo_in,
+    long long sdo_out, void* small, void* work, int batch, int seq, int d,
+    int heads, int head_dim, float scale, float eps, int dtype,
+    unsigned int seed, unsigned int threshold, float inv_keep, void* stream) {
+  if (bad_attn(batch, seq, d, heads, head_dim))
+    return (int)cudaErrorInvalidValue;
+  const i64 sdo[2] = {sdo_in, sdo_out};
+  const Drop drop{seed, threshold, inv_keep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
+  if (dtype == 0)
+    return run_attn_bwd<float>(x, weights, strides, g, be, gy, hbuf, dobbuf,
+                               a2buf, dqkv, dx, dwo, sdo, small, w, batch, seq,
+                               d, heads, head_dim, scale, eps, drop, s);
+  if (dtype == 1)
+    return run_attn_bwd<__nv_bfloat16>(x, weights, strides, g, be, gy, hbuf,
+                                       dobbuf, a2buf, dqkv, dx, dwo, sdo,
+                                       small, w, batch, seq, d, heads,
+                                       head_dim, scale, eps, drop, s);
+  return (int)cudaErrorInvalidValue;
+}

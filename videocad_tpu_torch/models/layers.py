@@ -140,7 +140,11 @@ class MultiHeadAttention(nn.Module):
     (``ops/attention.py``), which take the mask as a bool tensor or, from
     ``causal_mask`` / ``banded_mask`` with ``by_index``, as a
     :class:`BandMask`. Both kernel paths run the attention-weight dropout
-    inside the kernel.
+    inside the kernel. ``"block"`` is the ViT's setting for its fused
+    sub-block kernels, which bypass this module's forward and read its
+    parameters (``models/vit.py``); a module that is called under it, as
+    the decoder's are when ``attention_impl`` is ``"block"``, runs the
+    plain core, as the JAX module does.
     """
 
     def __init__(self, model_dim: int, num_heads: int,
@@ -150,10 +154,8 @@ class MultiHeadAttention(nn.Module):
                  attention_impl: str = "xla", dropout_impl: str = "xla",
                  device=None):
         super().__init__()
-        if attention_impl not in ("xla", "fused", "pallas"):
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported yet "
-                "(ROADMAP kernel K6 for 'block')")
+        if attention_impl not in ("xla", "fused", "pallas", "block"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
         self.num_heads = num_heads
         self.head_dim = head_dim or model_dim // num_heads
         self.attention_impl = attention_impl

@@ -8,10 +8,21 @@ position embedding, pre-LN blocks with exact erf GELU, a final LayerNorm
 (behind ``final_norm``), and the CLS row as the embedding.
 
 ``attention_impl="fused"`` runs each block's attention core through the
-hand-written ``mhsa_short`` kernels (the flagship's setting). In ``train()``
-mode dropout runs on the embedding, on each block's attention output and
-two MLP sites, and on the attention weights (inside the fused kernel); the
-``rng`` argument of ``forward`` feeds them (``models/layers.py``).
+hand-written ``mhsa_short`` kernels (the flagship's setting).
+``attention_impl="block"`` runs each block as two fused kernels
+(``ops/fused_block.py``: ``attn_block`` then ``mlp_block``): LayerNorm,
+projections, softmax, GELU, the four dropout sites and the residual adds of
+a sub-block in one launch, whose backward recomputes everything from the
+sub-block's input, so autograd keeps one (B, T, dim) tensor a sub-block: the
+encoder's memory mode. ``mlp_impl="block"`` does so for the MLP sub-block
+alone, beside any attention setting. The parameter names are the same under
+every setting, so a checkpoint moves between them. Unlike the JAX module off
+the TPU, the kernels are kept when dropout is on, on every device.
+
+In ``train()`` mode dropout runs on the embedding, on each block's attention
+output and two MLP sites, and on the attention weights (inside the fused
+kernels); the ``rng`` argument of ``forward`` feeds them
+(``models/layers.py``).
 ``dropout_impl="pallas"`` sends the elementwise sites through the
 standalone dropout kernel, and ``ln_impl="pallas"`` makes every LayerNorm
 of the encoder a :class:`FusedLayerNorm` on the hand-written LayerNorm
@@ -30,7 +41,9 @@ from torch import nn
 from videocad_tpu_torch.models.layers import (Dense, LayerNorm,
                                               MultiHeadAttention, active_rate)
 from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
+from videocad_tpu_torch.ops.fused_block import attn_block, mlp_block
 from videocad_tpu_torch.ops.layernorm import layer_norm
+from videocad_tpu_torch.ops.prng import derive_seed
 
 
 class FusedLayerNorm(nn.Module):
@@ -75,11 +88,8 @@ class ViTConfig:
 def _check_impls(attention_impl: str, mlp_impl: str, ln_impl: str) -> None:
     if ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {ln_impl!r}")
-    if attention_impl == "block" or mlp_impl == "block":
-        raise NotImplementedError(
-            "vit_attention_impl / vit_mlp_impl 'block' need the fused "
-            "block kernels, not ported yet (ROADMAP kernel K6)")
-    if attention_impl not in ("xla", "fused") or mlp_impl != "xla":
+    if (attention_impl not in ("xla", "fused", "block")
+            or mlp_impl not in ("xla", "block")):
         raise ValueError(f"unknown ViT impls: attention {attention_impl!r}, "
                          f"mlp {mlp_impl!r}")
 
@@ -88,14 +98,20 @@ class ViTBlock(nn.Module):
     """One pre-LN transformer block."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype,
-                 attention_impl: str = "xla", dropout_impl: str = "xla",
-                 ln_impl: str = "xla", device=None):
+                 attention_impl: str = "xla", mlp_impl: str = "xla",
+                 dropout_impl: str = "xla", ln_impl: str = "xla",
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        # Under "block" a norm module only holds the parameters that the
+        # fused kernel reads.
         self.attn_norm = _ln_ctor(ln_impl)(cfg.dim, **kw)
         self.mlp_norm = _ln_ctor(ln_impl)(cfg.dim, **kw)
+        self.heads = cfg.heads
         self.dropout_rate = cfg.dropout
         self.dropout_impl = dropout_impl
+        self.attention_block = attention_impl == "block"
+        self.mlp_block = mlp_impl == "block" or self.attention_block
         self.attn = MultiHeadAttention(cfg.dim, cfg.heads,
                                        head_dim=cfg.head_dim,
                                        dropout_rate=cfg.dropout,
@@ -109,8 +125,24 @@ class ViTBlock(nn.Module):
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         rate = active_rate(self, self.dropout_rate, rng)
         drop = lambda y: dropout(y, rng, rate, self.dropout_impl)  # noqa: E731
-        h = self.attn_norm(x)
-        x = x + drop(self.attn(h, h, rng=rng))
+        # One seed per fused sub-block call, drawn on the host.
+        seed = lambda: derive_seed(rng.seeds) if rate > 0.0 else None  # noqa: E731
+        if self.attention_block:
+            attn = self.attn
+            x = attn_block(
+                x, attn.query.weight.t(), attn.key.weight.t(),
+                attn.value.weight.t(), attn.out.weight.t(), attn.out.bias,
+                self.attn_norm.weight, self.attn_norm.bias, seed(),
+                self.heads, rate, self.attn_norm.eps)
+        else:
+            h = self.attn_norm(x)
+            x = x + drop(self.attn(h, h, rng=rng))
+        if self.mlp_block:
+            return mlp_block(
+                x, self.mlp_in.weight.t(), self.mlp_in.bias,
+                self.mlp_out.weight.t(), self.mlp_out.bias,
+                self.mlp_norm.weight, self.mlp_norm.bias, seed(), rate,
+                self.mlp_norm.eps)
         h = self.mlp_in(self.mlp_norm(x))
         # exact erf GELU (torch nn.GELU default, as the reference)
         h = self.mlp_out(drop(F.gelu(h)))
@@ -146,7 +178,8 @@ class ViT(nn.Module):
         for i in range(cfg.depth):
             self.add_module(f"block_{i}", ViTBlock(
                 cfg, dtype, attention_impl=attention_impl,
-                dropout_impl=dropout_impl, ln_impl=ln_impl, device=device))
+                mlp_impl=mlp_impl, dropout_impl=dropout_impl,
+                ln_impl=ln_impl, device=device))
         if cfg.final_norm:
             self.final_norm = ln(cfg.dim, **kw)
 

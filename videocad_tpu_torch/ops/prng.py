@@ -4,8 +4,8 @@ their callers.
 Port of ``videocad_tpu/ops/prng.py``. The uint32-threshold rule must stay
 identical wherever a kernel's forward and backward regenerate one mask, so
 it has one definition here (and one in each of ``csrc/mhsa_short.cu``,
-``csrc/flash_attention.cu`` and ``csrc/dropout.cu``, held equal on the
-card).
+``csrc/flash_attention.cu``, ``csrc/dropout.cu`` and
+``csrc/fused_block.cu``, held equal on the card).
 
 Where the TPU kernels seed a hardware generator per batch row, the Hopper
 kernels use a counter-based function: :func:`dropout_bits` maps (seed,
@@ -18,7 +18,9 @@ the standalone dropout kernel's function: (seed, flat element index) to 32
 bits. Each kernel family has a key word of its own, so that no two of them
 ever share a stream under one seed: the short-sequence attention kernels
 ``(seed, 0)``, the standalone dropout ``(seed, 1)``, the flash attention
-kernels ``(seed, 2)`` (:data:`FLASH_KEY_WORD`).
+kernels ``(seed, 2)`` (:data:`FLASH_KEY_WORD`), the four dropout sites of
+the fused ViT sub-block kernels ``(seed, 3 + site)``
+(:data:`BLOCK_KEY_WORD`, :func:`block_site_bits`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85    # Philox key increments (Weyl)
 _MASK32 = 0xFFFFFFFF
 _INT32_MAX = 2 ** 31 - 1
 FLASH_KEY_WORD = 2    # the flash attention kernels' second key word
+BLOCK_KEY_WORD = 3    # the fused sub-block kernels': 3 + site, sites 0..3
+# The fused sub-block kernels' dropout sites (videocad_tpu/ops/fused_block.py
+# numbers them the same way).
+SITE_ATTN_W = 0       # attention weights, (heads, T, T) a frame
+SITE_ATTN_RES = 1     # attention residual branch, (T, D)
+SITE_MLP_HID = 2      # the hidden layer after GELU, (T, F)
+SITE_MLP_RES = 3      # MLP residual branch, (T, D)
 
 
 def dropout_threshold(rate: float) -> int:
@@ -134,3 +143,23 @@ def elementwise_bits(seed: int, numel: int, device=None) -> torch.Tensor:
     zero = torch.zeros_like(group)
     words = philox4x32((group & _MASK32, group >> 32, zero, zero), (seed, 1))
     return torch.stack(words, dim=-1).reshape(-1)[:numel]
+
+
+def block_site_bits(seed: int, site: int, batch: int, heads: int, rows: int,
+                    cols: int, device=None,
+                    frame_offset: int = 0) -> torch.Tensor:
+    """The fused sub-block kernels' dropout bits of one site: (batch, heads,
+    rows, cols) uint32 values held in int64.
+
+    bits[b, h, i, j] is word ``j % 4`` of Philox4x32-10 with key
+    (seed, 3 + site) and counter (j // 4, i, h, frame_offset + b). Site
+    :data:`SITE_ATTN_W` draws (heads, T, T) a frame; the three elementwise
+    sites draw (1, T, width). A frame's bits depend on its absolute index
+    only, so a batch cut in two calls (the second with ``frame_offset``)
+    draws the mask of the whole.
+    """
+    if site not in (SITE_ATTN_W, SITE_ATTN_RES, SITE_MLP_HID, SITE_MLP_RES):
+        raise ValueError(f"unknown dropout site {site}")
+    return dropout_bits(seed, batch, heads, rows, cols, device=device,
+                        batch_offset=frame_offset,
+                        key_word=BLOCK_KEY_WORD + site)
