@@ -14,12 +14,16 @@ imports nothing of JAX. Phases, each of which must pass:
      give it, with the tolerance stated, both timed with CUDA events in
      turns: mhsa_short forward without and with dropout (the kept set must
      be the plain version's), its backward (also against autograd through
-     the plain forward at float32), the mask's properties, the two
+     the plain forward at float32, and bit-equal over two launches), the
+     mask's properties, each in the variant its dtype takes (bf16 on the
+     tensor cores, float32 scalar; the bf16 rows also time the scalar
+     kernel on the same inputs), the two
      grayscale kernels, layer_norm forward and backward (also against
      float64), hw_dropout (compared exactly, and its mask's properties),
      and one library call per kernel that has one
-     (scaled_dot_product_attention, F.layer_norm and its backward,
-     F.dropout) timed beside it as a yardstick that no path uses; then the
+     (scaled_dot_product_attention and its autograd backward, F.layer_norm
+     and its backward, F.dropout) timed beside it as a yardstick that no
+     path uses; then the
      three flash attention kernels (forward, dQ, dK/dV) at the decoder's
      shapes, causal and banded, without and with dropout, bf16 and float32,
      with a general mask at T != S and at B=2, T=47: values, the kept set,
@@ -39,7 +43,8 @@ imports nothing of JAX. Phases, each of which must pass:
   5. rollout: sequential_inference on the flagship at B=2, T=187;
   6. train A: the flagship as its JSON has it (bf16, dropout 0.1, fused ViT
      attention), B=8, T=192, 224 x 224 uint8 frames: 1 warm-up and 3 timed
-     train steps, the eval loss before and after;
+     train steps (12 + 12 launches of mhsa_short a step, all of its
+     tensor-core variant), the eval loss before and after;
   7. train B: the same config with preprocess_impl "pallas", B=2, T=48, a
      256 x 256 CAD image: 2 train steps and an eval step, the eval loss
      against the plain preprocess path's;
@@ -76,7 +81,9 @@ imports nothing of JAX. Phases, each of which must pass:
      rollout's logits and one train step's loss and gradients compared,
      the train step again with ln_impl and dropout_impl "pallas", with
      attention_impl "pallas" as well, with vit_attention_impl "block" on
-     top, and with vit_attention_impl "fused" beside vit_mlp_impl "block".
+     top, with vit_attention_impl "pallas" on top instead (the ViT's
+     attention through the flash attention kernels), and with
+     vit_attention_impl "fused" beside vit_mlp_impl "block".
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
@@ -225,6 +232,50 @@ def weights_of(out):
         0, 2, 1, 3)
 
 
+def expected_variant(dtype) -> str:
+    """The mhsa_short variant at the flagship's shapes: the tensor-core
+    kernels for bf16, the scalar ones for float32."""
+    import torch
+
+    return "tc" if dtype == torch.bfloat16 else "scalar"
+
+
+def variant_of(counted, run):
+    """Call ``run``; returns its result and the variant it launched, read
+    off ``counted.tc_launches``."""
+    before = counted.tc_launches
+    out = run()
+    return out, "tc" if counted.tc_launches > before else "scalar"
+
+
+def scalar_ms(fa, pick, tensors, seed, rate, **kw):
+    """The time of the scalar kernel (entry ``pick``: 0 forward, 1
+    backward) on the same bf16 inputs: the kernel the tc variant replaced
+    at these shapes. Called through its C entry, on no path."""
+    import torch
+
+    q = tensors[0]
+    b, t, hd = q.shape
+    d = hd // HEADS
+    entry = fa._entries["scalar"][pick]
+    args = (*(x.data_ptr() for x in tensors), b, t, HEADS, d,
+            1.0 / math.sqrt(d), 1, *fa._dropout_args(seed, rate),
+            torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = entry(*args)
+        check(err == 0, f"the scalar mhsa_short kernel failed: {err}")
+    return cuda_ms(run, **kw)
+
+
+def k1_bound(row, tensors, flops_per_cell):
+    """bound_ms, bound_by and the roofline share of a K1 row that moves
+    ``tensors`` (B, T, H*D) tensors."""
+    out = attention_bound(tensors, flops_per_cell)(row)
+    out["roofline_share"] = out["bound_ms"] / row["ms"]
+    return out
+
+
 def phase_forward(fa):
     """mhsa_short forward against its plain version, dropout off; the rows
     of the checks and the library yardstick."""
@@ -239,23 +290,27 @@ def phase_forward(fa):
             + [(8, torch.float32, 1e-5, 1e-5)]):
         q, k, v = (randn((b, SEQ, WIDTH), gen, dtype) for _ in range(3))
         with torch.no_grad():
-            got = fa.mhsa_short(q, k, v, None, HEADS)
+            got, variant = variant_of(
+                fa.mhsa_short, lambda: fa.mhsa_short(q, k, v, None, HEADS))
             torch.cuda.synchronize()
             want = fa.mhsa_short_reference(q, k, v, None, HEADS)
             err = (got.float() - want.float()).abs()
             max_err, mean_err = err.max().item(), err.mean().item()
-            # Against float64 too: the plain version sums in the same
-            # order as the kernel, so their difference alone can be 0.
+            # Against float64 too: the plain version sums in another order
+            # than the kernel and rounds the weights at the same place.
             f64_err = (got.double() - attention_f64(q, k, v)).abs().max()
             ms, plain_ms = in_turns(
                 lambda: fa.mhsa_short(q, k, v, None, HEADS),
                 lambda: fa.mhsa_short_reference(q, k, v, None, HEADS))
             row = {"kernel": "mhsa_short", "batch": b, "rate": 0.0,
-                   "dtype": dtype_name(dtype), "max_abs_err": max_err,
-                   "mean_abs_err": mean_err,
+                   "dtype": dtype_name(dtype), "variant": variant,
+                   "max_abs_err": max_err, "mean_abs_err": mean_err,
                    "max_abs_err_vs_f64": f64_err.item(), "ms": ms,
                    "plain_ms": plain_ms}
-            if b == TRAIN_FRAMES:
+            row.update(k1_bound(row, 4, 4))
+            if b >= 374 and dtype == torch.bfloat16:
+                row["scalar_ms"] = scalar_ms(
+                    fa, 0, (q, k, v, torch.empty_like(q)), None, 0.0)
                 # The yardstick: one library call for the same function on
                 # the same inputs, as (B, H, T, D) views. No path uses it.
                 heads = lambda x: x.view(b, SEQ, HEADS, -1).transpose(1, 2)  # noqa: E731
@@ -266,6 +321,8 @@ def phase_forward(fa):
                 row["library_ms"] = cuda_ms(sdpa)
                 row["max_abs_diff_vs_library"] = lib_err
         print(f"mhsa_short {row}", flush=True)
+        check(variant == expected_variant(dtype),
+              f"mhsa_short B={b} {dtype} ran the {variant} kernel")
         check(math.isfinite(max_err) and max_err <= max_tol
               and mean_err <= mean_tol,
               f"mhsa_short B={b} {dtype}: max err {max_err} (tol {max_tol}),"
@@ -285,12 +342,15 @@ def phase_forward_dropout(fa, prng):
     rows = []
     for b, dtype, max_tol, mean_tol in [
             (8, torch.bfloat16, 2e-2, 1e-3),
+            (374, torch.bfloat16, 2e-2, 1e-3),
             (TRAIN_FRAMES, torch.bfloat16, 2e-2, 1e-3),
             (8, torch.float32, 1e-5, 1e-5)]:
         q, k, v = (randn((b, SEQ, WIDTH), gen, dtype) for _ in range(3))
         seed = 1000 + b
         with torch.no_grad():
-            got = fa.mhsa_short(q, k, v, seed, HEADS, RATE)
+            got, variant = variant_of(
+                fa.mhsa_short,
+                lambda: fa.mhsa_short(q, k, v, seed, HEADS, RATE))
             torch.cuda.synchronize()
             want = fa.mhsa_short_reference(q, k, v, seed, HEADS, RATE)
             err = (got.float() - want.float()).abs()
@@ -311,12 +371,16 @@ def phase_forward_dropout(fa, prng):
                 lambda: fa.mhsa_short_reference(q, k, v, seed, HEADS, RATE),
                 **reps)
         row = {"kernel": "mhsa_short", "batch": b, "rate": RATE,
-               "dtype": dtype_name(dtype), "max_abs_err": max_err,
-               "mean_abs_err": mean_err, "max_abs_err_vs_f64": f64_err,
+               "dtype": dtype_name(dtype), "variant": variant,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "max_abs_err_vs_f64": f64_err,
                "kept_set_identical": same_set,
                "drop_share": 1.0 - kept.float().mean().item(), "ms": ms,
                "plain_ms": plain_ms}
-        if b == TRAIN_FRAMES:
+        row.update(k1_bound(row, 4, 4))
+        if b >= 374 and dtype == torch.bfloat16:
+            row["scalar_ms"] = scalar_ms(
+                fa, 0, (q, k, v, torch.empty_like(q)), seed, RATE)
             # The library's call for the same function (its own mask).
             heads = lambda x: x.view(b, SEQ, HEADS, -1).transpose(1, 2)  # noqa: E731
             with torch.no_grad():
@@ -324,6 +388,9 @@ def phase_forward_dropout(fa, prng):
                     lambda: F.scaled_dot_product_attention(
                         heads(q), heads(k), heads(v), dropout_p=RATE))
         print(f"mhsa_short {row}", flush=True)
+        check(variant == expected_variant(dtype),
+              f"mhsa_short B={b} {dtype} rate {RATE} ran the {variant} "
+              "kernel")
         check(same_set, f"mhsa_short B={b} {dtype} rate {RATE}: the kernel's "
               "kept set is not the plain version's")
         check(math.isfinite(max_err) and max_err <= max_tol
@@ -334,10 +401,26 @@ def phase_forward_dropout(fa, prng):
     return rows
 
 
+def sdpa_backward_ms(q, k, v, g, rate):
+    """The yardstick of the backward: autograd's backward through
+    F.scaled_dot_product_attention (its own dropout mask) on the same
+    (B, H, T, D) views, the forward outside the timed window."""
+    import torch
+    import torch.nn.functional as F
+
+    b = q.shape[0]
+    heads = lambda x: x.view(b, SEQ, HEADS, -1).transpose(1, 2)  # noqa: E731
+    leaves = [heads(x).detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, heads(g),
+                                               retain_graph=True))
+
+
 def phase_backward(fa, prng):
     """mhsa_short backward against its plain version (float32: 1e-5; bf16:
     2e-2 max, 1e-3 mean) and, at float32, against autograd through the
-    plain forward; the error against float64 autograd is printed too."""
+    plain forward; the error against float64 autograd is printed too; a
+    second launch must give the same gradients to the bit."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -345,6 +428,7 @@ def phase_backward(fa, prng):
     for b, dtype, rate in [(b, dtype, rate)
                            for rate in (0.0, RATE)
                            for b, dtype in [(8, torch.bfloat16),
+                                            (374, torch.bfloat16),
                                             (TRAIN_FRAMES, torch.bfloat16),
                                             (8, torch.float32)]]:
         bf16 = dtype == torch.bfloat16
@@ -353,7 +437,9 @@ def phase_backward(fa, prng):
         seed = 2000 + b if rate else None
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         before = fa.mhsa_short_backward.launches
-        fa.mhsa_short(*leaves, seed, HEADS, rate).backward(g)
+        _, variant = variant_of(
+            fa.mhsa_short_backward,
+            lambda: fa.mhsa_short(*leaves, seed, HEADS, rate).backward(g))
         torch.cuda.synchronize()
         check(fa.mhsa_short_backward.launches == before + 1,
               "autograd did not launch the backward kernel once")
@@ -361,6 +447,9 @@ def phase_backward(fa, prng):
         with torch.no_grad():
             want = fa.mhsa_short_backward_reference(q, k, v, g, seed, HEADS,
                                                     rate)
+            again = fa.mhsa_short_backward(q, k, v, g, seed, HEADS, rate)
+        repeats = all(torch.equal(a, x) for a, x in zip(got, again))
+        del again
         errs = [(a.float() - w.float()).abs() for a, w in zip(got, want)]
         max_err = max(e.max().item() for e in errs)
         mean_err = max(e.mean().item() for e in errs)
@@ -370,8 +459,9 @@ def phase_backward(fa, prng):
                       zip(got, attention_grads_f64(q, k, v, g, keep, rate)))
         del keep
         row = {"kernel": "mhsa_short_bwd", "batch": b, "rate": rate,
-               "dtype": dtype_name(dtype), "max_abs_err": max_err,
-               "mean_abs_err": mean_err, "max_abs_err_vs_f64": f64_err}
+               "dtype": dtype_name(dtype), "variant": variant,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "max_abs_err_vs_f64": f64_err, "bit_equal_repeat": repeats}
         if not bf16:
             again = [x.clone().requires_grad_() for x in (q, k, v)]
             ref = fa.mhsa_short_reference(*again, seed, HEADS, rate)
@@ -385,7 +475,20 @@ def phase_backward(fa, prng):
                 lambda: fa.mhsa_short_backward_reference(q, k, v, g, seed,
                                                          HEADS, rate),
                 **reps)
+            row.update(k1_bound(row, 7, 10))
+            if b >= 374 and bf16:
+                outs = [torch.empty_like(q) for _ in range(3)]
+                row["scalar_ms"] = scalar_ms(fa, 1, (q, k, v, g, *outs),
+                                             seed, rate)
+                del outs
+        if b >= 374 and bf16:
+            row["library_ms"] = sdpa_backward_ms(q, k, v, g, rate)
         print(f"mhsa_short_bwd {row}", flush=True)
+        check(variant == expected_variant(dtype),
+              f"mhsa_short_bwd B={b} {dtype} rate {rate} ran the {variant} "
+              "kernel")
+        check(repeats, f"mhsa_short_bwd B={b} {dtype} rate {rate}: two "
+              "launches gave different gradients")
         check(math.isfinite(max_err) and max_err <= max_tol
               and mean_err <= mean_tol,
               f"mhsa_short_bwd B={b} {dtype} rate {rate}: max err {max_err} "
@@ -398,29 +501,40 @@ def phase_backward(fa, prng):
 
 
 def phase_mask(fa):
-    """The mask's properties on the card: the drop share, another seed
-    gives another mask, and the backward of a call redraws its forward's
-    mask (identity values and an identity output gradient make the forward
-    return the dropped weights and dv their transpose)."""
+    """The mask's properties on the card, for each variant (float32:
+    scalar, bf16: tensor cores): the drop share, another seed gives another
+    mask, and the backward of a call redraws its forward's mask (identity
+    values and an identity output gradient make the forward return the
+    dropped weights and dv their transpose)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    b, dtype = 64, torch.float32
-    q, k = (randn((b, SEQ, WIDTH), gen, dtype) for _ in range(2))
-    eye = identity_values(b, dtype)
-    with torch.no_grad():
-        kept = weights_of(fa.mhsa_short(q, k, eye, 31, HEADS, RATE)) > 0
-        other = weights_of(fa.mhsa_short(q, k, eye, 32, HEADS, RATE)) > 0
-        _, _, dv = fa.mhsa_short_backward(q, k, eye, eye, 31, HEADS, RATE)
-    share = 1.0 - kept.float().mean().item()
-    kept_bwd = weights_of(dv).transpose(-1, -2) > 0
-    print(f"mask: drop share {share:.5f} over B={b} (rate {RATE}); seeds "
-          f"differ: {not torch.equal(kept, other)}; backward redraws the "
-          f"forward's mask: {torch.equal(kept, kept_bwd)}", flush=True)
-    check(abs(share - RATE) <= 0.002, f"drop share {share} is not {RATE}")
-    check(not torch.equal(kept, other), "two seeds drew one mask")
-    check(torch.equal(kept, kept_bwd),
-          "the backward did not redraw the forward's mask")
+    b = 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k = (randn((b, SEQ, WIDTH), gen, dtype) for _ in range(2))
+        eye = identity_values(b, dtype)
+        with torch.no_grad():
+            out, variant = variant_of(
+                fa.mhsa_short, lambda: fa.mhsa_short(q, k, eye, 31, HEADS,
+                                                     RATE))
+            kept = weights_of(out) > 0
+            other = weights_of(fa.mhsa_short(q, k, eye, 32, HEADS, RATE)) > 0
+            (_, _, dv), bwd_variant = variant_of(
+                fa.mhsa_short_backward,
+                lambda: fa.mhsa_short_backward(q, k, eye, eye, 31, HEADS,
+                                               RATE))
+        share = 1.0 - kept.float().mean().item()
+        kept_bwd = weights_of(dv).transpose(-1, -2) > 0
+        print(f"mask ({dtype_name(dtype)}, {variant} / {bwd_variant}): drop "
+              f"share {share:.5f} over B={b} (rate {RATE}); seeds differ: "
+              f"{not torch.equal(kept, other)}; backward redraws the "
+              f"forward's mask: {torch.equal(kept, kept_bwd)}", flush=True)
+        check(variant == bwd_variant == expected_variant(dtype),
+              f"the mask phase at {dtype} ran {variant} / {bwd_variant}")
+        check(abs(share - RATE) <= 0.002, f"drop share {share} is not {RATE}")
+        check(not torch.equal(kept, other), "two seeds drew one mask")
+        check(torch.equal(kept, kept_bwd),
+              f"the backward did not redraw the forward's mask ({dtype})")
 
 
 def phase_gray(pp):
@@ -1482,7 +1596,9 @@ def phase_train_a(fa):
         eval_before = eval_step(batch)[0].item()
         losses, step_ms = [], []
         for step in range(4):
-            marks = (fa.mhsa_short.launches, fa.mhsa_short_backward.launches)
+            marks = (fa.mhsa_short.launches, fa.mhsa_short_backward.launches,
+                     fa.mhsa_short.tc_launches,
+                     fa.mhsa_short_backward.tc_launches)
             torch.cuda.synchronize()
             start = time.monotonic()
             state, loss, metrics = train_step(state, batch, 0)
@@ -1491,9 +1607,12 @@ def phase_train_a(fa):
             losses.append(loss.item())
             fwd = fa.mhsa_short.launches - marks[0]
             bwd = fa.mhsa_short_backward.launches - marks[1]
-            check(fwd == 12 and bwd == 12,
+            tc = (fa.mhsa_short.tc_launches - marks[2],
+                  fa.mhsa_short_backward.tc_launches - marks[3])
+            check(fwd == 12 and bwd == 12 and tc == (12, 12),
                   f"train step {step}: {fwd} forward and {bwd} backward "
-                  "launches of mhsa_short, expected 12 and 12")
+                  f"launches of mhsa_short, {tc} of its tensor-core "
+                  "variant, expected 12 and 12 of it")
         if max(step_ms[1:]) <= 10e3 or batch_size == 1:
             break
         batch_size //= 2        # too slow: halve B, keep T and the widths
@@ -1516,7 +1635,7 @@ def phase_train_a(fa):
           f"T={TRAIN_SEQ}; losses {[round(x, 4) for x in losses]}; eval loss "
           f"{eval_before:.5f} -> {eval_after:.5f}; step ms {timed} (mean "
           f"{ms:.1f}, {frames / ms * 1e3:.0f} frames/s); mhsa_short launches "
-          f"per step 12 forward + 12 backward; peak memory "
+          f"per step 12 forward + 12 backward, all tensor-core; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; total "
           f"predictions {metrics['total_predictions'].item():.0f}",
           flush=True)
@@ -2388,6 +2507,7 @@ def main() -> None:
     phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
     phase_reference_train(**ALL_PALLAS)
     phase_reference_train(**BLOCK)
+    phase_reference_train(**dict(ALL_PALLAS, vit_attention_impl="pallas"))
     phase_reference_train(vit_attention_impl="fused", vit_mlp_impl="block")
     print(f"reference phase: {time.monotonic() - start:.1f} s", flush=True)
 
@@ -2397,18 +2517,23 @@ def main() -> None:
     fwd = kernel_entry(
         "mhsa_short", "videocad_tpu/ops/fused_attention.py:110",
         launches["mhsa_short"], rows, pick_train, attention_bound(4, 4))
-    # The times above are with dropout 0.1, as the train step runs it; the
-    # same three without dropout, as serving and the rollout run it.
-    with_dropout, without = (next(
-        r for r in rows if r["kernel"] == "mhsa_short" and at_train(r)
-        and r["rate"] == rate) for rate in (RATE, 0.0))
-    fwd.update(library_ms=with_dropout["library_ms"], ms_rate0=without["ms"],
-               plain_ms_rate0=without["plain_ms"],
-               library_ms_rate0=without["library_ms"])
     bwd = kernel_entry(
         "mhsa_short_bwd", "videocad_tpu/ops/fused_attention.py:129",
-        launches["mhsa_short_bwd"], rows,
-        pick_train, attention_bound(7, 10))
+        launches["mhsa_short_bwd"], rows, pick_train, attention_bound(7, 10))
+    # The times above are with dropout 0.1, as the train step runs it; the
+    # same without dropout, as serving and the rollout run it; the scalar
+    # kernel's beside them.
+    for entry in (fwd, bwd):
+        with_dropout, without = (next(
+            r for r in rows if r["kernel"] == entry["name"] and at_train(r)
+            and r["rate"] == rate) for rate in (RATE, 0.0))
+        entry.update(variant=with_dropout["variant"],
+                     roofline_share=with_dropout["roofline_share"],
+                     scalar_ms=with_dropout["scalar_ms"],
+                     ms_rate0=without["ms"],
+                     plain_ms_rate0=without["plain_ms"],
+                     library_ms_rate0=without["library_ms"],
+                     scalar_ms_rate0=without["scalar_ms"])
     same = lambda r: {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}  # noqa: E731
     gray = kernel_entry(
         "gray_normalize", "videocad_tpu/ops/preprocess.py:153",

@@ -37,6 +37,13 @@ def _qkv(b, t, hd, dtype, seed):
             for _ in range(3)]
 
 
+def _launched(counted, before, variant):
+    """The launch counters of ``counted`` moved by one launch of
+    ``variant`` since ``before`` (launches, tc_launches)."""
+    return (counted.launches, counted.tc_launches) == (
+        before[0] + 1, before[1] + (variant == "tc"))
+
+
 # bf16: the summation order may differ and the weights round to bf16 at
 # the same place in both versions, so a few bf16 ulps of the output.
 @pytest.mark.parametrize("b,t,h,d,dtype,max_tol", [
@@ -46,15 +53,23 @@ def _qkv(b, t, hd, dtype, seed):
     (3, 13, 2, 8, F32, 1e-5),       # T < 32: every lane's 2nd key is padding
     (2, 64, 4, 32, F32, 1e-5),      # T at the kernel's limit
     (5, 33, 3, 48, BF16, 2e-2),     # uneven T and D
+    (6, 1, 4, 64, BF16, 2e-2),      # tc: one key, one query row
+    (4, 17, 4, 64, BF16, 2e-2),     # tc: one row and key past a 16-row tile
+    (3, 64, 4, 64, BF16, 2e-2),     # tc: T at the limit, no padding
+    (4, 17, 2, 16, BF16, 2e-2),     # tc: the narrowest head
+    (3, 50, 4, 16, BF16, 2e-2),
+    (3, 13, 2, 8, BF16, 2e-2),      # scalar: D not a multiple of 16
 ])
 def test_mhsa_short_kernel_matches_plain_version(cuda, b, t, h, d, dtype,
                                                  max_tol):
     q, k, v = _qkv(b, t, h * d, dtype, seed=b * 1000 + t)
+    variant = fa._kernel_variant(dtype, t, d)
+    assert variant == ("tc" if dtype == BF16 and d % 16 == 0 else "scalar")
     with torch.no_grad():
-        before = fa.mhsa_short.launches
+        before = (fa.mhsa_short.launches, fa.mhsa_short.tc_launches)
         got = fa.mhsa_short(q, k, v, None, h)
         torch.cuda.synchronize()
-        assert fa.mhsa_short.launches == before + 1
+        assert _launched(fa.mhsa_short, before, variant)
         want = fa.mhsa_short_reference(q, k, v, None, h)
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs()
@@ -82,32 +97,45 @@ def test_mhsa_short_kernel_refuses_what_it_does_not_take(cuda):
     (8, 50, 16, 64, BF16, 0.1),
     (8, 50, 16, 64, F32, 0.1),
     (3, 13, 2, 8, F32, 0.5),
-    (2, 64, 4, 64, BF16, 0.25),     # D == T: the mask is read off the output
+    (2, 64, 4, 64, BF16, 0.25),
     (4, 32, 2, 32, F32, 0.3),
+    (64, 1, 4, 64, BF16, 0.1),      # tc at T = 1, 17; D = 16 < T = 17
+    (4, 17, 4, 64, BF16, 0.3),
+    (3, 17, 2, 16, BF16, 0.5),
+    (5, 16, 2, 16, BF16, 0.3),
+    (3, 13, 2, 8, BF16, 0.3),       # scalar bf16
 ])
 def test_mhsa_short_kernel_draws_the_plain_versions_mask(cuda, b, t, h, d,
                                                          dtype, rate):
     q, k, v = _qkv(b, t, h * d, dtype, seed=b * 1000 + t)
+    variant = fa._kernel_variant(dtype, t, d)
     with torch.no_grad():
+        before = (fa.mhsa_short.launches, fa.mhsa_short.tc_launches)
         got = fa.mhsa_short(q, k, v, 4242, h, rate)
+        assert _launched(fa.mhsa_short, before, variant)
         want = fa.mhsa_short_reference(q, k, v, 4242, h, rate)
         other = fa.mhsa_short(q, k, v, 4243, h, rate)
     err = (got.float() - want.float()).abs()
     assert err.max().item() <= (2e-2 if dtype == BF16 else 1e-5)
     assert not torch.equal(got, other)
-    if d == t:
-        # V = identity per head: the output is the dropped weights, so the
-        # kept set is read off the output and must be the bit function's.
-        eye = torch.eye(t, device="cuda", dtype=dtype).repeat(1, h).expand(
-            b, t, h * t).contiguous()
+    if d >= t:
+        # V = [I_T | 0] per head: the output is the dropped weights, so the
+        # kept set is read off the output and must be the bit function's;
+        # with the output gradient [I_T | 0] too, dv is their transpose, so
+        # the backward's kept set is read off dv.
+        eye = torch.eye(t, d, device="cuda", dtype=dtype).repeat(1, h).expand(
+            b, t, h * d).contiguous()
+        weights = lambda x: x.reshape(b, t, h, d)[..., :t].permute(  # noqa: E731
+            0, 2, 1, 3)
         with torch.no_grad():
             dropped = fa.mhsa_short(q, k, eye, 4242, h, rate)
-        keep = dropped.reshape(b, t, h, t).permute(0, 2, 1, 3) > 0
+            _, _, dv = fa.mhsa_short_backward(q, k, eye, eye, 4242, h, rate)
+        keep = weights(dropped) > 0
         bits = prng.dropout_bits(4242, b, h, t, t, device="cuda")
-        weights_positive = fa.mhsa_short(q, k, eye, None, h).reshape(
-            b, t, h, t).permute(0, 2, 1, 3) > 0
+        weights_positive = weights(fa.mhsa_short(q, k, eye, None, h)) > 0
         assert torch.equal(keep, prng.keep_mask(bits, rate)
                            & weights_positive)
+        assert torch.equal(weights(dv).transpose(-1, -2) > 0, keep)
 
 
 @pytest.mark.parametrize("b,t,h,d,dtype,rate", [
@@ -118,20 +146,32 @@ def test_mhsa_short_kernel_draws_the_plain_versions_mask(cuda, b, t, h, d,
     (3, 13, 2, 8, F32, 0.3),        # T < 32
     (2, 64, 4, 32, F32, 0.1),       # T at the kernel's limit
     (5, 33, 3, 48, BF16, 0.1),      # uneven T and D
+    (6, 1, 4, 64, BF16, 0.1),       # tc: one key (ds = 0)
+    (4, 17, 4, 64, BF16, 0.1),      # tc: padded query and key rows
+    (3, 64, 4, 64, BF16, 0.1),      # tc: no padding
+    (4, 17, 2, 16, BF16, 0.0),      # tc: the narrowest head
+    (3, 50, 4, 16, BF16, 0.1),
+    (3, 13, 2, 8, BF16, 0.1),       # scalar bf16
 ])
 def test_mhsa_short_backward_kernel_matches_plain_version(cuda, b, t, h, d,
                                                           dtype, rate):
     q, k, v = _qkv(b, t, h * d, dtype, seed=b * 1000 + t + 1)
     g = _qkv(b, t, h * d, dtype, seed=7)[0]
     seed = 99 if rate else None
-    before = (fa.mhsa_short.launches, fa.mhsa_short_backward.launches)
+    variant = fa._kernel_variant(dtype, t, d)
+    before = (fa.mhsa_short.launches, fa.mhsa_short_backward.launches,
+              fa.mhsa_short_backward.tc_launches)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = fa.mhsa_short(*leaves, seed, h, rate)
     # A non-contiguous gradient, as autograd may hand over.
     out.backward(g.transpose(0, 1).contiguous().transpose(0, 1))
     torch.cuda.synchronize()
-    assert (fa.mhsa_short.launches, fa.mhsa_short_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert fa.mhsa_short.launches == before[0] + 1
+    assert _launched(fa.mhsa_short_backward, before[1:], variant)
+    # No atomics: a second launch gives the same gradients to the bit.
+    again = fa.mhsa_short_backward(q, k, v, g, seed, h, rate)
+    for leaf, x in zip(leaves, again):
+        assert torch.equal(leaf.grad, x)
     want = fa.mhsa_short_backward_reference(q, k, v, g, seed, h, rate)
     for leaf, w in zip(leaves, want):
         err = (leaf.grad.float() - w.float()).abs()
@@ -694,3 +734,33 @@ def test_block_model_train_step_on_the_card_matches_the_cpu(cuda):
             continue
         err = (outs["cuda"][1][name] - want).abs().max().item()
         assert err <= 1e-3 * max(want.abs().max().item(), 1e-30), name
+
+
+def test_vit_attention_impl_pallas_runs_the_flash_kernels_on_the_card(cuda):
+    """The tiny model with the ViT's attention through flash attention
+    (vit_attention_impl "pallas"), float32: the forward launches the flash
+    kernel once a ViT block of each encoder and K1 never, and its logits
+    match the CPU's (plain versions)."""
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model
+
+    cfg = dict(hidden_size=32, num_decoder_layers=2, dim_feedforward=32,
+               nhead=2, dropout=0.0, encoder="vit", enable_past_actions=True,
+               enable_past_states=True, enable_timestep_embedding=True,
+               window_size=3, image_size=32, vit_patch=16, vit_dim=16,
+               vit_depth=2, vit_heads=2, vit_head_dim=8, vit_mlp_dim=16,
+               vit_attention_impl="pallas")
+    data = synthetic_batch_feed(2, 6, image_size=32, seed=2)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = create_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(4))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        before = (fl.flash_attention.launches, fa.mhsa_short.launches)
+        with torch.no_grad():
+            outs[device] = [x.cpu() for x in model(batch)]
+        moved = (fl.flash_attention.launches - before[0],
+                 fa.mhsa_short.launches - before[1])
+        assert moved == ((2 * 2, 0) if device == "cuda" else (0, 0))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4

@@ -298,6 +298,73 @@ def test_attention_impl_pallas_feeds_the_decoder_masks_by_index(monkeypatch):
     assert all(rate == 0.1 for _, _, rate in seen)
 
 
+@pytest.mark.parametrize("wiring", sorted(WIRINGS))
+def test_vit_attention_impl_pallas_logits_match_jax_and_xla(wiring):
+    """The ViT's attention core through flash attention, unmasked
+    (vit_attention_impl "pallas"): the JAX side runs its Pallas kernel in
+    interpret mode, the port its plain version; 1e-4 at float32 against JAX
+    under the same setting, 1e-5 against the port under "xla" with the same
+    weights."""
+    impls = dict(WIRINGS[wiring], vit_attention_impl="pallas", vit_depth=2)
+    jax_model, params, model = _pair(impls, seed=18)
+    plain = create_model(dict(FUSED, **WIRINGS[wiring], vit_depth=2,
+                              vit_attention_impl="xla"))
+    plain.load_state_dict(model.state_dict())     # the same names either way
+    b, t = 2, 5
+    inputs = {"frames": _u8((b, t, 32, 32, 3), seed=19),
+              "cad_image": _u8((b, 32, 32, 3), seed=20),
+              "actions": _actions(b, t, seed=21)}
+    expected = jax_model.apply({"params": params},
+                               {k: jnp.asarray(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        tensors = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        got = model(tensors)
+        want_plain = plain(tensors)
+    for g, e, w in zip(got, expected, want_plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+def test_vit_attention_impl_pallas_calls_flash_attention_unmasked(
+        monkeypatch):
+    """Under vit_attention_impl "pallas" each ViT block of both encoders
+    calls flash_attention once, without a mask, and mhsa_short never; in
+    train() mode with dropout on each call draws a seed of its own."""
+    from videocad_tpu_torch.models import layers
+    from videocad_tpu_torch.ops.dropout import DropoutRng
+
+    seen = []
+    real = layers.flash_attention
+
+    def spy(q, k, v, mask=None, seed=None, dropout_rate=0.0):
+        seen.append((q.shape, mask, seed, dropout_rate))
+        return real(q, k, v, mask, seed, dropout_rate)
+
+    monkeypatch.setattr(layers, "flash_attention", spy)
+    monkeypatch.setattr(layers, "mhsa_short", None)   # must not be called
+    cfg = dict(FUSED, vit_attention_impl="pallas", vit_depth=2)
+    t = 4
+    inputs = {"frames": torch.from_numpy(_u8((1, t, 32, 32, 3), seed=1)),
+              "cad_image": torch.from_numpy(_u8((1, 32, 32, 3), seed=2)),
+              "actions": torch.from_numpy(_actions(1, t, seed=3))}
+    with torch.no_grad():
+        create_model(cfg)(inputs)
+    tokens = (32 // FUSED["vit_patch"]) ** 2 + 1
+    heads = (FUSED["vit_heads"], FUSED["vit_head_dim"])
+    assert [s for s, _, _, _ in seen] == (
+        [(t, tokens, *heads)] * 2 + [(1, tokens, *heads)] * 2)
+    assert all(m is None and seed is None and rate == 0.0
+               for _, m, seed, rate in seen)
+    seen.clear()
+    model = create_model(dict(cfg, dropout=0.1))
+    model.train()
+    model(inputs, rng=DropoutRng(0, "cpu"))
+    seeds = [seed for _, _, seed, _ in seen]
+    assert len(seeds) == 4 and len(set(seeds)) == 4
+    assert all(rate == 0.1 for _, _, _, rate in seen)
+
+
 # ---- vit_attention_impl / vit_mlp_impl "block" ----
 
 BLOCK_SETTINGS = {

@@ -77,6 +77,22 @@ def test_mhsa_short_on_cpu_runs_the_plain_version_and_launches_nothing(
                                                       0.1), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype,seq,head_dim,variant", [
+    (torch.bfloat16, 50, 64, "tc"),       # the flagship ViT
+    (torch.bfloat16, 1, 16, "tc"),
+    (torch.bfloat16, 64, 48, "tc"),
+    (torch.bfloat16, 17, 32, "tc"),
+    (torch.float32, 50, 64, "scalar"),    # TF32 would break 1e-5
+    (torch.bfloat16, 13, 8, "scalar"),    # D not a multiple of 16
+    (torch.bfloat16, 50, 40, "scalar"),
+    (torch.float16, 50, 64, "scalar"),
+])
+def test_mhsa_short_kernel_variant_rule(dtype, seq, head_dim, variant):
+    """Which kernel a CUDA call launches: a pure function of the dtype and
+    the shape (the wrapper raises for what neither variant takes)."""
+    assert port_fused._kernel_variant(dtype, seq, head_dim) == variant
+
+
 def test_mhsa_short_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 32, seed=1))
     with pytest.raises(ValueError):

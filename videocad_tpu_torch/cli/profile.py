@@ -23,6 +23,8 @@ one JSON line:
   busy        the union of the kernels' device intervals over the profiled
               host-clock wall, so 0 <= busy <= 1 (1 - busy is the idle share)
   kernels     kernels launched per iteration
+  mhsa_short_ms  device ms per iteration of the ViT attention kernels (K1,
+              both variants, forward and backward)
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
@@ -100,6 +102,8 @@ def profile_work(name: str, fn, n: int, warmup: int = 2,
             "device_ms": sum(r[0] for r in by_name.values()),
             "busy": busy_us / 1e3 / n / profiled_wall,
             "kernels": len(kernels) / n,
+            "mhsa_short_ms": sum(ms for key, (ms, _) in by_name.items()
+                                 if "mhsa_short" in key),
             "top": [[ms, count, ms / count, key[:90]]
                     for key, (ms, count) in top]}
 

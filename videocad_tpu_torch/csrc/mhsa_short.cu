@@ -26,39 +26,74 @@
 // row. Here bits(seed, b, h, i, j) is word j % 4 of Philox4x32-10 with key
 // (seed, 0) and counter (j / 4, i, h, b): a function of the seed and the
 // four indices only, so forward and backward draw the same mask whatever
-// their grids and blocks. videocad_tpu_torch/ops/prng.py computes the same
-// function in PyTorch integer ops for the plain versions.
+// their grids, blocks and thread-to-element maps.
+// videocad_tpu_torch/ops/prng.py computes the same function in PyTorch
+// integer ops for the plain versions.
 //
 // What bounds them on the card: per head the forward does about 4*T*T*D
 // flops against 4*T*D*2 bytes of bf16 I/O (q, k, v in, o out), about T/2 =
 // 25 flops per byte at the flagship's T = 50, D = 64; the backward does
 // 10*T*T*D flops against 7*T*D*2 bytes, about 36 flops per byte. Both are
-// below the card's ridge (about 295 flops per byte in bf16), so the floor
-// is memory traffic: at the train step's 1,528 frames 0.19 ms for the
-// forward and 0.33 ms for the backward at 3.35 TB/s. These simple kernels
-// are bound well above that by the issue rate of their scalar f32 math
-// (two shared-memory loads per FMA) and, with dropout, of the integer
-// multiplies of Philox.
+// far below the card's ridge (about 295 flops per byte in bf16), so the
+// floor is memory traffic: at the train step's 1,528 frames 0.187 ms for
+// the forward and 0.327 ms for the backward at 3.35 TB/s.
 //
-// What the design does about it: one thread block per (frame, head) owns
-// its head wholly. It keeps the head's operands in shared memory as f32
-// for the whole computation, so the (T, T) scores, weights and ds never
-// touch device memory, every input is read once and every output written
-// once, by strided accesses to the head's D columns of the (B, T, H*D)
-// tensors (no transpose outside the kernel), and dq, dk and dv need no
-// atomics. One warp owns one query row at a time: each lane holds the
-// scores of keys lane and lane + 32 (T <= 64, so T is padded to 64 and the
-// padded key columns are excluded from the softmax and get zero weight
-// and zero ds; padded query rows are never computed or written), the row
-// reductions are warp shuffles, and the products that follow run one
-// output column per lane. The backward's second pass (dv and dk, which sum
-// over query rows) runs one warp per key row over the (T, T) dropped
-// weights and ds that the first pass left in shared memory. Its operands
-// take 78 KB at T = 50, D = 64, over the 48 KB a block gets by default, so
-// the launch opts in to more dynamic shared memory. Tensor-core math
-// (mma.sync / wgmma), several heads per block and sharing one Philox call
-// among the four lanes that need its words are the later steps to make
-// them fast.
+// Two variants, picked by the wrapper (ops/fused_attention.py:
+// _kernel_variant) from the dtype and the shape alone:
+//
+// "scalar" (mhsa_short_fwd, mhsa_short_bwd): float32, and any D up to 64.
+// One block per (frame, head) stages the head's operands in shared memory
+// as f32 and runs scalar FMAs: one warp per query row, each lane holding
+// the scores of keys lane and lane + 32, then one output column per lane.
+// Its inner loops issue two 4-byte shared-memory loads per FMA; an SM
+// serves one 32-word wavefront a clock, so an SM does at most 16 FMA a
+// clock, about 7.4 TFLOP/s over 132 SMs at 1.75 GHz. The first versions
+// ran bf16 this way too and sat on that ceiling (7.6 TFLOP/s forward, 6.2
+// backward at 1,528 frames: 8.5% and 5.1% of the memory bound), with one
+// Philox call per element (three of its four words thrown away), bf16
+// operands widened to f32 in shared memory (78 KB a block in the
+// backward) and 2-byte loads. Float32 stays here: on the tensor cores it
+// would be TF32, three decimal digits, where the float32 path is held to
+// 1e-5.
+//
+// "tc" (mhsa_short_tc_fwd, mhsa_short_tc_bwd): bfloat16 with D a multiple
+// of 16 up to 64, T <= 64 (the flagship: T = 50, D = 64). Every product
+// runs on the tensor cores through mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), whose fragment layouts the PTX ISA specifies, so the scores
+// never leave registers:
+//   - one block of four warps per (frame, head); q, k, v (and g) come into
+//     shared memory as bf16 by 16-byte cp.async, rows padded to 144 bytes
+//     so that ldmatrix's eight row addresses fall on distinct banks; rows T
+//     up to the next multiple of 16 are zero-filled;
+//   - a warp owns 16 query rows (T padded to 64: four warps); S = Q K^T is
+//     8 key tiles of 8 by D/16 k-steps, Q's and K's fragments by ldmatrix;
+//     a lane holds its two rows' scores of 16 keys, so the row max and sum
+//     are two shuffles within the quad, and no online softmax is needed:
+//     the weights are normalised, dropped and rounded to bf16 exactly where
+//     the plain version rounds, and the C fragments of S become the A
+//     fragments of P V in place (V through ldmatrix.trans);
+//   - dropout: one Philox call per (row, group of four keys). Lanes 2c and
+//     2c + 1 of a quad hold the two halves of one group for rows r and
+//     r + 8: the even lane draws row r, the odd lane row r + 8, and they
+//     swap their four keep bits with one shuffle;
+//   - the backward's first pass (a warp per 16 query rows) recomputes S and
+//     the weights, redraws the mask, computes dP = g V^T, dw, the row dot
+//     and ds on registers, dq = ds K (K through ldmatrix.trans), and leaves
+//     the dropped weights and ds in shared memory as bf16; after one
+//     barrier its second pass (a warp per 16 key rows) computes
+//     dv = P^T g and dk = ds^T q with both operands through ldmatrix.trans.
+//     No atomics: gradients repeat bit for bit;
+//   - outputs go out in 16-byte stores through the warp's own rows of a
+//     tile it no longer reads (dq, whose tiles are still read, in 4-byte
+//     stores); padded query rows and key rows are never written.
+// One (frame, head) per block keeps a block at 27 KB (forward) and 54 KB
+// (backward) of shared memory and 128 threads, so several blocks share an
+// SM and one block's loads overlap another's products; two heads a block
+// would only halve the number of blocks.
+//
+// What a later version could still do: wgmma with one warpgroup a head (64
+// rows, which is T padded exactly), TMA loads, and several heads per
+// persistent block so that one head's loads overlap the next one's math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,13 +142,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Word j % 4 of Philox4x32-10, key (seed, 0), counter (j / 4, i, h, b).
-__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
-                                                 uint32_t h, uint32_t i,
-                                                 uint32_t j) {
+// Philox4x32-10 with key (seed, 0) and counter (c0, c1, c2, c3): its four
+// words.
+__device__ __forceinline__ uint4 philox(uint32_t seed, uint32_t c0,
+                                        uint32_t c1, uint32_t c2,
+                                        uint32_t c3) {
   constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
   constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-  uint32_t c0 = j >> 2, c1 = i, c2 = h, c3 = b;
   uint32_t k0 = seed, k1 = 0u;
 #pragma unroll
   for (int round = 0; round < 10; ++round) {
@@ -126,8 +161,16 @@ __device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
     k0 += kW0;
     k1 += kW1;
   }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// Word j % 4 of Philox4x32-10, key (seed, 0), counter (j / 4, i, h, b).
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
+                                                 uint32_t h, uint32_t i,
+                                                 uint32_t j) {
+  const uint4 w = philox(seed, j >> 2, i, h, b);
   const uint32_t word = j & 3u;
-  return word == 0u ? c0 : word == 1u ? c1 : word == 2u ? c2 : c3;
+  return word == 0u ? w.x : word == 1u ? w.y : word == 2u ? w.z : w.w;
 }
 
 // The scaled scores of one query row against keys j0 = lane and j1 =
@@ -161,10 +204,12 @@ __device__ __forceinline__ void softmax_row(const float* __restrict__ q_row,
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-mhsa_short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int seq,
-                      int heads, int head_dim, float scale, uint32_t seed,
-                      uint32_t threshold, float inv_keep) {
+mhsa_short_fwd_scalar_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             int seq, int heads, int head_dim, float scale,
+                             uint32_t seed, uint32_t threshold,
+                             float inv_keep) {
   __shared__ float ks[kMaxSeq * kRowStride];
   __shared__ float vs[kMaxSeq][kMaxHeadDim];
   __shared__ float qs[kWarps][kMaxHeadDim];
@@ -225,12 +270,14 @@ __host__ __device__ constexpr int bwd_shared_floats(int seq) {
 
 template <typename T>
 __global__ void __launch_bounds__(kBwdWarps * 32)
-mhsa_short_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ g,
-                      T* __restrict__ dq, T* __restrict__ dk,
-                      T* __restrict__ dv, int seq, int heads, int head_dim,
-                      float scale, uint32_t seed, uint32_t threshold,
-                      float inv_keep) {
+mhsa_short_bwd_scalar_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ g, T* __restrict__ dq,
+                             T* __restrict__ dk, T* __restrict__ dv, int seq,
+                             int heads, int head_dim, float scale,
+                             uint32_t seed, uint32_t threshold,
+                             float inv_keep) {
   extern __shared__ float shared[];
   float* qs = shared;
   float* ks = qs + seq * kRowStride;
@@ -332,17 +379,18 @@ bool bad_shape(int batch, int seq, int heads, int head_dim) {
 }
 
 template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* g,
-               void* dq, void* dk, void* dv, int batch, int seq, int heads,
-               int head_dim, float scale, uint32_t seed, uint32_t threshold,
-               float inv_keep, cudaStream_t stream) {
+int launch_bwd_scalar(const void* q, const void* k, const void* v,
+                      const void* g, void* dq, void* dk, void* dv, int batch,
+                      int seq, int heads, int head_dim, float scale,
+                      uint32_t seed, uint32_t threshold, float inv_keep,
+                      cudaStream_t stream) {
   const int bytes = bwd_shared_floats(seq) * (int)sizeof(float);
   // Above the 48 KB a block gets by default: opt in, and report a refusal.
   cudaError_t err = cudaFuncSetAttribute(
-      mhsa_short_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      mhsa_short_bwd_scalar_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  mhsa_short_bwd_kernel<T>
+  mhsa_short_bwd_scalar_kernel<T>
       <<<dim3((unsigned)(batch * heads)), dim3(kBwdWarps * 32), bytes,
          stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                    static_cast<const T*>(v), static_cast<const T*>(g),
@@ -350,6 +398,494 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
                    static_cast<T*>(dv), seq, heads, head_dim, scale, seed,
                    threshold, inv_keep);
   return (int)cudaGetLastError();
+}
+
+// ---- The "tc" variant: bf16 on the tensor cores (mma.sync.m16n8k16) ----
+
+constexpr int kTcWarps = 4;                   // 16 query rows each
+constexpr int kTcStride = kMaxHeadDim + 8;    // bf16 a tile row: 144 bytes
+constexpr int kTcTile = kMaxSeq * kTcStride;  // bf16 a (64, D) tile
+constexpr int kTcBwdBytes = 6 * kTcTile * 2;  // q, k, v, g, dropped, ds
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(const __nv_bfloat16* p,
+                                        uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const __nv_bfloat16* p,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b over one 16 x 8 x 16 tile: a the A fragment (16 x 16, row
+// major), (b0, b1) the B fragment (16 x 8), d the C fragment in f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [0, seq) of one head's (T, D) slice of a (B, T, H*D) tensor (src at
+// row 0, rows row_stride apart) into a (64, kTcStride) tile, 16 bytes a
+// cp.async; rows seq..rows-1 are zero-filled (rows: seq rounded up to 16).
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* src, int seq,
+                                          int rows, long long row_stride) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool inside = r < seq;
+    const __nv_bfloat16* from = src + (inside ? r * row_stride + c * 8 : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(tile + r * kTcStride + c * 8)),
+                 "l"(from), "r"(inside ? 16 : 0));
+  }
+}
+
+__device__ __forceinline__ void wait_loads() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// s[n] += the C fragment of key tile n (keys 8n..8n+7) of A B^T, A the 16
+// rows from r0 of tile a, B the rows of tile b: lane (g = lane / 4, t =
+// lane % 4) holds s[n][e] at row r0 + g + 8 (e / 2), key 8n + 2t + e % 2.
+// Key tiles from seq on are skipped (they stay as they were).
+template <int D>
+__device__ __forceinline__ void row_products(const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b, int r0,
+                                             int lane, int seq,
+                                             float (&s)[8][4]) {
+  uint32_t frag[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(a + (r0 + (lane & 15)) * kTcStride + kk * 16 + (lane >> 4) * 8,
+            frag[kk]);
+#pragma unroll
+  for (int n = 0; n < 8; n += 2) {
+    if (8 * n >= seq) break;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bf[4];
+      ldsm_x4(b + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
+                  kk * 16 + ((lane >> 3) & 1) * 8,
+              bf);
+      mma_bf16(s[n], frag[kk], bf[0], bf[1]);
+      mma_bf16(s[n + 1], frag[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[n] += the C fragment of output tile n (columns 8n..8n+7) of P X for
+// the warp's 16 rows: p[kk] the A fragment of P's keys 16kk..16kk+15, X
+// the (64, D) tile x read transposed by ldmatrix. Key steps from seq on are
+// skipped.
+template <int D>
+__device__ __forceinline__ void times_tile(uint32_t (&p)[4][4],
+                                           const __nv_bfloat16* x, int lane,
+                                           int seq, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= seq) break;
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4_trans(x + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            kTcStride +
+                        8 * n + (lane >> 4) * 8,
+                    bf);
+      mma_bf16(acc[n], p[kk], bf[0], bf[1]);
+      mma_bf16(acc[n + 1], p[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// The row softmax of the scores s (C layout, unscaled) in place: the
+// weights in f32, key columns from seq on masked to weight 0.
+__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
+                                             int seq, float scale_log2) {
+  const int t = lane & 3;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
+      if (e < 2)
+        m0 = fmaxf(m0, s[n][e]);
+      else
+        m1 = fmaxf(m1, s[n][e]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // exp(scale * (s - max)): the scale is positive, so the row's max of
+      // the scaled scores is the scaled max.
+      s[n][e] = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * scale_log2);
+      if (e < 2)
+        l0 += s[n][e];
+      else
+        l1 += s[n][e];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
+}
+
+// The keep bits of the warp's 16 rows from r0, one per element of the C
+// layout: bit 4n + e for s[n][e]. One Philox call per lane and key tile:
+// the group of keys 8n + 4(t / 2) .. + 3 is held by lanes t and t ^ 1 of
+// the quad, each for rows r0 + g and r0 + g + 8; the even lane draws row
+// r0 + g, the odd one row r0 + g + 8, and they swap their four bits. Key
+// tiles from seq on keep every bit (their weights are 0).
+__device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t frame,
+                                              uint32_t head, int r0, int lane,
+                                              int seq, uint32_t threshold) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool even = (t & 1) == 0;
+  const uint32_t row = (uint32_t)(r0 + g + (even ? 0 : 8));
+  const int shift = even ? 0 : 2;     // the lane's keys are words 0-1 or 2-3
+  uint32_t bits = 0xffffffffu;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (8 * n >= seq) break;
+    const uint4 w = philox(seed, (uint32_t)(2 * n + (t >> 1)), row, head,
+                           frame);
+    const uint32_t mine = (uint32_t)(w.x >= threshold) |
+                          (uint32_t)(w.y >= threshold) << 1 |
+                          (uint32_t)(w.z >= threshold) << 2 |
+                          (uint32_t)(w.w >= threshold) << 3;
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+    const uint32_t upper = even ? mine : other;   // row r0 + g
+    const uint32_t lower = even ? other : mine;   // row r0 + g + 8
+    const uint32_t nibble =
+        ((upper >> shift) & 3u) | (((lower >> shift) & 3u) << 2);
+    bits = (bits & ~(0xfu << (4 * n))) | (nibble << (4 * n));
+  }
+  return bits;
+}
+
+// The C fragments of two key tiles (16 keys) as the A fragment of a product
+// over those keys, rounded to bf16.
+__device__ __forceinline__ void to_a_fragment(const float (&lo)[4],
+                                              const float (&hi)[4],
+                                              uint32_t (&a)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// acc (C layout, the warp's 16 rows) into rows 0..15 of a staging tile as
+// bf16.
+template <int D>
+__device__ __forceinline__ void stage_rows(float (&acc)[D / 8][4],
+                                           __nv_bfloat16* tile, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    __nv_bfloat16* at = tile + g * kTcStride + 8 * n + 2 * t;
+    *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// Rows 0..15 of a staging tile out to rows r0.. (those below seq) of the
+// head's slice, 16 bytes a store.
+template <int D>
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* tile,
+                                           __nv_bfloat16* dst, int r0,
+                                           int seq, long long row_stride,
+                                           int lane) {
+  constexpr int kChunks = D / 8;
+  __syncwarp();
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    if (r0 + r < seq)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * kTcStride + c * 8);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
+mhsa_short_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, int seq, int heads,
+                         float scale_log2, uint32_t seed, uint32_t threshold,
+                         float inv_keep) {
+  __shared__ __align__(16) unsigned char tiles[3 * kTcTile * 2];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tiles);
+  __nv_bfloat16* ks = qs + kTcTile;
+  __nv_bfloat16* vs = ks + kTcTile;
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * D;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * D;
+  const int rows = (seq + 15) & ~15;
+  load_tile<D>(qs, q + base, seq, rows, row_stride);
+  load_tile<D>(ks, k + base, seq, rows, row_stride);
+  load_tile<D>(vs, v + base, seq, rows, row_stride);
+  wait_loads();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  if (r0 >= seq) return;   // padding rows only; no barrier follows
+
+  float s[8][4] = {};
+  row_products<D>(qs, ks, r0, lane, seq, s);
+  softmax_rows(s, lane, seq, scale_log2);
+  const uint32_t keep =
+      threshold != 0u
+          ? keep_bits(seed, frame, head, r0, lane, seq, threshold)
+          : 0xffffffffu;
+  // Dropped (inv_keep is 1 without dropout) and rounded to bf16 where the
+  // plain version rounds, as the A fragments of P V.
+  uint32_t p[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = (keep >> (4 * n + e)) & 1u ? s[n][e] * inv_keep : 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    to_a_fragment(s[2 * kk], s[2 * kk + 1], p[kk]);
+
+  float acc[D / 8][4] = {};
+  times_tile<D>(p, vs, lane, seq, acc);
+  // The warp's q rows are read by no one now: they stage its output.
+  __nv_bfloat16* staging = qs + r0 * kTcStride;
+  stage_rows<D>(acc, staging, lane);
+  store_rows<D>(staging, o + base, r0, seq, row_stride, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
+mhsa_short_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ g,
+                         __nv_bfloat16* __restrict__ dq,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int seq, int heads,
+                         float scale, float scale_log2, uint32_t seed,
+                         uint32_t threshold, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char tc_shared[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_shared);
+  __nv_bfloat16* ks = qs + kTcTile;
+  __nv_bfloat16* vs = ks + kTcTile;
+  __nv_bfloat16* gs = vs + kTcTile;
+  __nv_bfloat16* ps = gs + kTcTile;    // dropped weights (query rows, keys)
+  __nv_bfloat16* dss = ps + kTcTile;   // ds (query rows, keys)
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * D;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * D;
+  const int rows = (seq + 15) & ~15;
+  load_tile<D>(qs, q + base, seq, rows, row_stride);
+  load_tile<D>(ks, k + base, seq, rows, row_stride);
+  load_tile<D>(vs, v + base, seq, rows, row_stride);
+  load_tile<D>(gs, g + base, seq, rows, row_stride);
+  wait_loads();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  const bool active = r0 < seq;
+
+  // Pass 1, a warp per 16 query rows: the weights, the mask, dP, ds, dq.
+  if (active) {
+    float w[8][4] = {};
+    row_products<D>(qs, ks, r0, lane, seq, w);
+    softmax_rows(w, lane, seq, scale_log2);
+    const uint32_t keep =
+        threshold != 0u
+            ? keep_bits(seed, frame, head, r0, lane, seq, threshold)
+            : 0xffffffffu;
+    float dw[8][4] = {};
+    row_products<D>(gs, vs, r0, lane, seq, dw);   // d_dropped = g v^T
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dw[n][e] = (keep >> (4 * n + e)) & 1u ? dw[n][e] * inv_keep : 0.f;
+        if (e < 2)
+          dot0 += dw[n][e] * w[n][e];
+        else
+          dot1 += dw[n][e] * w[n][e];
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, off);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, off);
+    }
+    // Padded query rows get zero dropped weights and ds, so that they add
+    // nothing to dv and dk. Padded key columns have w = 0, hence ds = 0.
+    const bool upper = r0 + gr < seq, lower = r0 + gr + 8 < seq;
+    uint32_t ds_frag[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool row_ok = e < 2 ? upper : lower;
+        const bool kept = (keep >> (4 * n + e)) & 1u;
+        pv[e] = row_ok && kept ? w[n][e] * inv_keep : 0.f;
+        dsv[e] = row_ok ? w[n][e] * (dw[n][e] - (e < 2 ? dot0 : dot1)) *
+                              scale
+                        : 0.f;
+      }
+      __nv_bfloat16* at = ps + (r0 + gr) * kTcStride + 8 * n + 2 * t;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(pv[0], pv[1]);
+      *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) =
+          pack_bf16(pv[2], pv[3]);
+      at = dss + (r0 + gr) * kTcStride + 8 * n + 2 * t;
+      const uint32_t ds_upper = pack_bf16(dsv[0], dsv[1]);
+      const uint32_t ds_lower = pack_bf16(dsv[2], dsv[3]);
+      *reinterpret_cast<uint32_t*>(at) = ds_upper;
+      *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) = ds_lower;
+      // As to_a_fragment lays out key tiles n & ~1 and n | 1.
+      ds_frag[n >> 1][(n & 1) * 2] = ds_upper;
+      ds_frag[n >> 1][(n & 1) * 2 + 1] = ds_lower;
+    }
+    float acc[D / 8][4] = {};
+    times_tile<D>(ds_frag, ks, lane, seq, acc);   // dq = ds k
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      __nv_bfloat16* at = dq + base + 8 * n + 2 * t;
+      if (upper)
+        *reinterpret_cast<uint32_t*>(at + (r0 + gr) * row_stride) =
+            pack_bf16(acc[n][0], acc[n][1]);
+      if (lower)
+        *reinterpret_cast<uint32_t*>(at + (r0 + gr + 8) * row_stride) =
+            pack_bf16(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+
+  // Pass 2, a warp per 16 key rows j from r0: dv = P^T g, dk = ds^T q.
+  if (active) {
+    float acc_v[D / 8][4] = {}, acc_k[D / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // query rows 16kk..16kk+15
+      if (16 * kk >= seq) break;
+      // The A fragments of P^T and ds^T: P and ds read transposed.
+      const int at = (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
+                     r0 + ((lane >> 3) & 1) * 8;
+      uint32_t a_p[4], a_ds[4];
+      ldsm_x4_trans(ps + at, a_p);
+      ldsm_x4_trans(dss + at, a_ds);
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        const int bt = (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                           kTcStride +
+                       8 * n + (lane >> 4) * 8;
+        uint32_t bf[4];
+        ldsm_x4_trans(gs + bt, bf);
+        mma_bf16(acc_v[n], a_p, bf[0], bf[1]);
+        mma_bf16(acc_v[n + 1], a_p, bf[2], bf[3]);
+        ldsm_x4_trans(qs + bt, bf);
+        mma_bf16(acc_k[n], a_ds, bf[0], bf[1]);
+        mma_bf16(acc_k[n + 1], a_ds, bf[2], bf[3]);
+      }
+    }
+    // k and v are read by no one in this pass: their rows r0.. stage dk
+    // and dv.
+    stage_rows<D>(acc_k, ks + r0 * kTcStride, lane);
+    stage_rows<D>(acc_v, vs + r0 * kTcStride, lane);
+    store_rows<D>(ks + r0 * kTcStride, dk + base, r0, seq, row_stride, lane);
+    store_rows<D>(vs + r0 * kTcStride, dv + base, r0, seq, row_stride, lane);
+  }
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  int batch, int seq, int heads, float scale, uint32_t seed,
+                  uint32_t threshold, float inv_keep, cudaStream_t stream) {
+  mhsa_short_fwd_tc_kernel<D>
+      <<<dim3((unsigned)(batch * heads)), dim3(kTcWarps * 32), 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(o), seq, heads,
+          scale * 1.4426950408889634f, seed, threshold, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* g,
+                  void* dq, void* dk, void* dv, int batch, int seq, int heads,
+                  float scale, uint32_t seed, uint32_t threshold,
+                  float inv_keep, cudaStream_t stream) {
+  // Above the 48 KB a block gets by default: opt in, and report a refusal.
+  cudaError_t err = cudaFuncSetAttribute(
+      mhsa_short_bwd_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcBwdBytes);
+  if (err != cudaSuccess) return (int)err;
+  mhsa_short_bwd_tc_kernel<D>
+      <<<dim3((unsigned)(batch * heads)), dim3(kTcWarps * 32), kTcBwdBytes,
+         stream>>>(static_cast<const __nv_bfloat16*>(q),
+                   static_cast<const __nv_bfloat16*>(k),
+                   static_cast<const __nv_bfloat16*>(v),
+                   static_cast<const __nv_bfloat16*>(g),
+                   static_cast<__nv_bfloat16*>(dq),
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), seq, heads, scale,
+                   scale * 1.4426950408889634f, seed, threshold, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// What the tc variant takes: bf16, D in {16, 32, 48, 64}, and 16-byte
+// aligned rows (D a multiple of 8 and the base pointers, which the
+// wrapper checks).
+bool bad_tc(int dtype, int head_dim) {
+  return dtype != 1 || head_dim % 16 != 0;
 }
 
 }  // namespace
@@ -371,12 +907,12 @@ extern "C" int mhsa_short_fwd(const void* q, const void* k, const void* v,
   const dim3 block(kWarps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    mhsa_short_fwd_kernel<float><<<grid, block, 0, s>>>(
+    mhsa_short_fwd_scalar_kernel<float><<<grid, block, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
         head_dim, scale, seed, threshold, inv_keep);
   } else if (dtype == 1) {
-    mhsa_short_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+    mhsa_short_fwd_scalar_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -400,11 +936,64 @@ extern "C" int mhsa_short_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+    return launch_bwd_scalar<float>(q, k, v, g, dq, dk, dv, batch, seq, heads,
                              head_dim, scale, seed, threshold, inv_keep, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, batch, seq,
+    return launch_bwd_scalar<__nv_bfloat16>(q, k, v, g, dq, dk, dv, batch, seq,
                                      heads, head_dim, scale, seed, threshold,
                                      inv_keep, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tc variant, bf16 only (dtype must be 1) with head_dim a multiple of
+// 16 up to 64, and every pointer 16-byte aligned; otherwise as
+// mhsa_short_fwd.
+extern "C" int mhsa_short_tc_fwd(const void* q, const void* k, const void* v,
+                                 void* o, int batch, int seq, int heads,
+                                 int head_dim, float scale, int dtype,
+                                 unsigned int seed, unsigned int threshold,
+                                 float inv_keep, void* stream) {
+  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_fwd_tc<16>(q, k, v, o, batch, seq, heads, scale, seed,
+                               threshold, inv_keep, s);
+    case 32:
+      return launch_fwd_tc<32>(q, k, v, o, batch, seq, heads, scale, seed,
+                               threshold, inv_keep, s);
+    case 48:
+      return launch_fwd_tc<48>(q, k, v, o, batch, seq, heads, scale, seed,
+                               threshold, inv_keep, s);
+    default:
+      return launch_fwd_tc<64>(q, k, v, o, batch, seq, heads, scale, seed,
+                               threshold, inv_keep, s);
+  }
+}
+
+// The tc variant of the backward, under the same conditions.
+extern "C" int mhsa_short_tc_bwd(const void* q, const void* k, const void* v,
+                                 const void* g, void* dq, void* dk, void* dv,
+                                 int batch, int seq, int heads, int head_dim,
+                                 float scale, int dtype, unsigned int seed,
+                                 unsigned int threshold, float inv_keep,
+                                 void* stream) {
+  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_bwd_tc<16>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                               scale, seed, threshold, inv_keep, s);
+    case 32:
+      return launch_bwd_tc<32>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                               scale, seed, threshold, inv_keep, s);
+    case 48:
+      return launch_bwd_tc<48>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                               scale, seed, threshold, inv_keep, s);
+    default:
+      return launch_bwd_tc<64>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                               scale, seed, threshold, inv_keep, s);
+  }
 }

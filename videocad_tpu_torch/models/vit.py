@@ -9,6 +9,8 @@ position embedding, pre-LN blocks with exact erf GELU, a final LayerNorm
 
 ``attention_impl="fused"`` runs each block's attention core through the
 hand-written ``mhsa_short`` kernels (the flagship's setting).
+``attention_impl="pallas"`` runs it through the decoder's flash attention
+kernels (``ops/attention.py``) without a mask, as the JAX module does.
 ``attention_impl="block"`` runs each block as two fused kernels
 (``ops/fused_block.py``: ``attn_block`` then ``mlp_block``): LayerNorm,
 projections, softmax, GELU, the four dropout sites and the residual adds of
@@ -88,7 +90,7 @@ class ViTConfig:
 def _check_impls(attention_impl: str, mlp_impl: str, ln_impl: str) -> None:
     if ln_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown ln_impl {ln_impl!r}")
-    if (attention_impl not in ("xla", "fused", "block")
+    if (attention_impl not in ("xla", "fused", "pallas", "block")
             or mlp_impl not in ("xla", "block")):
         raise ValueError(f"unknown ViT impls: attention {attention_impl!r}, "
                          f"mlp {mlp_impl!r}")

@@ -18,7 +18,10 @@ here both compute, so they draw the same mask.
 Dispatch: a CPU tensor runs the plain PyTorch versions beside the kernels
 (:func:`mhsa_short_reference`, :func:`mhsa_short_backward_reference`); a
 CUDA tensor launches the kernels or raises. There is no fallback from one
-to the other.
+to the other. Of the kernels, :func:`_kernel_variant` picks one of two
+variants from the dtype and the shape alone: "tc" (bfloat16 on the tensor
+cores) or "scalar" (float32, and head widths the tensor-core tiles do not
+take); neither stands in for the other when a launch fails.
 """
 
 from __future__ import annotations
@@ -35,6 +38,16 @@ from videocad_tpu_torch.ops.prng import (dropout_bits, dropout_threshold,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SEQ = 64       # the kernels pad T to 64 (csrc/mhsa_short.cu)
 _MAX_HEAD_DIM = 64
+
+
+def _kernel_variant(dtype: torch.dtype, seq: int, head_dim: int) -> str:
+    """The kernel variant for a CUDA call: "tc" for bfloat16 with D a
+    multiple of 16 up to 64 and T <= 64, "scalar" for everything else the
+    kernels take (float32: the tensor cores would round it to TF32)."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 16 <= head_dim <= _MAX_HEAD_DIM and 1 <= seq <= _MAX_SEQ):
+        return "tc"
+    return "scalar"
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -139,9 +152,20 @@ def _dropout_args(seed, dropout_rate) -> Tuple[int, int, float]:
             1.0 / (1.0 - dropout_rate))
 
 
-def _launch(entry, tensors, q, num_heads, seed, dropout_rate):
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data does not start on 16 bytes
+    (the tc variant moves 16 bytes an access)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(pick, tensors, q, num_heads, seed, dropout_rate):
+    """Launch entry ``pick`` of the variant the shape takes (0 forward, 1
+    backward) on ``tensors``; returns the variant."""
     b, t, hd = q.shape
     head_dim = hd // num_heads
+    variant = _kernel_variant(q.dtype, t, head_dim)
+    entries = _entries or load_library()
+    entry = entries[variant][pick]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = entry(*(x.data_ptr() for x in tensors), b, t, num_heads,
@@ -149,8 +173,9 @@ def _launch(entry, tensors, q, num_heads, seed, dropout_rate):
                     _DTYPE_CODES[q.dtype],
                     *_dropout_args(seed, dropout_rate), stream)
     if err != 0:
-        raise RuntimeError(f"mhsa_short kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"mhsa_short {variant} kernel launch failed: "
+                           f"CUDA error {err}")
+    return variant
 
 
 def _forward(q, k, v, seed, num_heads, dropout_rate):
@@ -165,8 +190,9 @@ def _forward(q, k, v, seed, num_heads, dropout_rate):
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
-    entries = _entries or load_library()
-    _launch(entries[0], (q, k, v, out), q, num_heads, seed, dropout_rate)
+    q, k, v = (_aligned(x) for x in (q, k, v))
+    if _launch(0, (q, k, v, out), q, num_heads, seed, dropout_rate) == "tc":
+        mhsa_short.tc_launches += 1
     mhsa_short.launches += 1
     return out
 
@@ -177,8 +203,9 @@ def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`mhsa_short` for the output gradient ``g``, in
     one kernel launch on a CUDA tensor (``mhsa_short_backward.launches``
-    counts them), by :func:`mhsa_short_backward_reference` on a CPU tensor.
-    ``g`` may be non-contiguous, as autograd may hand it over."""
+    counts them, ``.tc_launches`` those of the tc variant), by
+    :func:`mhsa_short_backward_reference` on a CPU tensor. ``g`` may be
+    non-contiguous, as autograd may hand it over."""
     _check(q, k, v, num_heads)
     require_seed(seed, dropout_rate, "mhsa_short")
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -191,9 +218,10 @@ def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
-    entries = _entries or load_library()
-    _launch(entries[1], (q, k, v, g, dq, dk, dv), q, num_heads, seed,
-            dropout_rate)
+    q, k, v, g = (_aligned(x) for x in (q, k, v, g))
+    if _launch(1, (q, k, v, g, dq, dk, dv), q, num_heads, seed,
+               dropout_rate) == "tc":
+        mhsa_short_backward.tc_launches += 1
     mhsa_short_backward.launches += 1
     return dq, dk, dv
 
@@ -226,8 +254,10 @@ def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On a CUDA tensor it launches the hand-written kernels, which take
     float32 or bfloat16, contiguous inputs, T <= 64 and D <= 64, and raises
     on anything else; ``mhsa_short.launches`` and
-    ``mhsa_short_backward.launches`` count those launches. On a CPU tensor
-    it runs the plain versions.
+    ``mhsa_short_backward.launches`` count those launches, and their
+    ``tc_launches`` the launches of the tensor-core variant
+    (:func:`_kernel_variant`). On a CPU tensor it runs the plain
+    versions.
     """
     _check(q, k, v, num_heads)
     require_seed(seed, dropout_rate, "mhsa_short")
@@ -240,13 +270,16 @@ def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 mhsa_short.launches = 0
+mhsa_short.tc_launches = 0
 mhsa_short_backward.launches = 0
+mhsa_short_backward.tc_launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
-    entries (``mhsa_short_fwd``, ``mhsa_short_bwd``), bound once and kept
+    entries by variant, ``{"scalar": (mhsa_short_fwd, mhsa_short_bwd),
+    "tc": (mhsa_short_tc_fwd, mhsa_short_tc_bwd)}``, bound once and kept
     for every later launch."""
     global _entries
     from videocad_tpu_torch.kernels import build
@@ -257,9 +290,13 @@ def load_library():
     tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                                  ctypes.c_uint, ctypes.c_float,
                                  ctypes.c_void_p]
-    fwd, bwd = lib.mhsa_short_fwd, lib.mhsa_short_bwd
-    fwd.restype = bwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 4 + tail
-    bwd.argtypes = [ctypes.c_void_p] * 7 + tail
-    _entries = (fwd, bwd)
+    entries = {}
+    for variant, prefix in (("scalar", "mhsa_short_"),
+                            ("tc", "mhsa_short_tc_")):
+        fwd, bwd = getattr(lib, prefix + "fwd"), getattr(lib, prefix + "bwd")
+        fwd.restype = bwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 4 + tail
+        bwd.argtypes = [ctypes.c_void_p] * 7 + tail
+        entries[variant] = (fwd, bwd)
+    _entries = entries
     return _entries
