@@ -25,8 +25,11 @@ imports nothing of JAX. Phases, each of which must pass:
      and its backward, F.dropout) timed beside it as a yardstick that no
      path uses; then the
      three flash attention kernels (forward, dQ, dK/dV) at the decoder's
-     shapes, causal and banded, without and with dropout, bf16 and float32,
-     with a general mask at T != S and at B=2, T=47: values, the kept set,
+     shapes, causal and banded, without and with dropout, bf16 (the
+     tensor-core variant, with the scalar kernels timed on the same
+     inputs) and float32 (scalar), with a general mask at T != S, at B=2,
+     T=47 and at D=16, and at the ViT's shape (1,528 frames, 16 heads of
+     64, unmasked) with K1 timed on the same q, k, v: values, the kept set,
      the gradients (also against autograd through the plain forward at
      float32), the mask's properties, gradients that repeat bit for bit;
      then the four fused ViT sub-block entries (attention and MLP, forward
@@ -62,9 +65,10 @@ imports nothing of JAX. Phases, each of which must pass:
      session of a few steps over HTTP;
  10. train D: cli.train.main once more on train C's dataset, with
      attention_impl, ln_impl and dropout_impl all "pallas" (the decoder's
-     attention through the flash attention kernels): one epoch of 2 steps
-     at B=8 with validation, a checkpoint and the test evaluation, again
-     without a host synchronisation in the epoch loop;
+     attention through the flash attention kernels, 16 + 16 + 16 launches
+     a step, all of the tensor-core variant): one epoch of 2 steps at B=8
+     with validation, a checkpoint and the test evaluation, again without
+     a host synchronisation in the epoch loop;
  11. evaluate: videocad_tpu_torch.cli.evaluate.main on train D's
      best_model with --sequential: the sample CSVs, the first-mistake
      structure for every sequence of val and test, finite metrics, the
@@ -162,6 +166,15 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """The device time of the kernels one call of ``fn`` launches
+    (torch.profiler after a warm-up window, as cli/profile.py measures it):
+    what a call costs the card when the host keeps up."""
+    from videocad_tpu_torch.cli.profile import profile_work
+
+    return profile_work("", fn, n)["device_ms"]
 
 
 def in_turns(kernel, plain, **kw):
@@ -827,16 +840,21 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def flash_close(got, want, bf16):
+def flash_close(got, want, bf16, rounding=0.0):
     """(max abs err, its limit, within?). The limit: 2e-5 of the tensor's
     largest entry at float32 (sums over 256 columns and up to 191 keys in
     another order); for a bf16 output that, plus one unit in the last place
     of bf16 at the value's magnitude (the output's one rounding may fall to
-    the other side)."""
+    the other side). For the tc variant ``rounding`` of the largest entry
+    takes the place of 2e-5: the tensor cores take the dropped weights and
+    ds rounded to bf16, as the TPU kernels' precision=None products do,
+    where the plain versions keep float32 (FLASH_FWD_ROUNDING forward,
+    FLASH_GRAD_ROUNDING for dq, dk, dv)."""
     import torch
 
     w = want.float()
-    tol = 2e-5 * max(1.0, w.abs().max().item())
+    scale = w.abs().max().item()
+    tol = rounding * scale if rounding else 2e-5 * max(1.0, scale)
     err = (got.float() - w).abs()
     excess = err
     if bf16:
@@ -845,16 +863,54 @@ def flash_close(got, want, bf16):
     return err.max().item(), tol, excess.max().item() <= tol
 
 
-def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
+FLASH_FWD_ROUNDING, FLASH_GRAD_ROUNDING = 2.0 ** -9, 2.0 ** -7
+
+
+def flash_variant(dtype, d) -> str:
+    """The flash attention variant a case must run: the tensor-core kernels
+    for bf16 with D a multiple of 16, the scalar ones otherwise."""
+    import torch
+
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "scalar"
+
+
+def flash_scalar_ms(fl, pick, tensors, q, k, mask, seed, rate, **kw):
+    """The time of the scalar flash kernel (entry ``pick``: 0 forward, 1
+    dQ, 2 dK/dV) on the same bf16 inputs: the kernel the tc variant
+    replaced. Called through its C entry, on no path."""
+    import torch
+
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    mode, window, mask_tensor = fl._mask_args(mask, t, s, q.device)
+    entry = fl._entries["scalar"][pick]
+    args = (*(x.data_ptr() for x in tensors),
+            None if mask_tensor is None else mask_tensor.data_ptr(), b, t, s,
+            h, d, 1.0 / math.sqrt(d), 1, mode, window,
+            *fl._dropout_args(seed, rate),
+            torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = entry(*args)
+        check(err == 0, f"the scalar flash attention kernel {pick} failed: "
+              f"{err}")
+    return cuda_ms(run, **kw)
+
+
+def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed,
+               h=FLASH_SHAPE[2], tensors=None):
     """One shape of the flash attention kernels against their plain
-    versions; returns the three rows (forward, dQ, dK/dV)."""
+    versions, on ``tensors`` (q, k, v, g) or new random ones; returns the
+    three rows (forward, dQ, dK/dV)."""
     import torch
     import torch.nn.functional as F
 
-    h = FLASH_SHAPE[2]
     bf16 = dtype == torch.bfloat16
-    q, g = (randn((b, t, h, d), gen, dtype) for _ in range(2))
-    k, v = (randn((b, s, h, d), gen, dtype) for _ in range(2))
+    if tensors is None:
+        q, g = (randn((b, t, h, d), gen, dtype) for _ in range(2))
+        k, v = (randn((b, s, h, d), gen, dtype) for _ in range(2))
+    else:
+        q, k, v, g = tensors
     seed = 4000 + t if rate else None
     label = f"B={b} T={t} S={s} D={d} {dtype_name(dtype)} {kind} rate {rate}"
     allowed = (torch.ones((t, s), dtype=torch.bool, device="cuda")
@@ -862,14 +918,20 @@ def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
                if isinstance(mask, fl.BandMask) else mask)
 
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    marks = [getattr(fl, name).launches for name in FLASH_KERNELS]
+    counted = [getattr(fl, name) for name in FLASH_KERNELS]
+    marks = [(c.launches, c.tc_launches) for c in counted]
     out = fl.flash_attention(*leaves, mask, seed, rate)
     out.backward(g)
     torch.cuda.synchronize()
-    check([getattr(fl, name).launches for name in FLASH_KERNELS]
-          == [m + 1 for m in marks],
+    check([c.launches for c in counted] == [m[0] + 1 for m in marks],
           f"flash attention {label}: autograd did not launch each of the "
           "three kernels once")
+    ran = {"tc" if c.tc_launches > m[1] else "scalar"
+           for c, m in zip(counted, marks)}
+    variant = flash_variant(dtype, d)
+    check(ran == {variant}, f"flash attention {label} ran the {ran} "
+          f"kernels, expected {variant}")
+    tc = variant == "tc"
     grads = [x.grad for x in leaves]
     with torch.no_grad():
         want, want_lse = fl.flash_attention_reference(q, k, v, mask, seed,
@@ -877,11 +939,14 @@ def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
         got, lse = fl.flash_attention_forward(q, k, v, mask, seed, rate)
         want_grads = fl.flash_attention_backward_reference(
             q, k, v, mask, seed, got, lse, g, rate)
-    fwd_err, fwd_tol, fwd_ok = flash_close(out, want, bf16)
+    fwd_err, fwd_tol, fwd_ok = flash_close(
+        out, want, bf16, FLASH_FWD_ROUNDING if tc else 0.0)
     lse_err = (lse - want_lse).abs().max().item()
-    checks = [flash_close(a, w, bf16) for a, w in zip(grads, want_grads)]
+    checks = [flash_close(a, w, bf16, FLASH_GRAD_ROUNDING if tc else 0.0)
+              for a, w in zip(grads, want_grads)]
     rows = [{"kernel": name, "batch": b, "q_len": t, "kv_len": s, "d": d,
-             "dtype": dtype_name(dtype), "mask": kind, "rate": rate}
+             "dtype": dtype_name(dtype), "mask": kind, "rate": rate,
+             "variant": variant}
             for name in FLASH_KERNELS]
     rows[0].update(max_abs_err=fwd_err, tolerance=fwd_tol, lse_err=lse_err)
     rows[1].update(max_abs_err=checks[0][0], tolerance=checks[0][1])
@@ -974,16 +1039,46 @@ def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
                                                delta, g, rate), **reps)
             rows[2]["plain_ms"] = rows[1]["plain_ms"]
             sdpa = lambda *x: F.scaled_dot_product_attention(  # noqa: E731
-                *(heads(y) for y in x), attn_mask=allowed, dropout_p=rate)
+                *(heads(y) for y in x),
+                attn_mask=None if mask is None else allowed, dropout_p=rate)
             rows[0]["library_ms"] = cuda_ms(lambda: sdpa(q, k, v), **reps)
             lib_err = (heads(sdpa(q, k, v)).float() - got.float()
                        ).abs().max().item() if not rate else None
             rows[0]["max_abs_diff_vs_library"] = lib_err
         lib_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         lib_out = sdpa(*lib_leaves)
-        rows[1]["library_ms"] = rows[2]["library_ms"] = cuda_ms(
-            lambda: torch.autograd.grad(lib_out, lib_leaves, heads(g),
-                                        retain_graph=True), **reps)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib_leaves, heads(g), retain_graph=True)
+        rows[1]["library_ms"] = rows[2]["library_ms"] = cuda_ms(lib_bwd,
+                                                                **reps)
+        if tc:
+            # The scalar kernels on the same bf16 inputs, through their C
+            # entries: what the tc variant replaced.
+            bufs = [torch.empty_like(x) for x in (q, lse, q, lse, k, v)]
+            for i, tensors in enumerate((
+                    (q, k, v, bufs[0], bufs[1]),
+                    (q, k, v, g, got, lse, bufs[2], bufs[3]),
+                    (q, k, v, g, lse, delta, bufs[4], bufs[5]))):
+                rows[i]["scalar_ms"] = flash_scalar_ms(
+                    fl, i, tensors, q, k, mask, seed, rate, **reps)
+            del bufs
+            # The kernels' own device time beside the host clock's: at the
+            # decoder's shapes a call costs the host more than the card.
+            rows[1]["library_device_ms"] = rows[2]["library_device_ms"] = (
+                device_ms(lib_bwd))
+            with torch.no_grad():
+                rows[0]["library_device_ms"] = device_ms(lambda: sdpa(q, k,
+                                                                      v))
+                for row, fn in zip(rows, (
+                        lambda: fl.flash_attention_forward(q, k, v, mask,
+                                                           seed, rate),
+                        lambda: fl.flash_attention_dq(q, k, v, mask, seed,
+                                                      got, lse, g, rate),
+                        lambda: fl.flash_attention_dkv(q, k, v, mask, seed,
+                                                       lse, delta, g,
+                                                       rate))):
+                    row["device_ms"] = device_ms(fn)
+        del lib_out, lib_leaves
         # The plain and the library backward compute dq, dk and dv in one.
         rows[1]["plain_and_library_cover"] = "dq + dk + dv"
         rows[2]["plain_and_library_cover"] = "dq + dk + dv"
@@ -1003,9 +1098,47 @@ def flash_case(fl, prng, gen, b, t, s, d, dtype, mask, kind, rate, timed):
     return rows
 
 
-def phase_flash(fl, prng):
+def phase_flash_vit(fl, fa, prng, gen):
+    """The flash attention kernels at the ViT's shape under
+    vit_attention_impl "pallas" (a train step's 1,528 frames, 16 heads of
+    64, unmasked), rates 0 and 0.1, with K1's tc kernels timed on the same
+    q, k, v as (B, T, H*D): mhsa_short computes the same function there."""
+    import torch
+
+    rows = []
+    shape = (TRAIN_FRAMES, SEQ, HEADS, WIDTH // HEADS)
+    for rate in (0.0, RATE):
+        tensors = [randn(shape, gen, torch.bfloat16) for _ in range(4)]
+        case = flash_case(fl, prng, gen, *shape[:2], SEQ, shape[3],
+                          torch.bfloat16, None, "none", rate, timed=True,
+                          h=HEADS, tensors=tensors)
+        flat = [x.view(TRAIN_FRAMES, SEQ, WIDTH) for x in tensors]
+        seed = 4000 + SEQ if rate else None
+        with torch.no_grad():
+            before = (fa.mhsa_short.tc_launches,
+                      fa.mhsa_short_backward.tc_launches)
+            k1_fwd = cuda_ms(lambda: fa.mhsa_short(*flat[:3], seed, HEADS,
+                                                   rate))
+            k1_bwd = cuda_ms(lambda: fa.mhsa_short_backward(*flat, seed,
+                                                            HEADS, rate))
+            check(fa.mhsa_short.tc_launches > before[0]
+                  and fa.mhsa_short_backward.tc_launches > before[1],
+                  "K1 beside the ViT-shape flash case ran no tc kernel")
+        case[0]["k1_ms"] = k1_fwd
+        case[1]["k1_ms"] = case[2]["k1_ms"] = k1_bwd
+        case[1]["k1_covers"] = case[2]["k1_covers"] = "dq + dk + dv"
+        print(f"flash attention at the ViT's shape, rate {rate}: forward "
+              f"{case[0]['ms']:.4f} ms against K1's {k1_fwd:.4f}; dQ + dK/dV "
+              f"{case[1]['ms'] + case[2]['ms']:.4f} ms against K1's "
+              f"{k1_bwd:.4f}", flush=True)
+        rows += case
+    return rows
+
+
+def phase_flash(fl, fa, prng):
     """The flash attention kernels against their plain versions at the
-    shapes the decoder gives them, and the mask's properties."""
+    shapes the decoder gives them and at the ViT's, and the mask's
+    properties."""
     import torch
 
     start = time.monotonic()
@@ -1031,6 +1164,9 @@ def phase_flash(fl, prng):
                        timed=True)
     rows += flash_case(fl, prng, gen, 2, 47, 47, 16, torch.float32,
                        fl.BandMask(47, 47), "causal", 0.0, timed=False)
+    rows += flash_case(fl, prng, gen, 2, 47, 47, 16, torch.bfloat16,
+                       fl.BandMask(47, 47), "causal", RATE, timed=False)
+    rows += phase_flash_vit(fl, fa, prng, gen)
 
     # The mask's properties: rows 0-1 of a B = 8 call draw the bits of a
     # B = 2 call; another seed draws another mask; the index path equals
@@ -1038,6 +1174,7 @@ def phase_flash(fl, prng):
     q, g = (randn(FLASH_SHAPE, gen, torch.bfloat16) for _ in range(2))
     k, v = (randn(FLASH_SHAPE, gen, torch.bfloat16) for _ in range(2))
     band = fl.BandMask(t, t, FLASH_WINDOW)
+    tc_mark = fl.flash_attention_dkv.tc_launches
     with torch.no_grad():
         out, lse = fl.flash_attention_forward(q, k, v, band, 51, RATE)
         prefix = torch.equal(
@@ -1054,6 +1191,9 @@ def phase_flash(fl, prng):
                                                   RATE)
         third = fl.flash_attention_backward(q, k, v, as_tensor, 51, out_t,
                                             lse_t, g, RATE)
+    check(fl.flash_attention_dkv.tc_launches == tc_mark + 3,
+          "the mask properties of flash attention did not run the tc "
+          "kernels")
     repeat = all(torch.equal(a, b) for a, b in zip(first, second))
     index = torch.equal(out, out_t) and all(
         torch.equal(a, b) for a, b in zip(first, third))
@@ -2073,9 +2213,10 @@ def phase_train_d(counters, card, root, dataset_argv):
           f"{results['overall_accuracy']:.2f}%; host syncs in the epoch "
           f"loop outside the logging fetch: {len(watch.syncs)}", flush=True)
     for kernel in FLASH_KERNELS:
-        check(per_step[kernel] == 16,
+        check(per_step[kernel] == per_step[kernel + "_tc"] == 16,
               f"a train step of train D launched {kernel} "
-              f"{per_step[kernel]} times, expected 16 (8 layers x self and "
+              f"{per_step[kernel]} times, {per_step[kernel + '_tc']} of them "
+              "of the tc variant, expected 16 of it (8 layers x self and "
               "cross attention)")
     # One train step's 16 forward launches, and 16 more for each
     # teacher-forced evaluation batch (validation and test: one of 8 each).
@@ -2257,9 +2398,12 @@ def phase_evaluate(counters, root, dataset_argv, model_argv):
           f"{launches}", flush=True)
     # Five teacher-forced passes (sample, two first-mistake passes, two
     # evaluations), each one batch of 8: 16 forward launches a pass.
-    check(launches["flash_attention"] == 5 * 16,
+    check(launches["flash_attention"] == launches["flash_attention_tc"]
+          == 5 * 16,
           f"the evaluation launched the flash forward "
-          f"{launches['flash_attention']} times, expected 80")
+          f"{launches['flash_attention']} times, "
+          f"{launches['flash_attention_tc']} of the tc variant, expected 80 "
+          "of it")
     check(launches["flash_attention_dq"] == 0
           and launches["flash_attention_dkv"] == 0,
           "the evaluation launched a backward kernel")
@@ -2370,6 +2514,46 @@ def kernel_entry(name, replaces, launches, rows, pick, extra):
     return entry
 
 
+def flash_entries(rows, launches):
+    """The kernels line's three K3 entries: the decoder's self-attention
+    (causal) with dropout, as the train step runs it, with the banded
+    cross-attention's times, the rate-0 times, the scalar kernels' on the
+    same inputs and the times at the ViT's shape (K1's beside them)."""
+    same = lambda r: {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}  # noqa: E731
+    flash_at = lambda kind: lambda r: (  # noqa: E731
+        (r["batch"], r["q_len"], r["d"]) == (FLASH_SHAPE[0], FLASH_SHAPE[1],
+                                             FLASH_SHAPE[3])
+        and r["dtype"] == "bfloat16" and r["mask"] == kind
+        and r["rate"] == RATE)
+    flash_rate0 = lambda kind: lambda r: (  # noqa: E731
+        flash_at(kind)(dict(r, rate=RATE)) and r["rate"] == 0.0)
+    flash_vit = lambda rate: lambda r: (  # noqa: E731
+        r["batch"] == TRAIN_FRAMES and r["rate"] == rate)
+    flash = []
+    for name, line in zip(FLASH_KERNELS, (108, 173, 206)):
+        entry = kernel_entry(name, f"videocad_tpu/ops/attention.py:{line}",
+                             launches[name], rows, flash_at("causal"), same)
+        row = next(r for r in rows if r["kernel"] == name
+                   and flash_at("causal")(r))
+        entry.update(variant=row["variant"], scalar_ms=row["scalar_ms"],
+                     device_ms=row["device_ms"],
+                     library_device_ms=row["library_device_ms"],
+                     roofline_share=row["bound_ms"] / row["device_ms"],
+                     tc_launches=launches[name + "_tc"])
+        for suffix, pick in (("_band", flash_at("band")),
+                             ("_rate0", flash_rate0("causal")),
+                             ("_band_rate0", flash_rate0("band")),
+                             ("_vit", flash_vit(RATE)),
+                             ("_vit_rate0", flash_vit(0.0))):
+            other = next(r for r in rows if r["kernel"] == name and pick(r))
+            entry.update({key + suffix: other.get(key) for key in (
+                "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "scalar_ms", "k1_ms", "bound_ms")
+                if key in other})
+        flash.append(entry)
+    return flash
+
+
 def attention_bound(tensors, flops_per_cell):
     """The bound of an attention kernel that moves ``tensors`` (B, T, H*D)
     tensors and does ``flops_per_cell`` * T * T * D flops per head."""
@@ -2422,7 +2606,7 @@ def main() -> None:
     rows += phase_gray(pp)
     rows += phase_layer_norm(ln)
     rows += phase_hw_dropout(dr)
-    rows += phase_flash(fl, prng)
+    rows += phase_flash(fl, fa, prng)
     torch.cuda.empty_cache()
     rows += phase_block(fb, prng)
     torch.cuda.empty_cache()
@@ -2441,6 +2625,10 @@ def main() -> None:
         "flash_attention": (fl.flash_attention, "launches"),
         "flash_attention_dq": (fl.flash_attention_dq, "launches"),
         "flash_attention_dkv": (fl.flash_attention_dkv, "launches"),
+        # Of those, the launches of the tensor-core variant.
+        "flash_attention_tc": (fl.flash_attention, "tc_launches"),
+        "flash_attention_dq_tc": (fl.flash_attention_dq, "tc_launches"),
+        "flash_attention_dkv_tc": (fl.flash_attention_dkv, "tc_launches"),
         "attn_block": (fb.attn_block, "launches"),
         "attn_block_bwd": (fb.attn_block_backward, "launches"),
         "mlp_block": (fb.mlp_block, "launches"),
@@ -2554,23 +2742,7 @@ def main() -> None:
         launches["hw_dropout"], rows,
         lambda r: tuple(r["shape"]) == DROPOUT_SHAPES[0]
         and r["dtype"] == "bfloat16", same)
-    # The flash attention kernels at the decoder's self-attention (causal)
-    # with dropout, as the train step runs it; the banded cross-attention's
-    # times beside them.
-    flash_at = lambda kind: lambda r: (  # noqa: E731
-        (r["batch"], r["q_len"], r["d"]) == (FLASH_SHAPE[0], FLASH_SHAPE[1],
-                                             FLASH_SHAPE[3])
-        and r["dtype"] == "bfloat16" and r["mask"] == kind
-        and r["rate"] == RATE)
-    flash = []
-    for name, line in zip(FLASH_KERNELS, (108, 173, 206)):
-        entry = kernel_entry(name, f"videocad_tpu/ops/attention.py:{line}",
-                             launches[name], rows, flash_at("causal"), same)
-        band = next(r for r in rows if r["kernel"] == name
-                    and flash_at("band")(r))
-        entry.update({f"{key}_band": band[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-        flash.append(entry)
+    flash = flash_entries(rows, launches)
     # The fused sub-block kernels at a train step's frames with dropout;
     # the time of the port's unfused sub-block stands beside them.
     blocks = []

@@ -400,18 +400,25 @@ def _flash_mask(kind, t, s):
     return mask
 
 
-def _flash_close(got, want, dtype):
+def _flash_close(got, want, dtype, rounding=0.0):
     """float32: 2e-5 of the tensor's largest entry (sums over 256 columns
-    and up to 191 keys in another order). bf16: that, plus one unit in the
-    last place of bf16 at the value's magnitude (the one rounding of the
-    output may fall to the other side)."""
+    and up to 191 keys in another order). bf16: one unit in the last place
+    of bf16 at the value's magnitude (the one rounding of the output may
+    fall to the other side) plus that; or, for the tc variant, plus
+    ``rounding`` of the largest entry instead: the tensor cores take P and
+    ds rounded to bf16 where the plain versions keep float32 (2^-9 for the
+    forward, 2^-7 for the gradients)."""
     w = want.float()
-    tol = 2e-5 * max(1.0, w.abs().max().item())
+    scale = w.abs().max().item()
+    tol = rounding * scale if rounding else 2e-5 * max(1.0, scale)
     err = (got.float() - w).abs()
     if dtype == BF16:
         exponent = torch.frexp(w.abs().clamp_min(1e-30))[1]
         err = err - torch.ldexp(torch.ones_like(w), exponent - 8)
     return err.max().item() <= tol
+
+
+FWD_ROUNDING, GRAD_ROUNDING = 2.0 ** -9, 2.0 ** -7
 
 
 FLASH_CASES = [
@@ -423,6 +430,22 @@ FLASH_CASES = [
     (3, 70, 33, 2, 64, BF16, "random", 0.0),
     (2, 50, 50, 3, 40, F32, "none", 0.25),        # D off the lane grid
     (1, 5, 7, 1, 8, F32, "causal", 0.0),
+    # The tc variant: D 16, 64 and 256 (and 48, 80, 144 between buckets),
+    # T and S of 1, 15, 16, 17, 47 and 191, every mask mode, both rates.
+    (8, 191, 191, 4, 256, BF16, "causal", 0.1),
+    (2, 191, 47, 2, 256, BF16, "none", 0.1),
+    (3, 17, 191, 2, 256, BF16, "random", 0.1),
+    (6, 16, 47, 2, 256, BF16, "band", 0.0),
+    (4, 16, 15, 2, 64, BF16, "causal", 0.1),
+    (5, 1, 17, 4, 64, BF16, "none", 0.0),
+    (2, 191, 16, 1, 64, BF16, "random", 0.1),
+    (2, 47, 191, 2, 16, BF16, "band", 0.1),
+    (2, 17, 16, 3, 16, BF16, "random", 0.0),
+    (4, 47, 17, 2, 16, BF16, "causal", 0.1),
+    (3, 1, 1, 2, 16, BF16, "none", 0.1),
+    (2, 15, 191, 2, 48, BF16, "none", 0.0),
+    (2, 33, 47, 2, 80, BF16, "causal", 0.1),
+    (1, 17, 17, 2, 144, BF16, "band", 0.1),
 ]
 
 
@@ -432,15 +455,18 @@ def test_flash_attention_kernels_match_plain_versions(cuda, b, t, s, h, d,
     q, k, v, g = _flash_inputs(b, t, s, h, d, dtype, seed=b * 100 + t)
     mask = _flash_mask(kind, t, s)
     seed = 321 if rate else None
-    marks = (fl.flash_attention.launches, fl.flash_attention_dq.launches,
-             fl.flash_attention_dkv.launches)
+    variant = fl._kernel_variant(dtype, d)
+    assert variant == ("tc" if dtype == BF16 and d % 16 == 0 else "scalar")
+    counted = (fl.flash_attention, fl.flash_attention_dq,
+               fl.flash_attention_dkv)
+    marks = [(c.launches, c.tc_launches) for c in counted]
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = fl.flash_attention(*leaves, mask, seed, rate)
     # A non-contiguous gradient, as autograd may hand over.
     out.backward(g.transpose(0, 1).contiguous().transpose(0, 1))
     torch.cuda.synchronize()
-    assert (fl.flash_attention.launches, fl.flash_attention_dq.launches,
-            fl.flash_attention_dkv.launches) == tuple(m + 1 for m in marks)
+    for c, mark in zip(counted, marks):
+        assert _launched(c, mark, variant)
     with torch.no_grad():
         want, want_lse = fl.flash_attention_reference(q, k, v, mask, seed,
                                                       rate)
@@ -449,11 +475,12 @@ def test_flash_attention_kernels_match_plain_versions(cuda, b, t, s, h, d,
         assert (lse - want_lse).abs().max().item() <= 1e-4
         grads = fl.flash_attention_backward_reference(
             q, k, v, mask, seed, got, lse, g, rate)
+    tc = variant == "tc"
     assert out.dtype == dtype and out.shape == q.shape
-    assert _flash_close(out, want, dtype)
+    assert _flash_close(out, want, dtype, FWD_ROUNDING if tc else 0.0)
     for leaf, w in zip(leaves, grads):
         assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
-        assert _flash_close(leaf.grad, w, dtype)
+        assert _flash_close(leaf.grad, w, dtype, GRAD_ROUNDING if tc else 0.0)
     if dtype == F32:
         # And against autograd through the plain forward (same mask).
         again = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -479,15 +506,19 @@ def test_flash_attention_index_mask_equals_the_tensor_mask(cuda, window):
         assert torch.equal(a, b)
 
 
-def test_flash_attention_kernels_draw_one_mask(cuda):
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_attention_kernels_draw_one_mask(cuda, dtype):
     """With V = [I | 0] per head the output is the dropped weights, and
     with g = [I | 0] dv is their transpose: the forward's and the dK/dV
     kernel's kept sets are read off and must be the bit function's; a
-    batch prefix draws the prefix's bits; another seed another mask."""
+    batch prefix draws the prefix's bits; another seed another mask. float32
+    runs the scalar kernels, bf16 the tc ones."""
     b, t, h, d, rate = 4, 191, 4, 256, 0.1
-    q, k, _, _ = _flash_inputs(b, t, t, h, d, F32, seed=9)
-    eye = torch.eye(t, d, device="cuda").view(1, t, 1, d).expand(
+    q, k, _, _ = _flash_inputs(b, t, t, h, d, dtype, seed=9)
+    eye = torch.eye(t, d, device="cuda", dtype=dtype).view(1, t, 1, d).expand(
         b, t, h, d).contiguous()
+    marks = (fl.flash_attention.tc_launches,
+             fl.flash_attention_dkv.tc_launches)
     with torch.no_grad():
         clean, lse = fl.flash_attention_forward(q, k, eye)
         out, lse_d = fl.flash_attention_forward(q, k, eye, None, 11, rate)
@@ -497,6 +528,10 @@ def test_flash_attention_kernels_draw_one_mask(cuda):
                                                lse_d, eye, rate)
         prefix = fl.flash_attention_forward(q[:2], k[:2], eye[:2], None, 11,
                                             rate)[0]
+    tc = 1 if dtype == BF16 else 0
+    assert (fl.flash_attention.tc_launches,
+            fl.flash_attention_dkv.tc_launches) == (marks[0] + 4 * tc,
+                                                    marks[1] + tc)
     assert torch.equal(lse, lse_d)       # the denominator sums undropped p
     positive = clean[..., :t].permute(0, 2, 1, 3) > 0      # (B, H, T, S)
     kept = out[..., :t].permute(0, 2, 1, 3) > 0
@@ -512,16 +547,26 @@ def test_flash_attention_kernels_draw_one_mask(cuda):
     assert abs(share - rate) <= 4 * (0.09 / positive.sum().item()) ** 0.5
 
 
-def test_flash_attention_gradients_repeat_exactly(cuda):
+@pytest.mark.parametrize("b,t,h,d,kind", [
+    (8, 191, 4, 256, "causal"),     # the decoder's self-attention
+    (6, 50, 16, 64, "none"),        # the ViT's attention under "pallas"
+    (3, 47, 2, 16, "random"),
+])
+def test_flash_attention_gradients_repeat_exactly(cuda, b, t, h, d, kind):
     """Every output element has one owner and nothing is summed with
-    atomics: two backward calls give the same bits."""
-    q, k, v, g = _flash_inputs(8, 191, 191, 4, 256, BF16, seed=4)
-    mask = fl.BandMask(191, 191)
+    atomics: two backward calls of the tc variant give the same bits."""
+    q, k, v, g = _flash_inputs(b, t, t, h, d, BF16, seed=4)
+    mask = _flash_mask(kind, t, t)
+    marks = (fl.flash_attention_dq.tc_launches,
+             fl.flash_attention_dkv.tc_launches)
     with torch.no_grad():
         out, lse = fl.flash_attention_forward(q, k, v, mask, 3, 0.1)
         first = fl.flash_attention_backward(q, k, v, mask, 3, out, lse, g, 0.1)
         second = fl.flash_attention_backward(q, k, v, mask, 3, out, lse, g,
                                              0.1)
+    assert (fl.flash_attention_dq.tc_launches,
+            fl.flash_attention_dkv.tc_launches) == (marks[0] + 2,
+                                                    marks[1] + 2)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

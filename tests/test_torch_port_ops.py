@@ -27,7 +27,9 @@ from videocad_tpu.ops import prng as jax_prng
 from videocad_tpu_torch.actions import ops as port_action_ops
 from videocad_tpu_torch.actions import vocab as port_vocab
 from videocad_tpu_torch.cli import serve as port_serve
+from videocad_tpu_torch.kernels import build as port_build
 from videocad_tpu_torch.models import create_model, flagship_config
+from videocad_tpu_torch.ops import attention as port_flash
 from videocad_tpu_torch.ops import dropout as port_dropout
 from videocad_tpu_torch.ops import fused_attention as port_fused
 from videocad_tpu_torch.ops import layernorm as port_layernorm
@@ -91,6 +93,45 @@ def test_mhsa_short_kernel_variant_rule(dtype, seq, head_dim, variant):
     """Which kernel a CUDA call launches: a pure function of the dtype and
     the shape (the wrapper raises for what neither variant takes)."""
     assert port_fused._kernel_variant(dtype, seq, head_dim) == variant
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("head_dim", [8, 16, 40, 64, 256, 272])
+def test_flash_attention_kernel_variant_rule(dtype, head_dim):
+    """Which flash attention kernels a CUDA call launches: the tensor-core
+    variant for bfloat16 with D a multiple of 16 from 16 to 256 (the
+    decoder's 256, the ViT's 64), the scalar one for the rest (float32:
+    TF32 would break 2e-5; D = 272 is refused by the wrapper)."""
+    tc = dtype == torch.bfloat16 and head_dim in (16, 64, 256)
+    assert port_flash._kernel_variant(dtype, head_dim) == (
+        "tc" if tc else "scalar")
+
+
+def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source and every csrc/*.cuh, so an
+    edited header never loads a stale library; another source's edit
+    leaves it alone. On a copy of csrc/ in a temporary directory."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in port_build.CSRC_DIR.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            (csrc / path.name).write_bytes(path.read_bytes())
+    assert (csrc / "tc_common.cuh").is_file()
+    monkeypatch.setattr(port_build, "CSRC_DIR", csrc)
+    before = port_build.library_path("flash_attention")
+    assert before == port_build.library_path("flash_attention")
+    with open(csrc / "layernorm.cu", "a") as f:
+        f.write("\n// another source's edit\n")
+    assert port_build.library_path("flash_attention") == before
+    with open(csrc / "tc_common.cuh", "a") as f:
+        f.write("\n// an edited header\n")
+    after = port_build.library_path("flash_attention")
+    assert after != before and after.parent == before.parent
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert port_build.library_path("flash_attention") != after
+    assert port_build.sources() == sorted(
+        p.stem for p in csrc.glob("*.cu"))
 
 
 def test_mhsa_short_rejects_what_the_kernel_does_not_take():

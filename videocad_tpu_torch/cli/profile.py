@@ -25,6 +25,8 @@ one JSON line:
   kernels     kernels launched per iteration
   mhsa_short_ms  device ms per iteration of the ViT attention kernels (K1,
               both variants, forward and backward)
+  flash_attention_ms  device ms per iteration of the flash attention
+              kernels (K3, both variants: forward, dQ, dK/dV)
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
@@ -37,8 +39,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
+
+# The port's flash attention kernels (csrc/flash_attention.cu), not
+# PyTorch's own flash kernels.
+_FLASH_KERNEL = re.compile(r"flash_(fwd|dq|dkv)_(tc|scalar)_kernel")
 
 
 def _timed(fn, n: int) -> float:
@@ -104,6 +111,8 @@ def profile_work(name: str, fn, n: int, warmup: int = 2,
             "kernels": len(kernels) / n,
             "mhsa_short_ms": sum(ms for key, (ms, _) in by_name.items()
                                  if "mhsa_short" in key),
+            "flash_attention_ms": sum(ms for key, (ms, _) in by_name.items()
+                                      if _FLASH_KERNEL.search(key)),
             "top": [[ms, count, ms / count, key[:90]]
                     for key, (ms, count) in top]}
 

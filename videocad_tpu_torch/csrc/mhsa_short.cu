@@ -60,7 +60,8 @@
 // of 16 up to 64, T <= 64 (the flagship: T = 50, D = 64). Every product
 // runs on the tensor cores through mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), whose fragment layouts the PTX ISA specifies, so the scores
-// never leave registers:
+// never leave registers (ldmatrix, mma.sync, the fragment packing and the
+// keep bits are csrc/tc_common.cuh's, shared with flash_attention.cu):
 //   - one block of four warps per (frame, head); q, k, v (and g) come into
 //     shared memory as bf16 by 16-byte cp.async, rows padded to 144 bytes
 //     so that ldmatrix's eight row addresses fall on distinct banks; rows T
@@ -99,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -142,33 +145,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Philox4x32-10 with key (seed, 0) and counter (c0, c1, c2, c3): its four
-// words.
-__device__ __forceinline__ uint4 philox(uint32_t seed, uint32_t c0,
-                                        uint32_t c1, uint32_t c2,
-                                        uint32_t c3) {
-  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-  uint32_t k0 = seed, k1 = 0u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
-    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += kW0;
-    k1 += kW1;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
 // Word j % 4 of Philox4x32-10, key (seed, 0), counter (j / 4, i, h, b).
 __device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t b,
                                                  uint32_t h, uint32_t i,
                                                  uint32_t j) {
-  const uint4 w = philox(seed, j >> 2, i, h, b);
+  const uint4 w = philox(seed, 0u, j >> 2, i, h, b);
   const uint32_t word = j & 3u;
   return word == 0u ? w.x : word == 1u ? w.y : word == 2u ? w.z : w.w;
 }
@@ -407,43 +388,6 @@ constexpr int kTcStride = kMaxHeadDim + 8;    // bf16 a tile row: 144 bytes
 constexpr int kTcTile = kMaxSeq * kTcStride;  // bf16 a (64, D) tile
 constexpr int kTcBwdBytes = 6 * kTcTile * 2;  // q, k, v, g, dropped, ds
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(const __nv_bfloat16* p,
-                                        uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const __nv_bfloat16* p,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b over one 16 x 8 x 16 tile: a the A fragment (16 x 16, row
-// major), (b0, b1) the B fragment (16 x 8), d the C fragment in f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to bf16 (to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Rows [0, seq) of one head's (T, D) slice of a (B, T, H*D) tensor (src at
 // row 0, rows row_stride apart) into a (64, kTcStride) tile, 16 bytes a
 // cp.async; rows seq..rows-1 are zero-filled (rows: seq rounded up to 16).
@@ -566,50 +510,6 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
     for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
 }
 
-// The keep bits of the warp's 16 rows from r0, one per element of the C
-// layout: bit 4n + e for s[n][e]. One Philox call per lane and key tile:
-// the group of keys 8n + 4(t / 2) .. + 3 is held by lanes t and t ^ 1 of
-// the quad, each for rows r0 + g and r0 + g + 8; the even lane draws row
-// r0 + g, the odd one row r0 + g + 8, and they swap their four bits. Key
-// tiles from seq on keep every bit (their weights are 0).
-__device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t frame,
-                                              uint32_t head, int r0, int lane,
-                                              int seq, uint32_t threshold) {
-  const int g = lane >> 2, t = lane & 3;
-  const bool even = (t & 1) == 0;
-  const uint32_t row = (uint32_t)(r0 + g + (even ? 0 : 8));
-  const int shift = even ? 0 : 2;     // the lane's keys are words 0-1 or 2-3
-  uint32_t bits = 0xffffffffu;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    if (8 * n >= seq) break;
-    const uint4 w = philox(seed, (uint32_t)(2 * n + (t >> 1)), row, head,
-                           frame);
-    const uint32_t mine = (uint32_t)(w.x >= threshold) |
-                          (uint32_t)(w.y >= threshold) << 1 |
-                          (uint32_t)(w.z >= threshold) << 2 |
-                          (uint32_t)(w.w >= threshold) << 3;
-    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-    const uint32_t upper = even ? mine : other;   // row r0 + g
-    const uint32_t lower = even ? other : mine;   // row r0 + g + 8
-    const uint32_t nibble =
-        ((upper >> shift) & 3u) | (((lower >> shift) & 3u) << 2);
-    bits = (bits & ~(0xfu << (4 * n))) | (nibble << (4 * n));
-  }
-  return bits;
-}
-
-// The C fragments of two key tiles (16 keys) as the A fragment of a product
-// over those keys, rounded to bf16.
-__device__ __forceinline__ void to_a_fragment(const float (&lo)[4],
-                                              const float (&hi)[4],
-                                              uint32_t (&a)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
 // acc (C layout, the warp's 16 rows) into rows 0..15 of a staging tile as
 // bf16.
 template <int D>
@@ -678,7 +578,8 @@ mhsa_short_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   softmax_rows(s, lane, seq, scale_log2);
   const uint32_t keep =
       threshold != 0u
-          ? keep_bits(seed, frame, head, r0, lane, seq, threshold)
+          ? keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
+                         threshold)
           : 0xffffffffu;
   // Dropped (inv_keep is 1 without dropout) and rounded to bf16 where the
   // plain version rounds, as the A fragments of P V.
@@ -745,7 +646,8 @@ mhsa_short_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     softmax_rows(w, lane, seq, scale_log2);
     const uint32_t keep =
         threshold != 0u
-            ? keep_bits(seed, frame, head, r0, lane, seq, threshold)
+            ? keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
+                         threshold)
             : 0xffffffffu;
     float dw[8][4] = {};
     row_products<D>(gs, vs, r0, lane, seq, dw);   // d_dropped = g v^T

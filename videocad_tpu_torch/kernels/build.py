@@ -2,13 +2,16 @@
 
 Each source is one ``.cu`` file under ``videocad_tpu_torch/csrc/`` with
 plain C entry points (a source may hold several kernels that share code:
-``mhsa_short.cu`` the forward and the backward). It is compiled with
+``mhsa_short.cu`` the forward and the backward), and may include the
+headers beside it (``tc_common.cuh``: the tensor-core building blocks of
+``mhsa_short.cu`` and ``flash_attention.cu``). It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root, at first use, and loaded with
-``ctypes``. The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded. Only sources
-under ``csrc/`` are compiled. :func:`build_all` compiles every source at
-once, one ``nvcc`` process each, all started together.
+``ctypes``. The library's file name carries a hash of its source and of
+the headers, so an edited source or header is rebuilt and a stale library
+is never loaded. Only sources under ``csrc/`` are compiled.
+:func:`build_all` compiles every source at once, one ``nvcc`` process
+each, all started together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package, and a machine without ``nvcc`` never builds anything.
@@ -54,10 +57,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives. Its name
+    carries a hash of the source and of every header under ``csrc/`` (a
+    source may include any of them), so an edited header rebuilds too."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def sources() -> List[str]:

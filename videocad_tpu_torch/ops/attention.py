@@ -7,11 +7,12 @@ Port of ``videocad_tpu/ops/attention.py:flash_attention``. It computes
 kernels (``csrc/flash_attention.cu``) stream key tiles with the running
 (max, denominator) recurrence, read the heads by strides out of the
 (B, T, H, D) layout the projections produce, and keep of the forward only
-the output and the per-row logsumexp. The math is float32 throughout,
-whatever the I/O dtype, as in the TPU kernel: q is scaled by 1/sqrt(D) in
-float32, the weights stay float32 up to the P V product (``xla_attention``
-rounds them to the I/O dtype first), dropout multiplies the unnormalised
-weights and the denominator sums the undropped ones.
+the output and the per-row logsumexp. Scores, softmax statistics and every
+sum are float32 whatever the I/O dtype, as in the TPU kernel; dropout
+multiplies the unnormalised weights and the denominator sums the undropped
+ones. The plain versions here keep the weights and ds in float32 up to
+the products that consume them (``xla_attention`` rounds the weights to
+the I/O dtype first); the bfloat16 kernels round them to bfloat16 there.
 
 Masks. The two masks the model builds come as a :class:`BandMask`, a
 description by indices (``col <= row``, and ``col > row - window`` for the
@@ -29,7 +30,13 @@ draw one mask, whatever their tiling.
 Dispatch: a CPU tensor runs the plain PyTorch versions
 (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`); a CUDA tensor launches the
-kernels or raises. There is no fallback from one to the other.
+kernels or raises. There is no fallback from one to the other. Of the
+kernels, :func:`_kernel_variant` picks one of two variants from the dtype
+and the head width alone: "tc" (bfloat16 on the tensor cores, which round
+the dropped weights and ds to bfloat16 before the products that consume
+them, as the TPU kernels' ``precision=None`` products do) or "scalar"
+(float32, and head widths the tensor-core tiles do not take); neither
+stands in for the other when a launch fails.
 """
 
 from __future__ import annotations
@@ -40,12 +47,15 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+# 16-byte aligned inputs for the tc variant, as the short-sequence
+# kernels' tc variant takes them.
+from videocad_tpu_torch.ops.fused_attention import _aligned
 from videocad_tpu_torch.ops.prng import (FLASH_KEY_WORD, dropout_bits,
                                          dropout_threshold, keep_mask,
                                          require_seed)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256          # the kernels hold 8 x 32 output columns a warp
+MAX_HEAD_DIM = 256          # the kernels' widest head (csrc/flash_attention.cu)
 _MAX_GRID_Y = 65535         # batch * heads rides the grid's y dimension
 _NEG_INF = -1e30
 _MASK_NONE, _MASK_BAND, _MASK_TENSOR = 0, 1, 2
@@ -161,6 +171,16 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel variant for a CUDA call: "tc" for bfloat16 with D a
+    multiple of 16 from 16 to 256, "scalar" for everything else the
+    kernels take (float32: the tensor cores would round it to TF32)."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 16 <= head_dim <= MAX_HEAD_DIM):
+        return "tc"
+    return "scalar"
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
             q.shape[0], q.shape[2], q.shape[3]) != (
@@ -216,23 +236,24 @@ def _dropout_args(seed, dropout_rate) -> Tuple[int, int, float]:
             1.0 / (1.0 - dropout_rate))
 
 
-def _launch(entry, pointers, q, k, mask: Mask, seed, dropout_rate):
+def _launch(pick, tensors, q, k, mask: Mask, seed, dropout_rate) -> str:
+    """Launch entry ``pick`` (0 forward, 1 dQ, 2 dK/dV) of the variant the
+    dtype and head width take on ``tensors``; returns the variant."""
     b, t, h, d = q.shape
     s = k.shape[1]
+    variant = _kernel_variant(q.dtype, d)
     mode, window, tensor = _mask_args(mask, t, s, q.device)
     mask_ptr = None if tensor is None else tensor.data_ptr()
+    entry = (_entries or load_library())[variant][pick]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(*pointers, mask_ptr, b, t, s, h, d, 1.0 / math.sqrt(d),
-                    _DTYPE_CODES[q.dtype], mode, window,
-                    *_dropout_args(seed, dropout_rate), stream)
+        err = entry(*(x.data_ptr() for x in tensors), mask_ptr, b, t, s, h,
+                    d, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], mode,
+                    window, *_dropout_args(seed, dropout_rate), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-
-
-def _ptrs(*tensors):
-    return [x.data_ptr() for x in tensors]
+        raise RuntimeError(f"flash_attention {variant} kernel launch "
+                           f"failed: CUDA error {err}")
+    return variant
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,7 +261,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             dropout_rate: float = 0.0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, T, H, D), lse (B, H, T) float32): one launch of the forward
-    kernel on a CUDA tensor (``flash_attention.launches`` counts them),
+    kernel on a CUDA tensor (``flash_attention.launches`` counts them,
+    ``.tc_launches`` those of the tc variant),
     :func:`flash_attention_reference` on a CPU tensor."""
     _check(q, k, v)
     require_seed(seed, dropout_rate, "flash_attention")
@@ -256,9 +278,10 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if k.shape[1] == 0:
         raise ValueError("flash_attention over no keys")
-    entries = _entries or load_library()
-    _launch(entries[0], _ptrs(q, k, v, out, lse), q, k, mask, seed,
-            dropout_rate)
+    q, k, v = (_aligned(x) for x in (q, k, v))
+    if _launch(0, (q, k, v, out, lse), q, k, mask, seed,
+               dropout_rate) == "tc":
+        flash_attention.tc_launches += 1
     flash_attention.launches += 1
     return out, lse
 
@@ -268,13 +291,15 @@ def flash_attention_dq(q, k, v, mask: Mask, seed, out, lse, g,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, delta (B, H, T) float32) from one launch of the dQ kernel, which
     also computes ``delta = rowsum(g * out)`` for the dK/dV kernel
-    (``flash_attention_dq.launches`` counts them). CUDA tensors only."""
+    (``flash_attention_dq.launches`` counts them, ``.tc_launches`` those of
+    the tc variant). CUDA tensors only."""
     _check_kernel_inputs(q, k, v, g, out, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    entries = _entries or load_library()
-    _launch(entries[1], _ptrs(q, k, v, g, out, lse, dq, delta), q, k, mask,
-            seed, dropout_rate)
+    q, k, v, g, out = (_aligned(x) for x in (q, k, v, g, out))
+    if _launch(1, (q, k, v, g, out, lse, dq, delta), q, k, mask, seed,
+               dropout_rate) == "tc":
+        flash_attention_dq.tc_launches += 1
     flash_attention_dq.launches += 1
     return dq, delta
 
@@ -284,12 +309,13 @@ def flash_attention_dkv(q, k, v, mask: Mask, seed, lse, delta, g,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from one launch of the dK/dV kernel, given the forward's
     lse and the dQ kernel's delta (``flash_attention_dkv.launches`` counts
-    them). CUDA tensors only."""
+    them, ``.tc_launches`` those of the tc variant). CUDA tensors only."""
     _check_kernel_inputs(q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    entries = _entries or load_library()
-    _launch(entries[2], _ptrs(q, k, v, g, lse, delta, dk, dv), q, k, mask,
-            seed, dropout_rate)
+    q, k, v, g = (_aligned(x) for x in (q, k, v, g))
+    if _launch(2, (q, k, v, g, lse, delta, dk, dv), q, k, mask, seed,
+               dropout_rate) == "tc":
+        flash_attention_dkv.tc_launches += 1
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -359,8 +385,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bfloat16, contiguous tensors, any T and S, a head width of 1
     to 256 and B * H up to 65,535, and raises on anything else;
     ``flash_attention.launches``, ``flash_attention_dq.launches`` and
-    ``flash_attention_dkv.launches`` count the launches. On CPU tensors it
-    runs the plain versions.
+    ``flash_attention_dkv.launches`` count the launches, and their
+    ``tc_launches`` the launches of the tensor-core variant
+    (:func:`_kernel_variant`). On CPU tensors it runs the plain versions.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -368,16 +395,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_forward(q, k, v, mask, seed, dropout_rate)[0]
 
 
-flash_attention.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+for _counted in (flash_attention, flash_attention_dq, flash_attention_dkv):
+    _counted.launches = 0
+    _counted.tc_launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
-    entries (``flash_attention_fwd``, ``flash_attention_dq``,
-    ``flash_attention_dkv``), bound once and kept for every later launch."""
+    entries by variant, ``{"scalar": (flash_attention_fwd,
+    flash_attention_dq, flash_attention_dkv), "tc": (flash_attention_tc_fwd,
+    flash_attention_tc_dq, flash_attention_tc_dkv)}``, bound once and kept
+    for every later launch."""
     global _entries
     from videocad_tpu_torch.kernels import build
 
@@ -387,11 +416,15 @@ def load_library():
     tail = ([ctypes.c_void_p] + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
-    fwd, dq, dkv = (lib.flash_attention_fwd, lib.flash_attention_dq,
-                    lib.flash_attention_dkv)
-    fwd.restype = dq.restype = dkv.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 5 + tail
-    dq.argtypes = [ctypes.c_void_p] * 8 + tail
-    dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-    _entries = (fwd, dq, dkv)
+    entries = {}
+    for variant, prefix in (("scalar", "flash_attention_"),
+                            ("tc", "flash_attention_tc_")):
+        fwd, dq, dkv = (getattr(lib, prefix + name)
+                        for name in ("fwd", "dq", "dkv"))
+        fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 5 + tail
+        dq.argtypes = [ctypes.c_void_p] * 8 + tail
+        dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+        entries[variant] = (fwd, dq, dkv)
+    _entries = entries
     return _entries
