@@ -18,9 +18,12 @@ imports nothing of JAX. Phases, each of which must pass:
      mask's properties, each in the variant its dtype takes (bf16 on the
      tensor cores, float32 scalar; the bf16 rows also time the scalar
      kernel on the same inputs), the two
-     grayscale kernels, layer_norm forward and backward (also against
-     float64), hw_dropout (compared exactly, and its mask's properties),
-     and one library call per kernel that has one
+     grayscale kernels, layer_norm forward (the exact-width instantiation
+     checked by its counter) and backward (also against float64),
+     hw_dropout (compared exactly, and its mask's properties), the
+     forward LayerNorm and hw_dropout also timed on the device beside the
+     library call, with the host's cost of a call (host clock minus
+     device time), and one library call per kernel that has one
      (scaled_dot_product_attention and its autograd backward, F.layer_norm
      and its backward, F.dropout) timed beside it as a yardstick that no
      path uses; then the
@@ -54,10 +57,12 @@ imports nothing of JAX. Phases, each of which must pass:
   8. train C: the training entry point, videocad_tpu_torch.cli.train.main,
      on a synthetic dataset written to disk from a seed (32 sequences of
      150-191 frames of 224 x 224 x 3), the flagship with ln_impl and
-     dropout_impl "pallas": 2 epochs of 2 steps at B=8 with validation, a
-     rollout validation, checkpoints, the test evaluation and test
-     rollout; then a second call with --resume for one epoch more. The
-     epoch loop must not synchronise the host outside its logging fetch;
+     dropout_impl "pallas" (the LayerNorm forward through its bf16
+     kernels of width 512 and 1,024, each checked by its counter): 2
+     epochs of 2 steps at B=8 with validation, a rollout validation,
+     checkpoints, the test evaluation and test rollout; then a second
+     call with --resume for one epoch more. The epoch loop must not
+     synchronise the host outside its logging fetch;
      the files of the logs layout must exist; the resumed run must start at
      epoch 2, step 4, with the checkpoint's parameters; the eval loss on
      the test split must fall;
@@ -174,7 +179,13 @@ def device_ms(fn, n: int = 10) -> float:
     what a call costs the card when the host keeps up."""
     from videocad_tpu_torch.cli.profile import profile_work
 
-    return profile_work("", fn, n)["device_ms"]
+    # The tracer may drop every kernel of a window of short launches: read
+    # another window then.
+    for _ in range(3):
+        ms = profile_work("", fn, n)["device_ms"]
+        if ms > 0:
+            return ms
+    fail("torch.profiler saw no kernel in three windows")
 
 
 def in_turns(kernel, plain, **kw):
@@ -182,6 +193,27 @@ def in_turns(kernel, plain, **kw):
     p1, k1, k2, p2 = (cuda_ms(f, **kw) for f in (plain, kernel, kernel,
                                                   plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def three_in_turns(kernel, plain, library, plain_kw):
+    """(kernel ms, plain ms, library ms) on the host clock, timed plain,
+    kernel, library, library, kernel, plain; ``plain_kw`` are the plain
+    version's repetitions (it is slow at the large shapes)."""
+    p1, k1, l1, l2, k2, p2 = (cuda_ms(f, **kw) for f, kw in (
+        (plain, plain_kw), (kernel, {}), (library, {}), (library, {}),
+        (kernel, {}), (plain, plain_kw)))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+
+
+def with_device_times(row, kernel, library):
+    """Add the kernel's and the library call's device times (torch.profiler)
+    to ``row``, and the host's cost of a call beside each: host-clock time
+    minus device time."""
+    row["device_ms"] = device_ms(kernel)
+    row["library_device_ms"] = device_ms(library)
+    row["host_ms"] = row["ms"] - row["device_ms"]
+    row["library_host_ms"] = row["library_ms"] - row["library_device_ms"]
+    return row
 
 
 def bound(n_bytes: float, flops: float, dtype: str) -> dict:
@@ -324,6 +356,7 @@ def phase_forward(fa):
             if b >= 374 and dtype == torch.bfloat16:
                 row["scalar_ms"] = scalar_ms(
                     fa, 0, (q, k, v, torch.empty_like(q)), None, 0.0)
+            if dtype == torch.bfloat16:
                 # The yardstick: one library call for the same function on
                 # the same inputs, as (B, H, T, D) views. No path uses it.
                 heads = lambda x: x.view(b, SEQ, HEADS, -1).transpose(1, 2)  # noqa: E731
@@ -394,6 +427,7 @@ def phase_forward_dropout(fa, prng):
         if b >= 374 and dtype == torch.bfloat16:
             row["scalar_ms"] = scalar_ms(
                 fa, 0, (q, k, v, torch.empty_like(q)), seed, RATE)
+        if dtype == torch.bfloat16:
             # The library's call for the same function (its own mask).
             heads = lambda x: x.view(b, SEQ, HEADS, -1).transpose(1, 2)  # noqa: E731
             with torch.no_grad():
@@ -650,27 +684,37 @@ def phase_layer_norm(ln):
             err = (got.float() - want.float()).abs().max().item()
             return err, ulps(got, want).max().item()
 
+        variant = f"{dtype_name(dtype)}/{d}"    # the exact-width kernel
+        counted = ln.layer_norm.variant_launches
+        before = counted[variant]
         with torch.no_grad():
             got = ln.layer_norm(x, scale, bias, LN_EPS)
             torch.cuda.synchronize()
+            check(counted[variant] == before + 1,
+                  f"layer_norm_fwd {n}x{d} {dtype}: the {variant} kernel "
+                  "did not run")
             want = ln.layer_norm_plain(x, scale, bias, LN_EPS)
             max_err, max_ulps = errors(got, want)
             exact = layer_norm_f64(x, scale, bias)
             f64_err = (got.double() - exact).abs().max().item()
             del exact
             lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
-            ms, plain_ms = in_turns(
-                lambda: ln.layer_norm(x, scale, bias, LN_EPS),
-                lambda: ln.layer_norm_plain(x, scale, bias, LN_EPS))
-            library_ms = cuda_ms(lambda: F.layer_norm(
-                x, (d,), lib_scale, lib_bias, LN_EPS))
-        row = {"kernel": "layer_norm_fwd", "rows": n, "d": d,
-               "dtype": dtype_name(dtype), "max_abs_err": max_err,
-               "max_err_ulps": max_ulps, "max_abs_err_vs_f64": f64_err,
-               "tolerance": "1 ulp of bf16" if bf16 else "1e-5",
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+            kernel = lambda: ln.layer_norm(x, scale, bias, LN_EPS)  # noqa: E731
+            library = lambda: F.layer_norm(  # noqa: E731
+                x, (d,), lib_scale, lib_bias, LN_EPS)
+            ms, plain_ms, library_ms = three_in_turns(
+                kernel, lambda: ln.layer_norm_plain(x, scale, bias, LN_EPS),
+                library, {})
+            row = {"kernel": "layer_norm_fwd", "rows": n, "d": d,
+                   "dtype": dtype_name(dtype), "variant": variant,
+                   "max_abs_err": max_err, "max_err_ulps": max_ulps,
+                   "max_abs_err_vs_f64": f64_err,
+                   "tolerance": "1 ulp of bf16" if bf16 else "1e-5",
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+            with_device_times(row, kernel, library)
         row.update(bound(2 * n * d * itemsize + 8 * d, 8.0 * n * d,
                          "float32"))
+        row["roofline_share"] = row["bound_ms"] / row["device_ms"]
         print(f"layer_norm_fwd {row}", flush=True)
         check(math.isfinite(max_err)
               and (max_ulps <= 1.0 if bf16 else max_err <= 1e-5),
@@ -737,10 +781,13 @@ def phase_layer_norm(ln):
     # A width off the vector grid takes the scalar path of the same kernels.
     x = randn((37, 100), gen, torch.bfloat16)
     scale, bias = (randn((100,), gen, torch.float32) for _ in range(2))
+    before = ln.layer_norm.variant_launches["bfloat16/scalar"]
     with torch.no_grad():
         odd = ulps(ln.layer_norm(x, scale, bias, LN_EPS),
                    ln.layer_norm_plain(x, scale, bias, LN_EPS)).max().item()
     check(odd <= 1.0, f"layer_norm_fwd 37x100 bf16: {odd} ulps")
+    check(ln.layer_norm.variant_launches["bfloat16/scalar"] == before + 1,
+          "layer_norm_fwd 37x100 bf16 did not take the scalar kernel")
     try:
         ln.layer_norm(randn((4, 2048), gen, torch.bfloat16),
                       torch.ones(2048, device="cuda"),
@@ -775,20 +822,22 @@ def phase_hw_dropout(dr):
             same_set = torch.equal(got != 0, want != 0)
             share = (got == 0).float().mean().item()
             del want
-            reps = dict(reps=3, groups=3, warmup=1)
-            ms, plain_ms = in_turns(
-                lambda: dr.hw_dropout(x, seed, RATE),
-                lambda: dr.hw_dropout_plain(x, seed, RATE), **reps)
-            library_ms = cuda_ms(lambda: F.dropout(x, RATE, True))
-        n = x.numel()
-        row = {"kernel": "hw_dropout", "shape": list(shape),
-               "dtype": dtype_name(dtype), "max_abs_err": max_err,
-               "kept_set_identical": same_set, "drop_share": share,
-               "tolerance": "0 (exact)", "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms}
+            kernel = lambda: dr.hw_dropout(x, seed, RATE)  # noqa: E731
+            library = lambda: F.dropout(x, RATE, True)  # noqa: E731
+            ms, plain_ms, library_ms = three_in_turns(
+                kernel, lambda: dr.hw_dropout_plain(x, seed, RATE), library,
+                dict(reps=3, groups=3, warmup=1))
+            n = x.numel()
+            row = {"kernel": "hw_dropout", "shape": list(shape),
+                   "dtype": dtype_name(dtype), "max_abs_err": max_err,
+                   "kept_set_identical": same_set, "drop_share": share,
+                   "tolerance": "0 (exact)", "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms}
+            with_device_times(row, kernel, library)
         # Philox: about 90 integer operations per four elements.
         row.update(bound(2 * n * (2 if dtype == torch.bfloat16 else 4),
                          23.0 * n, "float32"))
+        row["roofline_share"] = row["bound_ms"] / row["device_ms"]
         print(f"hw_dropout {row}", flush=True)
         check(max_err == 0.0 and same_set,
               f"hw_dropout {shape} {dtype}: differs from its plain version "
@@ -2621,6 +2670,11 @@ def main() -> None:
                                   "resize_launches"),
         "layer_norm_fwd": (ln.layer_norm, "launches"),
         "layer_norm_bwd": (ln.layer_norm_backward, "launches"),
+        # Of the forward's, those of the flagship's two exact-width kernels.
+        "layer_norm_fwd_bf16_512": (ln.layer_norm.variant_launches,
+                                    "bfloat16/512"),
+        "layer_norm_fwd_bf16_1024": (ln.layer_norm.variant_launches,
+                                     "bfloat16/1024"),
         "hw_dropout": (dr.hw_dropout, "launches"),
         "flash_attention": (fl.flash_attention, "launches"),
         "flash_attention_dq": (fl.flash_attention_dq, "launches"),
@@ -2637,6 +2691,9 @@ def main() -> None:
 
     def counter(name):
         holder, attr = counted[name]
+        if isinstance(holder, dict):
+            return lambda *value: (holder.__setitem__(attr, value[0])
+                                   if value else holder[attr])
         return lambda *value: (setattr(holder, attr, value[0]) if value
                                else getattr(holder, attr))
 
@@ -2729,19 +2786,35 @@ def main() -> None:
     resize = kernel_entry(
         "gray_resize_normalize", "videocad_tpu/ops/preprocess.py:167",
         launches["gray_resize_normalize"], rows, lambda r: True, same)
-    ln_shape = lambda r: (r["rows"], r["d"]) == LN_SHAPES[0] and (  # noqa: E731
-        r["dtype"] == "bfloat16")
+    ln_at = lambda shape: lambda r: (  # noqa: E731
+        (r["rows"], r["d"]) == shape and r["dtype"] == "bfloat16")
     ln_fwd = kernel_entry(
         "layer_norm_fwd", "videocad_tpu/ops/layernorm.py:43",
-        launches["layer_norm_fwd"], rows, ln_shape, same)
+        launches["layer_norm_fwd"], rows, ln_at(LN_SHAPES[0]), same)
     ln_bwd = kernel_entry(
         "layer_norm_bwd", "videocad_tpu/ops/layernorm.py:51",
-        launches["layer_norm_bwd"], rows, ln_shape, same)
+        launches["layer_norm_bwd"], rows, ln_at(LN_SHAPES[0]), same)
+    drop_at = lambda shape: lambda r: (  # noqa: E731
+        tuple(r["shape"]) == shape and r["dtype"] == "bfloat16")
     drop = kernel_entry(
         "hw_dropout", "videocad_tpu/ops/dropout.py:32",
-        launches["hw_dropout"], rows,
-        lambda r: tuple(r["shape"]) == DROPOUT_SHAPES[0]
-        and r["dtype"] == "bfloat16", same)
+        launches["hw_dropout"], rows, drop_at(DROPOUT_SHAPES[0]), same)
+    # Both clocks for K4's forward and K5, and the host's cost of a call
+    # (host clock minus device time), at the train step's shape and at the
+    # small one (the CAD encoder's rows, the decoder's attention weights).
+    clocks = ("device_ms", "library_device_ms", "host_ms", "library_host_ms")
+    for entry, large, small in (
+            (ln_fwd, ln_at(LN_SHAPES[0]), ln_at(LN_SHAPES[2])),
+            (drop, drop_at(DROPOUT_SHAPES[0]), drop_at(DROPOUT_SHAPES[1]))):
+        row = next(r for r in entry["checks"] if large(r))
+        entry.update({key: row[key] for key in clocks + ("roofline_share",)})
+        row = next(r for r in entry["checks"] if small(r))
+        entry.update({key + "_small": row[key]
+                      for key in ("ms", "library_ms") + clocks})
+    ln_fwd.update(variant=next(r for r in ln_fwd["checks"]
+                               if ln_at(LN_SHAPES[0])(r))["variant"],
+                  variant_launches={name: launches[name] for name in (
+                      "layer_norm_fwd_bf16_512", "layer_norm_fwd_bf16_1024")})
     flash = flash_entries(rows, launches)
     # The fused sub-block kernels at a train step's frames with dropout;
     # the time of the port's unfused sub-block stands beside them.

@@ -294,6 +294,58 @@ def test_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
     assert empty.shape == (0, 64)
 
 
+# Each instantiation of the forward (``ln.forward_variant``), at row counts
+# that are no multiple of the rows a warp takes at a time (4 at d = 512
+# bf16, 2 at 1,024 or 512 f32): 1, 3, 401, 76,401.
+@pytest.mark.parametrize("rows", [1, 3, 401, 76401])
+@pytest.mark.parametrize("d,dtype,variant", [
+    (512, BF16, "bfloat16/512"),
+    (1024, BF16, "bfloat16/1024"),
+    (512, F32, "float32/512"),
+    (1024, F32, "float32/1024"),
+    (768, BF16, "bfloat16/vector"),
+    (768, F32, "float32/vector"),
+    (100, BF16, "bfloat16/scalar"),   # 200 bytes: off the 16-byte grid
+    (30, F32, "float32/scalar"),
+])
+def test_layer_norm_forward_variants_match_plain_version(cuda, rows, d,
+                                                         dtype, variant):
+    x, scale, bias, _ = _ln_inputs(rows, d, dtype, seed=rows + d)
+    before = dict(ln.layer_norm.variant_launches)
+    with torch.no_grad():
+        got = ln.layer_norm(x, scale, bias, 1e-5)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_plain(x, scale, bias, 1e-5)
+    moved = {k: v - before[k] for k, v in ln.layer_norm.variant_launches.items()
+             if v != before[k]}
+    assert moved == {variant: 1}
+    if dtype == BF16:
+        assert _within_one_bf16_ulp(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,variant", [(BF16, "bfloat16/scalar"),
+                                           (F32, "float32/scalar")])
+def test_layer_norm_forward_of_an_unaligned_view(cuda, dtype, variant):
+    """A view that starts one element in is off the 16-byte boundary: the
+    scalar instantiation takes it, whatever its width."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flat = torch.randn(401 * 512 + 1, generator=gen, device="cuda")
+    x = (flat * 2.0 + 0.5).to(dtype)[1:].view(401, 512)
+    scale = 1.0 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(512, generator=gen, device="cuda")
+    before = ln.layer_norm.variant_launches[variant]
+    with torch.no_grad():
+        got = ln.layer_norm(x, scale, bias, 1e-5)
+        want = ln.layer_norm_plain(x, scale, bias, 1e-5)
+    assert ln.layer_norm.variant_launches[variant] == before + 1
+    if dtype == BF16:
+        assert _within_one_bf16_ulp(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-5
+
+
 # ---- K5: the standalone dropout ----
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -340,6 +392,35 @@ def test_hw_dropout_kernel_mask_properties(cuda):
     assert torch.equal(leaf.grad, dr.hw_dropout(g, 5, 0.1))
     with pytest.raises(TypeError):
         dr.hw_dropout(x.half(), 5, 0.1)
+
+
+# A thread's span of an iteration is 4 16-byte units (32 bf16, 16 float32
+# elements), a block's 256 of those: tails of 1-17 elements past three
+# blocks' spans take the partial span and the scalar tail.
+@pytest.mark.parametrize("tail", range(1, 18))
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_hw_dropout_kernel_at_every_tail(cuda, tail, dtype):
+    n = 3 * 256 * 4 * 8 + tail
+    gen = torch.Generator(device="cuda").manual_seed(tail)
+    x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    x[x == 0] = 1.0
+    got = dr.hw_dropout(x, 1234, 0.1)
+    want = dr.hw_dropout_plain(x, 1234, 0.1)
+    assert torch.equal(got, want) and torch.equal(got != 0, want != 0)
+
+
+# Views that start 1-7 elements into a tensor: unaligned for the 16-byte
+# accesses (but float32 at 4), masked by their own flat index.
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_hw_dropout_kernel_at_every_offset(cuda, offset, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(100 + offset)
+    base = torch.randn(50001, generator=gen, device="cuda").to(dtype)
+    base[base == 0] = 1.0
+    x = base[offset:offset + 40000]
+    got = dr.hw_dropout(x, 99, 0.1)
+    want = dr.hw_dropout_plain(x, 99, 0.1)
+    assert torch.equal(got, want) and torch.equal(got != 0, want != 0)
 
 
 # ---- the device feed ----

@@ -27,6 +27,9 @@ one JSON line:
               both variants, forward and backward)
   flash_attention_ms  device ms per iteration of the flash attention
               kernels (K3, both variants: forward, dQ, dK/dV)
+  layer_norm_fwd_ms, hw_dropout_ms  device ms per iteration of the
+              LayerNorm forward kernels (K4, every instantiation) and of
+              the standalone dropout kernel (K5)
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
@@ -113,6 +116,10 @@ def profile_work(name: str, fn, n: int, warmup: int = 2,
                                  if "mhsa_short" in key),
             "flash_attention_ms": sum(ms for key, (ms, _) in by_name.items()
                                       if _FLASH_KERNEL.search(key)),
+            "layer_norm_fwd_ms": sum(ms for key, (ms, _) in by_name.items()
+                                     if "layer_norm_fwd_kernel" in key),
+            "hw_dropout_ms": sum(ms for key, (ms, _) in by_name.items()
+                                 if "hw_dropout_kernel" in key),
             "top": [[ms, count, ms / count, key[:90]]
                     for key, (ms, count) in top]}
 

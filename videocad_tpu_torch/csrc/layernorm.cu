@@ -19,23 +19,51 @@
 // What bounds them on the card: bytes. The forward reads x and writes y,
 // the backward reads x and g and writes dx, a few dozen flops per element:
 // at the train step's 76,400 x 512 bf16 rows that is 156 MB and 235 MB,
-// 0.047 ms and 0.070 ms at 3.35 TB/s.
+// 0.047 ms and 0.070 ms at 3.35 TB/s. A call at the CAD encoder's 400 rows
+// moves 0.8 MB: there the host's work around the launch bounds it
+// (ops/layernorm.py keeps that path short).
 //
-// What the design does about it: one warp owns one row at a time and holds
-// it in registers as f32 (up to 32 values per lane, so d <= 1,024), read
-// by 16-byte loads with neighbouring lanes on neighbouring addresses, so
-// every x and g is read once and every y and dx written once, and the two
-// row reductions are warp shuffles over registers. Warps walk the rows
-// with a grid stride, so scale (and bias) are loaded once per warp, not
-// once per row. Where the TPU kernel carries dscale and dbias partials per
-// 1,024-row block through a sequential grid, here each lane sums the
-// columns it owns over all the rows its warp visits, the block's warps are
-// combined through shared memory, each block writes one (d,) partial, and a
-// second small kernel sums the (blocks, d) partials per column. Two passes
-// and no atomics: the sums are taken in a fixed order, so dscale and dbias
-// are the same in every run. A width that is not a multiple of the 16-byte
-// vector, or a pointer that is not aligned for it, takes the same kernels
-// with one element per load.
+// The forward. The first version held every row as 32 f32 values a lane
+// (the widest row, d = 1,024), so at d = 512 bf16 half of each lane's
+// registers were zeros that were loaded, summed and kept; and each warp
+// walked the rows one at a time, its loads, two shuffle reductions and
+// store one after the other: 51% of the bound at d = 512, 74% at 1,024.
+// Now the width is a template parameter: the flagship's widths (512 and
+// 1,024, bf16 and float32) have instantiations of their exact width, with
+// no predicated column, a generic one serves every other d <= 1,024 on the
+// 16-byte grid, and a scalar one the widths off it or an unaligned x. A
+// lane keeps its chunks as loaded (eight bf16 values in four registers) and
+// widens them in each of its three passes. A warp owns R rows, 4-8 KB of
+// x (R = 4 at d = 512 and 1,024 bf16, 2 at 512 float32, 1 at 1,024
+// float32): it issues all their loads, and scale's and bias's, before it
+// reduces the first, and runs their R shuffle reductions interleaved. The
+// grid has one warp for every R rows, so the SM's scheduler keeps starting
+// warps, and their loads, while others reduce and store. Measured on an
+// H100 at 76,400 x 512 bf16 (CUDA events, PERF.md section 6): this
+// takes 0.0554 ms where a persistent grid of resident blocks walking the
+// rows took 0.0611-0.0640 (R = 1 to 8), the same with the next rows' loads
+// issued before the current rows' reductions 0.0611-0.0622, and a per-warp
+// ring of 4 rows in shared memory fed by cp.async 0.0611-0.0625; in the
+// full grid 1, 2 and 8 rows a warp 0.0920, 0.0598 and 0.0563. At 1,024
+// bf16, 4 rows a warp 0.1062 and 2 rows 0.1106. The statistics are f32:
+// the mean, then the centred second moment, rsqrt(var + eps); y = norm *
+// scale + bias with separately rounded products and sums, rounded once to
+// the I/O dtype.
+//
+// The backward: one warp owns one row at a time and holds it in registers
+// as f32 (up to 32 values per lane, so d <= 1,024), read by 16-byte loads
+// with neighbouring lanes on neighbouring addresses, so every x and g is
+// read once and every dx written once, and the two row reductions are warp
+// shuffles over registers. Warps walk the rows with a grid stride. Where
+// the TPU kernel carries dscale and dbias partials per 1,024-row block
+// through a sequential grid, here each lane sums the columns it owns over
+// all the rows its warp visits, the block's warps are combined through
+// shared memory, each block writes one (d,) partial, and a second small
+// kernel sums the (blocks, d) partials per column. Two passes and no
+// atomics: the sums are taken in a fixed order, so dscale and dbias are the
+// same in every run. A width that is not a multiple of the 16-byte vector,
+// or a pointer that is not aligned for it, takes the same kernels with one
+// element per load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +75,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPerLane = 32;              // row values a lane holds
 constexpr int kMaxD = 32 * kPerLane;      // 1,024
-constexpr int kFwdMaxBlocks = 132 * 8;    // a few waves of row-walking warps
 constexpr int kBwdMaxBlocks = 132 * 4;    // also the rows of the partials
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -154,36 +181,162 @@ __device__ __forceinline__ float normalize_row(float (&x)[kPerLane], int d,
   return rstd;
 }
 
-template <int VEC>
+template <int VEC, int N>
 __device__ __forceinline__ void load_param(const float* __restrict__ p, int d,
-                                           int lane, float (&out)[kPerLane]) {
+                                           int lane, float (&out)[N]) {
 #pragma unroll
-  for (int e = 0; e < kPerLane; ++e) {
+  for (int e = 0; e < N; ++e) {
     const int col = col_of<VEC>(e, lane);
     out[e] = col < d ? p[col] : 0.f;
   }
 }
 
-template <typename T, int VEC>
+// The forward's row storage: a lane keeps what it loaded as it came from
+// memory (a 16-byte chunk of VEC values, or one value when VEC is 1) and
+// widens it to f32 in each of the three passes over the row, so a bf16 row
+// takes half the registers of its f32 values.
+template <typename T, int VEC> struct Chunk {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero() {
+    return make_uint4(0, 0, 0, 0);
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    if constexpr (VEC == 8) {      // bf16: element 2i is word i's low half
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = __uint_as_float(w[i]);
+    }
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    store_vec(p, v);
+  }
+};
+template <typename T> struct Chunk<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ Raw zero() { return Raw(0.f); }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    v[0] = load_one(&r);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    store_one(p, v[0]);
+  }
+};
+
+// R sums of a warp at once: the R butterflies interleave.
+template <int R>
+__device__ __forceinline__ void warp_sums(float (&s)[R]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+}
+
+// A lane owns NV chunks of VEC columns of each row, chunk c at columns
+// (c * 32 + lane) * VEC onwards. EXACT: d == 32 * NV * VEC, so no column is
+// past d and no access is predicated. Rows ``first`` to ``first + R - 1``
+// (those below ``rows``) into ``raw``, zeros elsewhere.
+template <typename T, int VEC, int NV, int R, bool EXACT>
+__device__ __forceinline__ void load_rows(
+    const T* __restrict__ x, long long first, long long rows, int d, int lane,
+    typename Chunk<T, VEC>::Raw (&raw)[R][NV]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * 32 + lane) * VEC;
+      raw[r][c] = first + r < rows && (EXACT || col < d)
+                      ? Chunk<T, VEC>::load(x + (first + r) * d + col)
+                      : Chunk<T, VEC>::zero();
+    }
+}
+
+// The R rows of ``raw`` normalised, scaled, shifted and stored: the R
+// rows' shuffle reductions interleave.
+template <typename T, int VEC, int NV, int R, bool EXACT>
+__device__ __forceinline__ void norm_rows(
+    const typename Chunk<T, VEC>::Raw (&raw)[R][NV], long long first,
+    long long rows, int d, int lane, float eps, const float* sc,
+    const float* bi, T* __restrict__ y) {
+  using C = Chunk<T, VEC>;
+  float mean[R], rstd[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float v[VEC];
+      C::widen(raw[r][c], v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sum += v[i];
+    }
+    mean[r] = sum;
+  }
+  warp_sums<R>(mean);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mean[r] /= (float)d;
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float v[VEC];
+      C::widen(raw[r][c], v);
+      if (EXACT || (c * 32 + lane) * VEC < d)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float centered = v[i] - mean[r];
+          sq = fmaf(centered, centered, sq);
+        }
+    }
+    rstd[r] = sq;
+  }
+  warp_sums<R>(rstd);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    rstd[r] = rsqrtf(rstd[r] / (float)d + eps);
+    if (first + r >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * 32 + lane) * VEC;
+      if (!EXACT && col >= d) continue;
+      float v[VEC];
+      C::widen(raw[r][c], v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float norm = (v[i] - mean[r]) * rstd[r];
+        v[i] = __fadd_rn(__fmul_rn(norm, sc[c * VEC + i]), bi[c * VEC + i]);
+      }
+      C::store(y + (first + r) * d + col, v);
+    }
+  }
+}
+
+// Warp w of the grid owns rows w * R to w * R + R - 1: it loads scale,
+// bias and all its rows before it reduces the first.
+template <typename T, int VEC, int NV, int R, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bias, T* __restrict__ y,
                       long long rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long first = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const long long stride = (long long)gridDim.x * kWarps;
-  float sc[kPerLane], bi[kPerLane];
+  const long long first =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R;
+  if (first >= rows) return;            // the whole warp
+  float sc[NV * VEC], bi[NV * VEC];
   load_param<VEC>(scale, d, lane, sc);
   load_param<VEC>(bias, d, lane, bi);
-  for (long long row = first; row < rows; row += stride) {
-    float v[kPerLane];
-    load_row<T, VEC>(x + row * d, d, lane, v);
-    normalize_row<VEC>(v, d, lane, eps);
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e)
-      v[e] = __fadd_rn(__fmul_rn(v[e], sc[e]), bi[e]);
-    store_row<T, VEC>(y + row * d, d, lane, v);
-  }
+  typename Chunk<T, VEC>::Raw raw[R][NV];
+  load_rows<T, VEC, NV, R, EXACT>(x, first, rows, d, lane, raw);
+  norm_rows<T, VEC, NV, R, EXACT>(raw, first, rows, d, lane, eps, sc, bi, y);
 }
 
 // parts: (2, gridDim.x, d) f32; block b writes its dscale partial to
@@ -279,11 +432,13 @@ inline int blocks_for(long long rows, int cap) {
   return (int)(want < cap ? want : cap);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int NV, int R, bool EXACT>
 int launch_fwd(const void* x, const void* scale, const void* bias, void* y,
                long long rows, int d, float eps, cudaStream_t s) {
-  layer_norm_fwd_kernel<T, VEC><<<blocks_for(rows, kFwdMaxBlocks), kThreads, 0,
-                                  s>>>(
+  const long long blocks = (rows + kWarps * R - 1) / (kWarps * R);
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  layer_norm_fwd_kernel<T, VEC, NV, R, EXACT><<<(unsigned)blocks, kThreads, 0,
+                                                s>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<T*>(y), rows, d, eps);
   return (int)cudaGetLastError();
@@ -301,6 +456,23 @@ int launch_bwd(const void* x, const void* scale, const void* g, void* dx,
   return (int)cudaGetLastError();
 }
 
+// The forward's instantiations, indexed by variant code:
+// ops/layernorm.py:FWD_VARIANTS names them in this order and
+// forward_variant picks one. <dtype, VEC columns a chunk, NV chunks a lane,
+// R rows a warp at a time, exact width>.
+using FwdLaunch = int (*)(const void*, const void*, const void*, void*,
+                          long long, int, float, cudaStream_t);
+constexpr FwdLaunch kFwdVariants[] = {
+    launch_fwd<float, 1, 32, 1, false>,          // 0 float32/scalar
+    launch_fwd<float, 4, 8, 1, false>,           // 1 float32/vector
+    launch_fwd<float, 4, 4, 2, true>,            // 2 float32/512
+    launch_fwd<float, 4, 8, 1, true>,            // 3 float32/1024
+    launch_fwd<__nv_bfloat16, 1, 32, 1, false>,  // 4 bfloat16/scalar
+    launch_fwd<__nv_bfloat16, 8, 4, 2, false>,   // 5 bfloat16/vector
+    launch_fwd<__nv_bfloat16, 8, 2, 4, true>,    // 6 bfloat16/512
+    launch_fwd<__nv_bfloat16, 8, 4, 4, true>,    // 7 bfloat16/1024
+};
+
 }  // namespace
 
 // The rows of the (2, blocks, d) f32 scratch that layer_norm_bwd needs.
@@ -308,26 +480,26 @@ extern "C" int layer_norm_bwd_blocks(long long rows) {
   return rows < 1 ? 0 : blocks_for(rows, kBwdMaxBlocks);
 }
 
-// x, y: contiguous (rows, d) of dtype 0 = float32 or 1 = bfloat16; scale,
-// bias: contiguous (d,) float32; all on the current device. The launch goes
-// to ``stream`` and does not synchronise. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a shape or dtype it does not
-// take (d > 1,024 among them).
+// x, y: contiguous (rows, d) of the variant's dtype; scale, bias:
+// contiguous (d,) float32; all on the current device. ``variant``: an
+// index of kFwdVariants. "scalar" takes any d <= 1,024 and any alignment;
+// "vector" a d on the 16-byte grid (a multiple of 4 float32 or 8 bfloat16
+// values) and 16-byte aligned x and y; "512" and "1024" that width only.
+// The launch goes to ``stream`` and does not synchronise. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// or variant it does not take.
 extern "C" int layer_norm_fwd(const void* x, const void* scale,
                               const void* bias, void* y, long long rows,
-                              int d, float eps, int dtype, void* stream) {
-  if (rows < 1 || d < 1 || d > kMaxD || (dtype != 0 && dtype != 1))
+                              int d, float eps, int variant, void* stream) {
+  if (rows < 1 || d < 1 || d > kMaxD || variant < 0 || variant > 7)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(x) && aligned16(y);
-  if (dtype == 1) {
-    if (vec && d % 8 == 0)
-      return launch_fwd<__nv_bfloat16, 8>(x, scale, bias, y, rows, d, eps, s);
-    return launch_fwd<__nv_bfloat16, 1>(x, scale, bias, y, rows, d, eps, s);
-  }
-  if (vec && d % 4 == 0)
-    return launch_fwd<float, 4>(x, scale, bias, y, rows, d, eps, s);
-  return launch_fwd<float, 1>(x, scale, bias, y, rows, d, eps, s);
+  const int kind = variant % 4;          // scalar, vector, 512, 1024
+  const int vec = variant >= 4 ? 8 : 4;
+  if ((kind != 0 && !(aligned16(x) && aligned16(y) && d % vec == 0)) ||
+      (kind == 2 && d != 512) || (kind == 3 && d != 1024))
+    return (int)cudaErrorInvalidValue;
+  return kFwdVariants[variant](x, scale, bias, y, rows, d, eps,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // x, g, dx: contiguous (rows, d) of ``dtype``; scale, dscale, dbias: (d,)

@@ -15,6 +15,10 @@ each, all started together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package, and a machine without ``nvcc`` never builds anything.
+
+:func:`launch` is the wrappers' way into a C entry: the current stream's
+raw handle, and a device guard only where the tensor is not on the current
+device.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -130,3 +136,15 @@ def load(name: str) -> ctypes.CDLL:
             _finish_build(name, _start_build(name))
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def launch(entry, device_index: int, *args) -> int:
+    """Call ``entry(*args, stream)``, a kernel's C entry, with the raw
+    handle of the current stream of CUDA device ``device_index``; returns
+    the entry's status. The kernels launch on the current device, so a
+    device guard is entered only when ``device_index`` is not it: entering
+    one costs the host two device exchanges a call."""
+    if device_index == torch._C._cuda_getDevice():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    with torch.cuda.device(device_index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))

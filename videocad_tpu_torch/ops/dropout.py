@@ -27,7 +27,9 @@ sites of one step never share a mask and nothing synchronises.
 
 Dispatch of :func:`hw_dropout`: a CPU tensor runs the plain PyTorch version
 beside the kernel (:func:`hw_dropout_plain`); a CUDA tensor launches the
-kernel or raises. There is no fallback from one to the other.
+kernel or raises. There is no fallback from one to the other. The kernel
+takes the rate itself and derives the threshold and the scale by the rules
+above, in double precision as they are computed here.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import ctypes
 
 import torch
 
+from videocad_tpu_torch.kernels import build
 from videocad_tpu_torch.ops.prng import (derive_seed, dropout_threshold,
                                          elementwise_bits, keep_mask)
 
@@ -71,28 +74,36 @@ def hw_dropout_plain(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return torch.where(keep, scaled, zero).to(x.dtype)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return hw_dropout_plain(x, seed, rate)
-    if x.device.type != "cuda":
-        raise ValueError(f"hw_dropout runs on CPU or CUDA, not {x.device}")
-    if x.dtype not in _DTYPE_CODES:
+def _dtype_code(x: torch.Tensor) -> int:
+    """The kernel's code for ``x``'s dtype; raises on one it does not
+    take."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"hw_dropout kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
+    return code
+
+
+def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    # The host's path to a launch is kept short: at the decoder's attention
+    # weights it takes longer than the kernel (PERF.md section 6).
+    device = x.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return hw_dropout_plain(x, seed, rate)
+        raise ValueError(f"hw_dropout runs on CPU or CUDA, not {device}")
+    code = _dtype_code(x)
     x = x.contiguous()    # the mask is defined on the row-major elements
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    entry = _entry or load_library()
-    with torch.cuda.device(x.device):
-        err = entry(x.data_ptr(), out.data_ptr(), x.numel(),
-                    _DTYPE_CODES[x.dtype], seed & 0xFFFFFFFF,
-                    dropout_threshold(rate), 1.0 / (1.0 - rate),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hw_dropout kernel launch failed: CUDA error "
-                           f"{err}")
-    hw_dropout.launches += 1
+    n = x.numel()
+    if n:
+        err = build.launch(_entry or load_library(), device.index,
+                           x.data_ptr(), out.data_ptr(), n, code,
+                           seed & 0xFFFFFFFF, rate)
+        if err:
+            raise RuntimeError(f"hw_dropout kernel launch failed: CUDA "
+                               f"error {err}")
+        hw_dropout.launches += 1
     return out
 
 
@@ -135,13 +146,11 @@ def load_library():
     """Build (at first use) and load the kernel's library; returns its C
     entry ``hw_dropout``, bound once and kept for every later launch."""
     global _entry
-    from videocad_tpu_torch.kernels import build
-
     entry = build.load("dropout").hw_dropout
     entry.restype = ctypes.c_int
     entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                      ctypes.c_float, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_uint, ctypes.c_double,
+                      ctypes.c_void_p]
     _entry = entry
     return _entry
 

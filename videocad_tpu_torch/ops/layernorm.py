@@ -17,9 +17,12 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
+
+from videocad_tpu_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 1024     # a warp holds a row in registers (csrc/layernorm.cu)
@@ -60,26 +63,35 @@ def layer_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _check(x, scale, bias):
-    d = x.shape[-1] if x.dim() else 0
-    if x.dim() < 1 or scale.shape != (d,) or bias.shape != (d,):
+    shape = x.shape
+    d = shape[-1] if shape else 0
+    if not shape or scale.shape != (d,) or bias.shape != (d,):
         raise ValueError(f"layer_norm takes x (..., D) and scale, bias (D,), "
-                         f"got {tuple(x.shape)}, {tuple(scale.shape)}, "
+                         f"got {tuple(shape)}, {tuple(scale.shape)}, "
                          f"{tuple(bias.shape)}")
-    if scale.device != x.device or bias.device != x.device:
+    device = x.device
+    if scale.device != device or bias.device != device:
         raise ValueError("layer_norm takes x, scale and bias on one device")
 
 
-def _check_kernel_inputs(x, *params):
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm runs on CPU or CUDA, not {x.device}")
-    if x.dtype not in _DTYPE_CODES:
+def _check_kernel_inputs(x, *params) -> int:
+    """What the kernels take, in one pass: x float32 or bfloat16, float32
+    parameters, D <= 1,024. Returns the code of x's dtype."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"layer_norm kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if any(p.dtype != torch.float32 for p in params):
-        raise TypeError("layer_norm kernel takes float32 scale and bias")
+    for p in params:
+        if p.dtype != torch.float32:
+            raise TypeError("layer_norm kernel takes float32 scale and bias")
     if x.shape[-1] > _MAX_DIM:
         raise ValueError(f"layer_norm kernel takes D <= {_MAX_DIM}, got "
                          f"{x.shape[-1]}")
+    return code
+
+
+def _not_cpu_or_cuda(device) -> ValueError:
+    return ValueError(f"layer_norm runs on CPU or CUDA, not {device}")
 
 
 def _raise_on(err: int) -> None:
@@ -88,23 +100,57 @@ def _raise_on(err: int) -> None:
                            f"{err}")
 
 
+# The forward kernel's instantiations, in the order of their variant codes
+# (csrc/layernorm.cu: kFwdVariants).
+FWD_VARIANTS = ("float32/scalar", "float32/vector", "float32/512",
+                "float32/1024", "bfloat16/scalar", "bfloat16/vector",
+                "bfloat16/512", "bfloat16/1024")
+
+
+def forward_variant(d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The forward kernel's instantiation for rows of width ``d`` (<= 1,024)
+    of ``dtype`` (float32 or bfloat16); ``aligned``: x starts on a 16-byte
+    boundary. The flagship's widths, 512 and 1,024, have kernels of their
+    exact width; any other width on the 16-byte grid (a multiple of 4
+    float32 or 8 bfloat16 values) the generic "vector" one; a width off it,
+    or an unaligned x, the "scalar" one."""
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    if not aligned or d % (8 if dtype == torch.bfloat16 else 4):
+        return name + "/scalar"
+    return f"{name}/{d}" if d in (512, 1024) else name + "/vector"
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_code(d: int, dtype_code: int, aligned: bool) -> int:
+    """forward_variant's answer as the code the forward's C entry takes:
+    its index in FWD_VARIANTS."""
+    dtype = torch.bfloat16 if dtype_code else torch.float32
+    return FWD_VARIANTS.index(forward_variant(d, dtype, aligned))
+
+
 def _forward(x, scale, bias, eps):
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    _check_kernel_inputs(x, scale, bias)
+    # The host's path to a launch is kept short: at the CAD encoder's 400
+    # rows it takes longer than the kernel (PERF.md section 6).
+    device = x.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return layer_norm_plain(x, scale, bias, eps)
+        raise _not_cpu_or_cuda(device)
+    dtype_code = _check_kernel_inputs(x, scale, bias)
     x = x.contiguous()
     y = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return y
     d = x.shape[-1]
-    entries = _entries or load_library()
-    with torch.cuda.device(x.device):
-        _raise_on(entries[0](
-            x.data_ptr(), scale.contiguous().data_ptr(),
-            bias.contiguous().data_ptr(), y.data_ptr(), x.numel() // d, d,
-            eps, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream))
+    ptr = x.data_ptr()
+    code = _variant_code(d, dtype_code, ptr % 16 == 0)
+    _raise_on(build.launch(
+        (_entries or load_library())[0], device.index, ptr,
+        scale.contiguous().data_ptr(), bias.contiguous().data_ptr(),
+        y.data_ptr(), n // d, d, eps, code))
     layer_norm.launches += 1
+    layer_norm.variant_launches[FWD_VARIANTS[code]] += 1
     return y
 
 
@@ -119,27 +165,28 @@ def layer_norm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     autograd may hand it over."""
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("layer_norm_backward takes g like x")
-    if x.device.type == "cpu":
-        return layer_norm_backward_plain(x, scale, g, eps)
-    _check_kernel_inputs(x, scale)
+    device = x.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return layer_norm_backward_plain(x, scale, g, eps)
+        raise _not_cpu_or_cuda(device)
+    code = _check_kernel_inputs(x, scale)
     x, g = x.contiguous(), g.contiguous()
     d = x.shape[-1]
     dx = torch.empty_like(x)
     if x.numel() == 0:
-        zeros = torch.zeros(d, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(d, dtype=torch.float32, device=device)
         return dx, zeros, zeros.clone()
-    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(d, dtype=torch.float32, device=x.device)
+    dscale = torch.empty(d, dtype=torch.float32, device=device)
+    dbias = torch.empty(d, dtype=torch.float32, device=device)
     rows = x.numel() // d
     entries = _entries or load_library()
     parts = torch.empty((2, entries[2](rows), d), dtype=torch.float32,
-                        device=x.device)
-    with torch.cuda.device(x.device):
-        _raise_on(entries[1](
-            x.data_ptr(), scale.contiguous().data_ptr(), g.data_ptr(),
-            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-            parts.data_ptr(), rows, d, eps, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream))
+                        device=device)
+    _raise_on(build.launch(
+        entries[1], device.index, x.data_ptr(), scale.contiguous().data_ptr(),
+        g.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+        parts.data_ptr(), rows, d, eps, code))
     layer_norm_backward.launches += 1
     return dx, dscale, dbias
 
@@ -169,8 +216,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     On a CUDA tensor it launches the hand-written kernels, which take
     float32 or bfloat16 x, float32 scale and bias and D <= 1,024, and raises
     on anything else; ``layer_norm.launches`` and
-    ``layer_norm_backward.launches`` count those launches. On a CPU tensor
-    it runs the plain versions.
+    ``layer_norm_backward.launches`` count those launches, and
+    ``layer_norm.variant_launches`` the forward's by instantiation
+    (:func:`forward_variant`). On a CPU tensor it runs the plain versions.
     """
     _check(x, scale, bias)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
@@ -180,6 +228,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+# The forward's launches by instantiation (FWD_VARIANTS).
+layer_norm.variant_launches = dict.fromkeys(FWD_VARIANTS, 0)
 layer_norm_backward.launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
@@ -190,9 +240,8 @@ def load_library():
     ``layer_norm_bwd_blocks``), bound once and kept for every later
     launch."""
     global _entries
-    from videocad_tpu_torch.kernels import build
-
     lib = build.load("layernorm")
+    # rows, d, eps, the variant (forward) or dtype (backward) code, stream
     tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
     fwd, bwd, blocks = (lib.layer_norm_fwd, lib.layer_norm_bwd,
