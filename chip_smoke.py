@@ -41,7 +41,12 @@ imports nothing of JAX. Phases, each of which must pass:
      each of the four dropout sites read off outputs under constructed
      parameters, gradients against autograd through the plain forwards at
      float32, bit-equal repeats, and the port's own unfused sub-block timed
-     beside them;
+     beside them; the attention entries run their tensor-core variant in
+     bf16 (checked by its counters) and the present kernels in float32,
+     and their bf16 rows also time the present kernels on the same inputs,
+     give device times beside the unfused sub-block's, the backward's
+     device time by piece (kernel, dWo product, its sums, torch.matmul)
+     and the tensor-core kernels' registers and spills (nvcc -Xptxas -v);
   4. serve: the flagship config at full width in bf16 with seeded random
      weights, through the serving CLI's build_engine, behind the HTTP
      server; three staggered sessions step through ServingClient, some
@@ -83,8 +88,8 @@ imports nothing of JAX. Phases, each of which must pass:
      block through the fused sub-block kernels): one epoch of 2 steps at
      B=8 with validation, a checkpoint and the test evaluation, without a
      host synchronisation in the epoch loop, 12 launches of each of the
-     four entries a step and none of mhsa_short, and a peak device memory
-     below train D's;
+     four entries a step and none of mhsa_short, the attention's all of its
+     tensor-core variant, and a peak device memory below train D's;
  13. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
      rollout's logits and one train step's loss and gradients compared,
@@ -179,13 +184,11 @@ def device_ms(fn, n: int = 10) -> float:
     what a call costs the card when the host keeps up."""
     from videocad_tpu_torch.cli.profile import profile_work
 
-    # The tracer may drop every kernel of a window of short launches: read
-    # another window then.
-    for _ in range(3):
-        ms = profile_work("", fn, n)["device_ms"]
-        if ms > 0:
-            return ms
-    fail("torch.profiler saw no kernel in three windows")
+    # The tracer may drop kernels of a window, every one of a window of
+    # short launches, and never adds one: the largest of three windows.
+    ms = max(profile_work("", fn, n)["device_ms"] for _ in range(3))
+    check(ms > 0, "torch.profiler saw no kernel in three windows")
+    return ms
 
 
 def in_turns(kernel, plain, **kw):
@@ -1500,10 +1503,15 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
     check(repeat, f"fused blocks {label}: two backward runs differ in a bit")
 
     with torch.no_grad():
+        tc_marks = (fb.attn_block.tc_launches,
+                    fb.attn_block_backward.tc_launches)
         y_attn = fb.attn_block(x, *attn, seed, HEADS, rate)
         y_mlp = fb.mlp_block(x, *mlp, seed, rate)
         g_attn = fb.attn_block_backward(x, *attn, gy, seed, HEADS, rate)
         g_mlp = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
+        ran = ["tc" if now > before else "tile" for now, before in zip(
+            (fb.attn_block.tc_launches, fb.attn_block_backward.tc_launches),
+            tc_marks)]
         checks = {
             "attn_block": block_close([y_attn], [fb.attn_block_reference(
                 x, *attn, seed, HEADS, rate)], dtype),
@@ -1523,6 +1531,13 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
             for name, (err, tol, _) in checks.items()}
     for name, (err, tol, ok) in checks.items():
         check(ok, f"fused blocks {label}: {name} max err {err} (limit {tol})")
+    # bf16 takes the tensor-core variant at the flagship's widths, float32
+    # the present kernels.
+    want_variant = "tile" if f32 else "tc"
+    for name, variant in zip(("attn_block", "attn_block_bwd"), ran):
+        rows[name]["variant"] = variant
+        check(variant == want_variant, f"fused blocks {label}: {name} ran "
+              f"the {variant} variant, expected {want_variant}")
     if f32:
         # The whole chain's gradients against autograd through the plain
         # forwards: 1e-4 of each gradient's largest entry.
@@ -1584,18 +1599,41 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
         for name, (kernel, plain) in calls.items():
             rows[name]["ms"], rows[name]["plain_ms"] = in_turns(kernel, plain,
                                                                 **reps)
+        if not f32:
+            # The present kernels ("tile") on the same bf16 inputs: what the
+            # tc variant replaced at these shapes.
+            tile = {"attn_block": lambda: fb._attn_forward(
+                        x, *attn, seed, HEADS, rate, 1e-5, variant="tile"),
+                    "attn_block_bwd": lambda: fb._attn_backward(
+                        x, *attn, gy, seed, HEADS, rate, 1e-5,
+                        variant="tile")}
+            for name, run in tile.items():
+                rows[name]["tile_ms"] = cuda_ms(run, **reps)
+                rows[name]["tile_device_ms"] = device_ms(run, 5)
+            for name in ("attn_block", "attn_block_bwd"):
+                rows[name]["device_ms"] = device_ms(calls[name][0], 5)
+            rows["attn_block_bwd"]["pieces"] = block_pieces(
+                calls["attn_block_bwd"][0])
     block, attn_half, mlp_half = unfused
     block.train(rate > 0)
     rng = DropoutRng(5, "cuda") if rate else None
     xg = x.detach().clone().requires_grad_()
     for half, fwd_name in ((attn_half, "attn_block"), (mlp_half, "mlp_block")):
-        with torch.no_grad():
-            fwd = cuda_ms(lambda: half(x, rng), **reps)
+        fwd_run = lambda: half(x, rng)  # noqa: E731
         params = [xg] + list(block.parameters())
-        both = cuda_ms(lambda: torch.autograd.grad(
-            half(xg, rng), params, gy, allow_unused=True), **reps)
+        both_run = lambda: torch.autograd.grad(  # noqa: E731
+            half(xg, rng), params, gy, allow_unused=True)
+        with torch.no_grad():
+            fwd = cuda_ms(fwd_run, **reps)
+        both = cuda_ms(both_run, **reps)
         rows[fwd_name]["unfused_ms"] = fwd
         rows[fwd_name + "_bwd"]["unfused_ms"] = both - fwd
+        if not f32 and fwd_name == "attn_block":
+            with torch.no_grad():
+                fwd_dev = device_ms(fwd_run, 5)
+            rows[fwd_name]["unfused_device_ms"] = fwd_dev
+            rows[fwd_name + "_bwd"]["unfused_device_ms"] = (
+                device_ms(both_run, 5) - fwd_dev)
     itemsize = 4 if f32 else 2
     for name, row in rows.items():
         row["library_ms"] = None
@@ -1603,6 +1641,35 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
                          block_flops(batch, name), dtype_name(dtype)))
         print(f"{name} {row}", flush=True)
     return list(rows.values())
+
+
+def block_pieces(run):
+    """The device time of one attention backward call by piece
+    (torch.profiler; cli/block_cost.py's grouping): the sub-block kernel,
+    the dWo product, its two sums, and the rest (torch.matmul's GEMM for
+    dWqkv, the casts)."""
+    from videocad_tpu_torch.cli.block_cost import pieces_of
+    from videocad_tpu_torch.cli.profile import profile_work
+
+    return pieces_of(profile_work("", run, 5, top_n=24)["top"])
+
+
+def ptxas_usage(log, kernel):
+    """Registers and spill bytes of ``kernel`` (a substring of its mangled
+    name) from nvcc's -Xptxas -v output."""
+    usage, inside = {}, False
+    for line in log.splitlines():
+        if ("Compiling entry function" in line
+                or "Function properties for" in line):
+            inside = kernel in line
+        elif inside and "spill stores" in line:
+            words = line.replace(",", "").split()
+            usage["spill_stores"] = int(words[words.index("spill") - 2])
+            usage["spill_loads"] = int(words[words.index("loads") - 3])
+        elif inside and "Used" in line and "registers" in line:
+            usage["registers"] = int(line.split("Used")[1].split()[0])
+            inside = False
+    return usage
 
 
 def phase_block(fb, prng):
@@ -2369,6 +2436,10 @@ def phase_train_e(counters, card, root, dataset_argv, peak_d_gb):
     check(launches["mhsa_short"] == 0 and launches["mhsa_short_bwd"] == 0,
           "train E launched the short-sequence attention kernels, which "
           "the fused sub-blocks replace")
+    for kernel in ("attn_block", "attn_block_bwd"):
+        check(launches[kernel + "_tc"] == launches[kernel],
+              f"train E launched {kernel} {launches[kernel]} times, "
+              f"{launches[kernel + '_tc']} of them the tensor-core variant")
     for kernel in FLASH_KERNELS + ("layer_norm_fwd", "layer_norm_bwd",
                                    "hw_dropout"):
         check(per_step[kernel] > 0,
@@ -2685,6 +2756,9 @@ def main() -> None:
         "flash_attention_dkv_tc": (fl.flash_attention_dkv, "tc_launches"),
         "attn_block": (fb.attn_block, "launches"),
         "attn_block_bwd": (fb.attn_block_backward, "launches"),
+        # Of those, the launches of the tensor-core variant.
+        "attn_block_tc": (fb.attn_block, "tc_launches"),
+        "attn_block_bwd_tc": (fb.attn_block_backward, "tc_launches"),
         "mlp_block": (fb.mlp_block, "launches"),
         "mlp_block_bwd": (fb.mlp_block_backward, "launches"),
     }
@@ -2735,7 +2809,8 @@ def main() -> None:
                       "evaluate": launches_eval[name],
                       "train_e": launches_e[name]} for name in counters}
     print(f"main path launches: {by_path}", flush=True)
-    launches = {name: launches_e[name] if name in BLOCK_KERNELS
+    launches = {name: launches_e[name]
+                if name in BLOCK_KERNELS or name.startswith("attn_block")
                 else launches_d[name] if name.startswith("flash")
                 else launches_c[name] if name.startswith(("layer_norm",
                                                           "hw_dropout"))
@@ -2819,11 +2894,40 @@ def main() -> None:
     # The fused sub-block kernels at a train step's frames with dropout;
     # the time of the port's unfused sub-block stands beside them.
     blocks = []
+    _, fused_log = build.build_log.get("fused_block", (0.0, ""))
     for name, line in zip(BLOCK_KERNELS, (486, 504, 277, 289)):
         entry = kernel_entry(name, f"videocad_tpu/ops/fused_block.py:{line}",
                              launches[name], rows, pick_train, same)
         row = next(r for r in rows if r["kernel"] == name and pick_train(r))
         entry["unfused_ms"] = row["unfused_ms"]
+        if name.startswith("attn_block"):
+            # The tensor-core variant's rows: the present kernels' time on
+            # the same inputs, the device times beside U's, the rate-0 and
+            # small-batch times, registers and spills.
+            entry.update({key: row[key] for key in (
+                "variant", "tile_ms", "tile_device_ms", "device_ms",
+                "unfused_device_ms") if key in row})
+            entry["tc_launches"] = launches[name + "_tc"]
+            entry["roofline_share"] = row["bound_ms"] / row["device_ms"]
+            for suffix, pick in (
+                    ("_rate0", lambda r: at_train(r) and r["rate"] == 0.0),
+                    ("_b8", lambda r: r["batch"] == 8
+                     and r["dtype"] == "bfloat16" and r["rate"] == RATE),
+                    ("_b1", lambda r: r["batch"] == 1
+                     and r["dtype"] == "bfloat16" and r["rate"] == RATE)):
+                other = next(r for r in rows if r["kernel"] == name
+                             and pick(r))
+                entry.update({key + suffix: other[key] for key in (
+                    "ms", "device_ms", "tile_ms", "tile_device_ms",
+                    "unfused_ms", "unfused_device_ms") if key in other})
+            kernel = ("attn_fwd_tc_kernel" if name == "attn_block"
+                      else "attn_bwd_tc_kernel")
+            entry["ptxas"] = {kernel: ptxas_usage(fused_log, kernel)}
+            if name == "attn_block_bwd":
+                entry["pieces"] = row["pieces"]
+                entry["ptxas"]["grad_weight_tc_kernel"] = ptxas_usage(
+                    fused_log, "grad_weight_tc_kernel")
+            print(f"{name}: {entry['ptxas']}", flush=True)
         blocks.append(entry)
     kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash + blocks
     for entry in kernels:

@@ -1,8 +1,10 @@
-"""The host path of the standalone dropout (K5) and LayerNorm (K4)
-wrappers, on the CPU: the rule that picks the LayerNorm forward's
-instantiation, and the dispatch that the lean wrappers keep (the plain
-versions for a CPU tensor, no launch counted, the kernels' input checks
-with their error types and messages)."""
+"""The host path of the standalone dropout (K5), LayerNorm (K4) and fused
+attention sub-block (K6a, K6b) wrappers, on the CPU: the rules that pick
+the LayerNorm forward's instantiation and the attention sub-block's
+variant, the C entries the wrappers bind against the source, and the
+dispatch that the lean wrappers keep (the plain versions for a CPU tensor,
+no launch counted, the kernels' input checks with their error types and
+messages)."""
 
 import re
 from pathlib import Path
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from videocad_tpu_torch.ops import dropout as dr
+from videocad_tpu_torch.ops import fused_block as fb
 from videocad_tpu_torch.ops import layernorm as ln
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -104,3 +107,83 @@ def test_lean_wrappers_raise_what_they_raised():
     assert dr._dtype_code(x) == 0 and dr._dtype_code(x.bfloat16()) == 1
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         dr._dtype_code(x.half())
+
+
+@pytest.mark.parametrize("dtype,t,d,head_dim,variant", [
+    (BF16, 50, 512, 64, "tc"),      # the flagship ViT
+    (BF16, 64, 512, 64, "tc"),      # T at a block's 64 rows
+    (BF16, 17, 192, 64, "tc"),      # D not a multiple of 128
+    (BF16, 1, 64, 64, "tc"),
+    (F32, 50, 512, 64, "tile"),     # float32 keeps the present kernels
+    (BF16, 50, 512, 32, "tile"),    # heads of another width
+    (BF16, 50, 96, 64, "tile"),     # D not a multiple of 64
+    (BF16, 65, 512, 64, "tile"),    # T past 64: the kernels raise
+    (BF16, 50, 576, 64, "tile"),    # D past 512: the kernels raise
+])
+def test_attention_variant_rule(dtype, t, d, head_dim, variant):
+    assert fb._attn_variant(dtype, t, d, head_dim) == variant
+    assert variant in fb.ATTN_VARIANTS
+
+
+def test_fused_block_entries_follow_the_source():
+    """Each C entry the wrapper binds is an extern "C" function of
+    csrc/fused_block.cu with as many parameters and its return type."""
+    import ctypes
+
+    src = (CSRC / "fused_block.cu").read_text()
+    found = {name: (ret, params.count(",") + 1) for ret, name, params in
+             re.findall(r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src)}
+    restypes = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    signatures = fb._signatures()
+    assert sorted(signatures) == sorted(found)
+    for name, (restype, argtypes) in signatures.items():
+        assert (restype, len(argtypes)) == (restypes[found[name][0]],
+                                            found[name][1]), name
+
+
+def _attn_case(dtype, b=2, t=5, d=16, heads=2, head_dim=8, seed=0):
+    rng = np.random.default_rng(seed)
+    new = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+    inner = heads * head_dim
+    x = new(b, t, d).to(dtype)
+    weights = [new(inner, d, scale=d ** -0.5).t() for _ in range(3)]
+    weights.append(new(d, inner, scale=inner ** -0.5).t())
+    vectors = [new(d) * 0.3, 1 + new(d) * 0.1, new(d) * 0.3]
+    return x, new(b, t, d).to(dtype), tuple(weights + vectors)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_wrappers_run_the_plain_versions_on_the_cpu(dtype, rate):
+    x, gy, params = _attn_case(dtype)
+    seed = 21 if rate else None
+    counts = lambda: (fb.attn_block.launches, fb.attn_block.tc_launches,  # noqa: E731
+                      fb.attn_block_backward.launches,
+                      fb.attn_block_backward.tc_launches)
+    marks = counts()
+    with torch.no_grad():
+        assert torch.equal(fb.attn_block(x, *params, seed, 2, rate),
+                           fb.attn_block_reference(x, *params, seed, 2, rate))
+        got = fb.attn_block_backward(x, *params, gy, seed, 2, rate)
+        want = fb.attn_block_backward_reference(x, *params, gy, seed, 2,
+                                                rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    leaves = [p.clone().requires_grad_() for p in (x,) + params]
+    fb.attn_block(leaves[0], *leaves[1:], seed, 2, rate).backward(gy)
+    assert all(torch.equal(leaf.grad, w) for leaf, w in zip(leaves, want))
+    assert counts() == marks
+
+
+def test_tc_weights_are_the_stored_matrices():
+    """The tc kernels read each weight as an (out, in) matrix is stored:
+    for the (in, out) view of such a matrix, which the model hands over,
+    its cast with no transposed copy."""
+    x, _, params = _attn_case(BF16)
+    stored, pointers = fb._stored_weights(x, *params[:4])
+    for w, s, p in zip(params[:4], stored, pointers):
+        assert s.is_contiguous() and s.dtype == BF16
+        assert torch.equal(s, w.t().to(BF16)) and p == s.data_ptr()
+    dense = params[0].contiguous()            # an (in, out) matrix as is
+    (copied,), _ = fb._stored_weights(x, dense)
+    assert copied.is_contiguous() and torch.equal(copied, dense.t().to(BF16))

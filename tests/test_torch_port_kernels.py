@@ -824,6 +824,117 @@ def test_fused_block_kernels_refuse_what_they_do_not_take(cuda):
             fb.attn_block(x, *fat, None, 1)
 
 
+# The attention sub-block's tc variant (bf16, heads of 64, D a multiple of
+# 64): every shape here takes it.
+TC_BLOCK_SHAPES = [
+    # b, t, d, heads
+    (1, 50, 512, 16),     # the flagship ViT: CAD encode
+    (8, 50, 512, 16),     # one served tick
+    (64, 50, 512, 16),
+    (8, 64, 512, 16),     # T at a block's 64 rows, no padding
+    (3, 17, 192, 3),      # one row past a 16-row tile; D not a multiple of 128
+    (5, 33, 128, 2),
+    (2, 1, 64, 1),        # one token
+]
+
+
+def _assert_tc_close(got, want, what):
+    """bf16 outputs (y, dx): within two bf16 ulps of the largest entry, a
+    share of 2^-6 (chip_smoke.py:block_close): both versions round at the
+    same places, and a sum taken in another order can flip a rounding.
+    Parameter gradients (float32 sums over every token): 1% of their
+    largest entry. A flipped rounding of one dq, dk or dv entry moves every
+    entry of its weight gradient's column by an ulp of it times an h entry,
+    which over the few hundred tokens of these shapes reaches half a
+    percent of the largest entry, for the present kernels ("tile") as for
+    the tc variant."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, i)
+        share = 2.0 ** -6 if g.dtype == BF16 else 1e-2
+        scale = max(w.float().abs().max().item(), 1e-30)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= share * scale, (what, i, err, scale)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d,heads", TC_BLOCK_SHAPES)
+def test_attn_block_tc_variant_matches_the_plain_versions(cuda, b, t, d,
+                                                          heads, rate):
+    """Forward and every gradient against the plain versions; the tc
+    counters move; the gradients repeat bit for bit."""
+    _, attn = _block_params(d, 64, heads * 64, seed=b * 10 + t)
+    x, gy = _block_inputs(b, t, d, BF16, seed=t + 1)
+    seed = 5151 if rate else None
+    assert fb._attn_variant(BF16, t, d, 64) == "tc"
+    marks = (fb.attn_block.tc_launches, fb.attn_block_backward.tc_launches)
+    with torch.no_grad():
+        y = fb.attn_block(x, *attn, seed, heads, rate)
+        grads = fb.attn_block_backward(x, *attn, gy, seed, heads, rate)
+        again = fb.attn_block_backward(x, *attn, gy, seed, heads, rate)
+        torch.cuda.synchronize()
+        assert (fb.attn_block.tc_launches,
+                fb.attn_block_backward.tc_launches) == (marks[0] + 1,
+                                                        marks[1] + 2)
+        _assert_tc_close([y], [fb.attn_block_reference(
+            x, *attn, seed, heads, rate)], "forward")
+        _assert_tc_close(grads, fb.attn_block_backward_reference(
+            x, *attn, gy, seed, heads, rate), "backward")
+    for i, (g1, g2) in enumerate(zip(grads, again)):
+        assert torch.equal(g1, g2), f"gradient {i} differs between two runs"
+
+
+def test_attn_block_tc_variant_draws_the_plain_versions_sets(cuda):
+    """The kept sets of sites 1 and 0 at the flagship's widths, read off the
+    outputs under constructed parameters (as chip_smoke.py's
+    block_kept_sets): identical to the plain version's and to the bit
+    function's."""
+    b, t, d, heads, hd, rate, seed = 8, 50, 512, 16, 64, 0.1, 77
+    _, attn = _block_params(d, 64, heads * hd, seed=9)
+    keep = lambda site, h, rows, cols: prng.keep_mask(  # noqa: E731
+        prng.block_site_bits(seed, site, b, h, rows, cols, device="cuda"),
+        rate)
+    keep_res = keep(prng.SITE_ATTN_RES, 1, t, d)[:, 0]
+    with torch.no_grad():
+        # Site 1: x = 0 and a bias of 50 make the output the dropped branch,
+        # non-zero exactly where it was kept.
+        zero = torch.zeros((b, t, d), device="cuda", dtype=BF16)
+        biased = attn[:4] + (torch.full((d,), 50.0, device="cuda"),) + attn[5:]
+        got = fb.attn_block(zero, *biased, seed, heads, rate) != 0
+        want = fb.attn_block_reference(zero, *biased, seed, heads, rate) != 0
+        assert torch.equal(got, want) and torch.equal(got, keep_res)
+        # Site 0: token j is the one-hot e_j; Wq = Wk = 0 make every weight
+        # 1 / T, Wv puts 1 / rstd at (j, head column j), so head output row i
+        # is about kept_ij / (T (1 - rate)) at column j; Wo copies 8 heads a
+        # call into the 512 output columns, times 16.
+        x = torch.zeros((b, t, d), device="cuda", dtype=BF16)
+        rows = torch.arange(t, device="cuda")
+        x[:, rows, rows] = 1.0
+        rstd = (1.0 / d * (1.0 - 1.0 / d) + 1e-5) ** -0.5
+        wv = torch.zeros((heads * hd, d), device="cuda")
+        wv.view(heads, hd, d)[:, rows, rows] = 1.0 / rstd
+        nothing = torch.zeros((heads * hd, d), device="cuda").t()
+        ones, zeros = torch.ones(d, device="cuda"), torch.zeros(d,
+                                                                device="cuda")
+        keep_w = keep(prng.SITE_ATTN_W, heads, t, t)
+        level = 16.0 / (t * (1.0 - rate))
+        cols = torch.arange(hd, device="cuda")
+        slots = torch.arange(heads // 2, device="cuda")
+        for first in (0, heads // 2):
+            wo = torch.zeros((d, heads * hd), device="cuda")
+            wo.view(heads // 2, hd, heads, hd)[
+                slots[:, None], cols[None, :], first + slots[:, None],
+                cols[None, :]] = 16.0
+            args = (nothing, nothing, wv.t(), wo.t(), zeros, ones, zeros)
+            got = fb.attn_block(x, *args, seed, heads, rate).float() - x.float()
+            want = fb.attn_block_reference(x, *args, seed, heads,
+                                           rate).float() - x.float()
+            kept = got.view(b, t, heads // 2, hd)[..., :t] > level / 2
+            plain = want.view(b, t, heads // 2, hd)[..., :t] > level / 2
+            bits = (keep_w[:, first:first + heads // 2].permute(0, 2, 1, 3)
+                    & keep_res.view(b, t, heads // 2, hd)[..., :t])
+            assert torch.equal(kept, plain) and torch.equal(kept, bits)
+
+
 def test_block_model_train_step_on_the_card_matches_the_cpu(cuda):
     """The tiny model under "block" with dropout off, float32: one train
     step's loss and gradients on the card (kernels) against the CPU (plain

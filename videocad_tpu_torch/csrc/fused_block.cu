@@ -40,24 +40,56 @@
 // 220 MFLOP a frame against 100 KB of bf16 I/O, the MLP forward 52 MFLOP,
 // the backwards two to three times that with the weight gradients: far
 // right of the card's ridge, so the floor is the tensor cores' rate (0.34,
-// 0.94, 0.08 and 0.20 ms at 1,528 frames in bf16). Every product of a
-// block goes through one routine, gemm_tile: a 64 x 64 output tile, both
-// operands staged 32 deep through shared memory, one tile ahead through
-// registers. In bf16 the tiles move as 16-byte groups and are multiplied on
-// the tensor cores (mma.sync m16n16k16 through nvcuda::wmma, f32
-// accumulation); float32, and bf16 shapes that do not allow 16-byte groups,
-// run as f32 FMAs on a 4 x 4 register tile a thread. What holds the
-// kernels above the floor: one block of 8 warps an SM (the f32 sums take
-// 128 KB of its shared memory), so every tile's chain of load, stage,
-// barrier, multiply, barrier is exposed; a 32-deep tile is one mma.sync
-// pair a warp; and the softmax core runs one warp a query row in scalar
-// f32, as mhsa_short.cu does. wgmma with TMA-fed multi-stage tiles is the
-// next step.
+// 0.94, 0.08 and 0.20 ms at 1,528 frames in bf16).
 //
+// Two designs. The MLP kernels, the attention kernels in float32 and every
+// shape the second design does not take ("tile") put every product of a
+// block through one routine, gemm_tile: a 64 x 64 output tile, both
+// operands staged 32 deep through shared memory, one tile ahead through
+// registers; bf16 tiles move as 16-byte groups onto the tensor cores
+// (mma.sync m16n16k16 through nvcuda::wmma), float32 runs as f32 FMAs on a
+// 4 x 4 register tile a thread. One block of 8 warps an SM (its f32 sums
+// take 128 KB of shared memory), every tile's chain of load, stage,
+// barrier, multiply, barrier exposed, and a softmax core in scalar f32: at
+// the flagship's shapes the attention kernels ran at 2.4% and 3.9% of
+// their floors.
+//
+// The attention sub-block's "tc" variant (bf16, heads of 64, D a multiple
+// of 64: attn_fwd_tc_kernel, attn_bwd_tc_kernel) runs every product on the
+// tensor cores, on operands that arrive through a ring of cp.async stages
+// of 64-deep chunks (loads in flight while the tensor cores work, one
+// barrier a chunk), its accumulators in registers, rounded to bf16 straight
+// into shared memory:
+//   * a head's q, k and v are one 64 x 192 product over D; the forward runs
+//     it, and o = a Wo^T, on wgmma (a warpgroup 64 x 96 of it, both
+//     operands read by the tensor cores from 128-byte-swizzled stages); the
+//     backward on mma.sync m16n8k16 (csrc/tc_common.cuh), a warp 32 x 64,
+//     forming da = do Wo[:, head] in the same chunks on two of its warps;
+//   * the softmax core is K1's tc core (mma.sync on q, k, v, da in bf16
+//     tiles, the scores and the softmax in C fragments, the keep bits of a
+//     fragment in one Philox call per four keys); in the backward its
+//     second pass puts dq, dk, dv and the merged head on all eight warps;
+//   * the forward runs two blocks an SM (94 KB of shared memory, 128
+//     registers), so that one block's barriers, loads and core overlap the
+//     other's products: h and the block's merged heads go through scratch
+//     rows that the block alone writes and reads back, and stay in L2; o =
+//     a Wo^T is one pipelined product at the end, in passes of 192 columns,
+//     its epilogue (+ bo, site-1 dropout, + x) applied to the fragments;
+//   * the backward keeps h (bf16) resident, then dh (f32, 64 x D) for the
+//     LayerNorm backward, one block an SM; dh = dqkv [Wq; Wk; Wv] runs in
+//     passes of 256 columns;
+//   * the dWo product (and the MLP's dW1, dW2) runs grad_weight_tc_kernel:
+//     128 x 128 tiles of A^T B, 32 tokens a chunk through a 4-stage ring,
+//     split over tokens with partials summed in a fixed order.
+// What bounds them now is the chunk: each costs a barrier and a wait on
+// its loads, which one block an SM cannot hide (two frames a block, with
+// half the weight bytes a frame, ran slower than two blocks an SM), and
+// the core, whose 16 heads a frame run one after another on four warps.
+
 // What the design does where the TPU design does not carry over:
 //   * Weights in persistent VMEM -> the weights stay in device memory (the
-//     L2 holds all of them) and every block streams 32-deep tiles of them
-//     through shared memory.
+//     L2 holds all of them) and every block streams tiles of them (32 deep;
+//     64 in the tc variant) through shared memory.
 //   * A block owns 64 token rows: one frame (T <= 64, rows past T are
 //     padding) in the attention kernels, because the softmax core needs the
 //     frame whole; any 64 rows of the flattened (B*T, D) stream in the MLP
@@ -68,11 +100,12 @@
 //     over heads, forms one head's q, k, v (T x 64 each) in shared memory,
 //     runs the softmax core there (one warp per query row, as
 //     mhsa_short.cu does), and adds a_h Wo[head rows] into a (64, D) f32
-//     sum in shared memory. That sum and h = LN(x) (64 x D) do not both fit
-//     the 227 KB of a block beside the head's operands, so h goes through a
-//     scratch buffer in device memory that the wrapper allocates for the
-//     call (the backward emits h anyway); the block reads back only what it
-//     wrote itself, after a __syncthreads().
+//     sum in shared memory (the tc variant: the merged heads to scratch
+//     rows, and o = a Wo^T once at the end). That sum and h = LN(x) (64 x
+//     D) do not both fit the 227 KB of a block beside the head's operands,
+//     so h goes through a scratch buffer in device memory that the wrapper
+//     allocates for the call (the backward emits h anyway); the block reads
+//     back only what it wrote itself, after a __syncthreads().
 //   * A sequential grid that carries the parameter gradients -> two passes
 //     and no atomics. The backward kernels emit, in the I/O dtype, the two
 //     operands of every weight-gradient product (h, dz, the hidden layer
@@ -93,6 +126,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -1178,6 +1213,742 @@ attn_bwd_kernel(const T* __restrict__ x, Weight<T> wq, Weight<T> wk,
 }
 
 // ---------------------------------------------------------------------------
+// The "tc" variant of the attention sub-block: bf16, heads of 64, d a
+// multiple of 64 up to 512, T <= 64 (the flagship ViT: T = 50, d = 512, 16
+// heads). The weights arrive as stored, (out, in) row-major: wq, wk, wv
+// (inner, d), wo (d, inner).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcHead = 64;                     // the head width it takes
+constexpr int kTcChunk = 64;                    // depth of one staged chunk
+constexpr int kTcPitchH = kMaxD + 8;            // bf16 a row of h: 1,040 bytes
+constexpr int kTcPitchDh = kMaxD + 4;           // f32 a row of dh
+constexpr int kTcPitchDhB = 256 + 8;            // bf16 a row of 256 columns
+constexpr int kTcTileElems = kBM * kTcStride;   // a (64, 64) tile
+constexpr int kTcSmem = 232448;                 // all a block may have
+// The forward, two blocks an SM: two stages of 256 swizzled rows of 64
+// (h's or the merged heads' 64, then 192 of the weights) on 1,024 bytes,
+// and q, k, v.
+constexpr int kTcFwdStageElems = 256 * 64;
+constexpr int kTcFwdBytes =
+    1024 + 2 * kTcFwdStageElems * 2 + 3 * kTcTileElems * 2;
+// The backward, one block an SM: h (bf16) and q, k, v, da, P, ds during the
+// head loop, dh (f32) after it, and a ring in what is left. A stage of the
+// head loop holds 320 rows of 64 (the weights' 192, do's 64, wo's 64); one
+// of the dh product a (64, 64) chunk of dqkv and a (64, 256) one of the
+// weights.
+constexpr int kTcHBytes = kBM * kTcPitchH * 2;
+constexpr int kTcBwdHeadBytes = kTcHBytes + 6 * kTcTileElems * 2;
+constexpr int kTcDhBytes = kBM * kTcPitchDh * 4;
+constexpr int kTcBwdRegion =
+    kTcBwdHeadBytes > kTcDhBytes ? kTcBwdHeadBytes : kTcDhBytes;
+constexpr int kTcBwdRing = kTcSmem - kTcBwdRegion;
+constexpr int kTcHeadStageElems = 320 * kTcStride;
+constexpr int kTcDhStageElems = kTcTileElems + kBM * kTcPitchDhB;
+static_assert(2 * (kTcFwdBytes + 1024) <= 233472 &&
+                  kTcBwdRing >= 2 * kTcHeadStageElems * 2 &&
+                  kTcBwdRing >= 2 * kTcDhStageElems * 2 &&
+                  kTcBwdRing >= kWarps * kMaxD * 4 && kTcBwdRegion % 16 == 0,
+              "two forward blocks fit an SM; the backward's rings and "
+              "block_col_sums' buffer fit beside what stays resident");
+
+// Rows [0, rows) of a chunk of kGroups 16-byte groups a row, row r from
+// src + r * ld, into dst (pitch elements a row) by cp.async; rows from
+// valid_rows on and groups from valid_groups on are zero-filled.
+template <int kGroups>
+__device__ __forceinline__ void stage_chunk(bf16* dst, int pitch,
+                                            const bf16* src, i64 ld,
+                                            int rows, int valid_rows,
+                                            int valid_groups) {
+  for (int idx = threadIdx.x; idx < rows * kGroups; idx += kThreads) {
+    const int r = idx / kGroups, c = idx % kGroups;
+    const bool ok = r < valid_rows && c < valid_groups;
+    cp_async16(dst + r * pitch + c * 8, ok ? src + r * ld + c * 8 : src,
+               ok ? 16 : 0);
+  }
+}
+
+// A ring of kStages chunks in flight: issue(c, stage) starts the loads of
+// chunk c, step(c, stage) consumes it once every thread's loads of it have
+// landed. Chunk c + kStages - 1 is issued after the barrier that ends
+// everyone's step c - 1, into the stage that step read. Ends with every
+// load done and a barrier. Every thread of the block calls it.
+template <int kStages, int kStageElems, typename Issue, typename Step>
+__device__ __forceinline__ void run_ring(bf16* ring, int total, Issue issue,
+                                         Step step) {
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < total) issue(c, ring + c * kStageElems);
+    cp_async_commit();
+  }
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<kStages - 2>();
+    // What cp.async wrote (generic proxy) may be read by wgmma (async
+    // proxy) once the barrier has published it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int next = c + kStages - 1;
+    if (next < total) issue(next, ring + (next % kStages) * kStageElems);
+    cp_async_commit();
+    step(c, ring + (c % kStages) * kStageElems);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc[i][j] += the C fragments of the warp's (16 MT, 8 NT) piece, rows
+// m0.. and columns n0.., of A B over one kDepth-deep chunk in shared
+// memory. A is [m][k] (pitch pa) or, with AKRow, [k][m]; B is [n][k] (pitch
+// pb) or, with BKRow, [k][n]; ldmatrix (.trans for the [k][.] layouts)
+// gives the fragments, as K1's core reads its tiles.
+template <int kDepth, int MT, int NT, bool AKRow, bool BKRow>
+__device__ __forceinline__ void mma_chunk(const bf16* A, int pa, int m0,
+                                          const bf16* B, int pb, int n0,
+                                          int lane, float (&acc)[MT][NT][4]) {
+  static_assert(NT % 2 == 0, "B fragments come two n-tiles at a time");
+#pragma unroll
+  for (int kk = 0; kk < kDepth; kk += 16) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = m0 + 16 * i;
+      if (AKRow)
+        ldsm_x4_trans(A + (kk + (lane & 7) + ((lane >> 4) << 3)) * pa + m +
+                          ((lane >> 3) & 1) * 8,
+                      a[i]);
+      else
+        ldsm_x4(A + (m + (lane & 15)) * pa + kk + (lane >> 4) * 8, a[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int n = n0 + 8 * j;
+      uint32_t b[4];
+      if (BKRow)
+        ldsm_x4_trans(B + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * pb + n +
+                          (lane >> 4) * 8,
+                      b);
+      else
+        ldsm_x4(B + (n + (lane & 7) + ((lane >> 4) << 3)) * pb + kk +
+                    ((lane >> 3) & 1) * 8,
+                b);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_frags(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// The C fragments of a warp's 16 rows from r0 (columns 8n..8n+7 in acc[n])
+// rounded to bf16 and stored to rows r0.. of dst, rows ld apart; rows from
+// seq on are not written.
+template <int NT>
+__device__ __forceinline__ void store_frag_rows(const float (&acc)[NT][4],
+                                                bf16* dst, i64 ld, int r0,
+                                                int seq, int lane) {
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    bf16* at = dst + 8 * n + 2 * t;
+    if (r0 + gr < seq)
+      *reinterpret_cast<uint32_t*>(at + (r0 + gr) * ld) =
+          pack_bf16(acc[n][0], acc[n][1]);
+    if (r0 + gr + 8 < seq)
+      *reinterpret_cast<uint32_t*>(at + (r0 + gr + 8) * ld) =
+          pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// A warp's (16 MT, 8 NT) piece of C fragments, rows m0.. and columns n0..,
+// rounded to bf16 into (64, 64) tiles that follow each other from ``tiles``
+// (column c goes to tile c / 64).
+template <int MT, int NT>
+__device__ __forceinline__ void frags_to_tiles(const float (&acc)[MT][NT][4],
+                                               bf16* tiles, int m0, int n0,
+                                               int lane) {
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int row = m0 + 16 * i + gr, col = n0 + 8 * j;
+      bf16* at = tiles + (col >> 6) * kTcTileElems + row * kTcStride +
+                 (col & 63) + 2 * t;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) =
+          pack_bf16(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// h = LN(x) of the frame's rows into hs (bf16, rows of kTcPitchH); rows seq
+// to 63 are zeros. Warp-per-row, as the present kernels.
+__device__ __forceinline__ void ln_rows_to_shared(const bf16* x, bf16* hs,
+                                                  const float* g,
+                                                  const float* be, int seq,
+                                                  int d, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float sc[kPerLane], bi[kPerLane], v[kPerLane];
+  load_param(g, d, lane, sc);
+  load_param(be, d, lane, bi);
+  for (int i = warp; i < kBM; i += kWarps) {
+    if (i < seq) {
+      ln_row<bf16>(x + (i64)i * d, hs + i * kTcPitchH, sc, bi, d, lane, eps,
+                   v);
+    } else {
+      for (int col = lane * 8; col < d; col += 256)
+        *reinterpret_cast<uint4*>(hs + i * kTcPitchH + col) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// One head's q, k, v chunk of the weights: rows head * 64.. of wq, wk, wv
+// (64 each, columns k0..k0+63) as the stage's 192 rows [n][k].
+__device__ __forceinline__ void stage_qkv_weights(bf16* st, const bf16* wq,
+                                                  const bf16* wk,
+                                                  const bf16* wv, int head,
+                                                  int k0, int d) {
+  const i64 at = (i64)head * kTcHead * d + k0;
+  stage_chunk<8>(st, kTcStride, wq + at, d, 64, 64, 8);
+  stage_chunk<8>(st + 64 * kTcStride, kTcStride, wk + at, d, 64, 64, 8);
+  stage_chunk<8>(st + 128 * kTcStride, kTcStride, wv + at, d, 64, 64, 8);
+}
+
+// The dropout multipliers of site 0 applied to the weights of a warp's 16
+// query rows from r0: kept weights times 1 / (1 - rate), dropped ones 0.
+__device__ __forceinline__ uint32_t attention_keep(const Drop& drop,
+                                                   uint32_t frame,
+                                                   uint32_t head, int r0,
+                                                   int lane, int seq) {
+  return drop.threshold != 0u
+             ? keep_bits<8>(drop.seed, 3u, frame, head, r0, 0, lane, seq,
+                            drop.threshold)
+             : 0xffffffffu;
+}
+
+// ---- Hopper's warpgroup MMA (wgmma), for the forward's products ----
+// An operand chunk is R rows of 64 bf16 (128 bytes), starting on 1,024
+// bytes, in the 128-byte swizzle that wgmma reads: the 16-byte group c of
+// row r sits at group c ^ (r % 8).
+
+// Rows [0, rows) of such a chunk, row r from src + r * ld, by cp.async;
+// rows from valid_rows on are zero-filled.
+__device__ __forceinline__ void stage_swizzled(bf16* dst, const bf16* src,
+                                               i64 ld, int rows,
+                                               int valid_rows) {
+  for (int idx = threadIdx.x; idx < rows * 8; idx += kThreads) {
+    const int r = idx >> 3, c = idx & 7;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * 64 + ((c ^ (r & 7)) << 3),
+               ok ? src + r * ld + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// The descriptor of a K-major chunk: start address, a leading byte offset
+// of 1 (unused in this swizzle), 1,024 bytes from one 8-row group to the
+// next, 128-byte swizzle. A 16-deep step further along k adds 32 bytes,
+// 2 in the start address's 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous products.
+__device__ __forceinline__ void fence_operands(float (&d)[48]) {
+#pragma unroll
+  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A B^T for a warpgroup: A 64 x 16 and B 96 x 16, both K-major in
+// shared memory. Thread (warp w of the warpgroup, lane g * 4 + t) holds
+// d[4 j + e] at row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2: the C
+// fragments of mma.sync for 12 tiles of 8 columns.
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc (a warpgroup's 64 x 96) += A B^T over one 64-deep chunk: A the
+// stage's 64 rows, B 96 rows from b.
+__device__ __forceinline__ void wgmma_chunk(float (&acc)[48], const bf16* a,
+                                            const bf16* b) {
+  // cp.async wrote the chunk through the generic proxy; wgmma reads it
+  // through the async one.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_operands(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint64_t da = wgmma_desc(a), db = wgmma_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n96k16(acc, da + 2 * kk, db + 2 * kk);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(acc);
+}
+
+// Warp w < 4 of the forward: query rows 16 w.. of one head, K1's tc core
+// (csrc/mhsa_short.cu): the weights, dropped at site 0 and rounded, times
+// v; the merged head's rows, rounded, to dst (rows ld apart).
+__device__ __forceinline__ void core_fwd(const bf16* qs, const bf16* ks,
+                                         const bf16* vs, bf16* dst, i64 ld,
+                                         int seq, uint32_t frame,
+                                         uint32_t head, int warp, int lane,
+                                         float scale_log2, const Drop& drop) {
+  const int r0 = 16 * warp;
+  if (r0 >= seq) return;
+  float s[8][4] = {};
+  row_products<kTcHead>(qs, ks, r0, lane, seq, s);
+  softmax_rows(s, lane, seq, scale_log2);
+  const uint32_t keep = attention_keep(drop, frame, head, r0, lane, seq);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = (keep >> (4 * n + e)) & 1u ? s[n][e] * drop.inv_keep : 0.f;
+  uint32_t p[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) to_a_fragment(s[2 * kk], s[2 * kk + 1], p[kk]);
+  float acc[8][4] = {};
+  times_tile<kTcHead>(p, vs, lane, seq, acc);
+  store_frag_rows<8>(acc, dst, ld, r0, seq, lane);
+}
+
+// y = x + drop1(o + bo) for a warp's (16 MT, 48) piece of o, rows m0.. and
+// columns c0.. of the frame (a multiple of 16; columns from d on are
+// skipped, d being a multiple of 64).
+template <int MT>
+__device__ __forceinline__ void output_epilogue(const float (&out)[MT][6][4],
+                                                const bf16* x,
+                                                const float* bo, bf16* y,
+                                                int seq, int d, int c0,
+                                                int m0, uint32_t frame,
+                                                int lane, const Drop& drop) {
+  if (c0 >= d) return;
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int rb = m0 + 16 * i;
+    const uint32_t keep =
+        drop.threshold != 0u
+            ? keep_bits<6>(drop.seed, 4u, frame, 0u, rb, c0, lane, d,
+                           drop.threshold)
+            : 0xffffffffu;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int col = c0 + 8 * j + 2 * t;
+      if (c0 + 8 * j >= d) break;
+      const float b0 = bo[col], b1 = bo[col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rb + gr + 8 * h;
+        if (row >= seq) continue;
+        float o0 = out[i][j][2 * h] + b0, o1 = out[i][j][2 * h + 1] + b1;
+        if (drop.threshold != 0u) {
+          o0 = (keep >> (4 * j + 2 * h)) & 1u ? o0 * drop.inv_keep : 0.f;
+          o1 = (keep >> (4 * j + 2 * h + 1)) & 1u ? o1 * drop.inv_keep : 0.f;
+        }
+        const i64 at = (i64)row * d + col;
+        const __nv_bfloat162 xv =
+            *reinterpret_cast<const __nv_bfloat162*>(x + at);
+        *reinterpret_cast<uint32_t*>(y + at) =
+            pack_bf16(__low2float(xv) + o0, __high2float(xv) + o1);
+      }
+    }
+  }
+}
+
+// The forward, two blocks an SM (kTcFwdBytes of shared memory, at most 128
+// registers a thread), so that one block's loads, barriers and core overlap
+// the other's products; the products on wgmma, a warpgroup a half of the
+// columns. A block walks the frames blockIdx.x, + gridDim.x, ...; h goes
+// through hbuf (B*T, d) and abuf holds (gridDim.x, 64, inner): a block's
+// merged heads. A block reads back only what it wrote, so both stay in L2.
+__global__ void __launch_bounds__(kThreads, 2)
+attn_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
+                   const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                   const bf16* __restrict__ wo, const float* __restrict__ bo,
+                   const float* __restrict__ g, const float* __restrict__ be,
+                   bf16* hbuf, bf16* abuf, bf16* __restrict__ y, int batch,
+                   int seq, int d, int heads, float scale_log2, float eps,
+                   Drop drop) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(
+      tc_smem + ((1024u - (smem_addr(tc_smem) & 1023u)) & 1023u));
+  bf16* qs = ring + 2 * kTcFwdStageElems;   // then ks, vs
+  bf16* ks = qs + kTcTileElems;
+  bf16* vs = ks + kTcTileElems;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 3), n0 = 96 * (warp >> 2);
+  const int inner = heads * kTcHead;
+  const int kc = d / kTcChunk, ki = inner / kTcChunk;
+  bf16* a0 = abuf + (i64)blockIdx.x * kBM * inner;
+
+  for (int frame = blockIdx.x; frame < batch; frame += gridDim.x) {
+    const i64 r0 = (i64)frame * seq;
+    bf16* h0 = hbuf + r0 * d;
+    {
+      float sc[kPerLane], bi[kPerLane], v[kPerLane];
+      load_param(g, d, lane, sc);
+      load_param(be, d, lane, bi);
+      for (int i = warp; i < seq; i += kWarps)
+        ln_row<bf16>(x + (r0 + i) * d, h0 + (i64)i * d, sc, bi, d, lane, eps,
+                     v);
+    }
+    __syncthreads();   // h is read back by other threads' copies
+
+    // Per head: [q | k | v] (64 x 192) = h [Wq; Wk; Wv]_head^T over d in
+    // chunks of 64 (stage rows 0-63 h, 64-255 the weights' rows), then the
+    // core on warps 0-3; the merged head to a0.
+    for (int head = 0; head < heads; ++head) {
+      float acc[1][12][4];
+      zero_frags(acc);
+      float (&flat)[48] = reinterpret_cast<float (&)[48]>(acc);
+      run_ring<2, kTcFwdStageElems>(
+          ring, kc,
+          [&](int c, bf16* st) {
+            const i64 at = (i64)head * kTcHead * d + c * kTcChunk;
+            stage_swizzled(st, h0 + c * kTcChunk, d, 64, seq);
+            stage_swizzled(st + 64 * 64, wq + at, d, 64, 64);
+            stage_swizzled(st + 128 * 64, wk + at, d, 64, 64);
+            stage_swizzled(st + 192 * 64, wv + at, d, 64, 64);
+          },
+          [&](int, const bf16* st) {
+            wgmma_chunk(flat, st, st + (64 + n0) * 64);
+          });
+      frags_to_tiles(acc, qs, m0, n0, lane);
+      __syncthreads();
+      if (warp < 4)
+        core_fwd(qs, ks, vs, a0 + head * kTcHead, inner, seq, frame, head,
+                 warp, lane, scale_log2, drop);
+    }
+    __syncthreads();   // the merged heads are read back by other threads
+
+    // o = a Wo^T in passes of 192 columns over inner, in chunks of 64: stage
+    // rows 0-63 the merged heads, 64-255 the rows of wo.
+    for (int p0 = 0; p0 < d; p0 += 192) {
+      float out[1][12][4];
+      zero_frags(out);
+      float (&flat)[48] = reinterpret_cast<float (&)[48]>(out);
+      run_ring<2, kTcFwdStageElems>(
+          ring, ki,
+          [&](int c, bf16* st) {
+            stage_swizzled(st, a0 + c * kTcChunk, inner, 64, seq);
+            stage_swizzled(st + 64 * 64, wo + (i64)p0 * inner + c * kTcChunk,
+                           inner, 192, d - p0);
+          },
+          [&](int, const bf16* st) {
+            wgmma_chunk(flat, st, st + (64 + n0) * 64);
+          });
+      // The warp's 96 columns as two pieces of 48.
+      typedef const float(Piece)[1][6][4];
+      output_epilogue(reinterpret_cast<Piece&>(out[0][0]), x + r0 * d, bo,
+                      y + r0 * d, seq, d, p0 + n0, m0, frame, lane, drop);
+      output_epilogue(reinterpret_cast<Piece&>(out[0][6]), x + r0 * d, bo,
+                      y + r0 * d, seq, d, p0 + n0 + 48, m0, frame, lane,
+                      drop);
+    }
+  }
+}
+
+// acc[n] += the C fragment of output tile n of A^T X for the 16 columns j0..
+// of A, a (64, 64) tile whose rows are the sum's index (from seq on
+// skipped), and X a (64, 64) tile: both read transposed by ldmatrix, as
+// K1's backward reads P and ds.
+__device__ __forceinline__ void transposed_products(const bf16* a,
+                                                    const bf16* x, int j0,
+                                                    int lane, int seq,
+                                                    float (&acc)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= seq) break;
+    uint32_t af[4];
+    ldsm_x4_trans(a + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
+                      j0 + ((lane >> 3) & 1) * 8,
+                  af);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4_trans(x + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            kTcStride +
+                        8 * n + (lane >> 4) * 8,
+                    bf);
+      mma_bf16(acc[n], af, bf[0], bf[1]);
+      mma_bf16(acc[n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The A fragments of rows r0.. of a (64, 64) tile, as P V's.
+__device__ __forceinline__ void row_fragments(const bf16* tile, int r0,
+                                              int lane, uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldsm_x4(tile + (r0 + (lane & 15)) * kTcStride + kk * 16 + (lane >> 4) * 8,
+            a[kk]);
+}
+
+// The backward's core of one head, K1's tc backward (csrc/mhsa_short.cu)
+// with da for g. Pass 1, warp w < 4, query rows 16 w..: the weights, the
+// mask, dP = da v^T and ds; the dropped weights and ds go to shared memory
+// as bf16. Pass 2, rows 16 (w % 4)..: dq = ds k and dk = ds^T q on warps
+// 0-3, dv = P^T da and the merged head's a = P v on warps 4-7. dq, dk, dv
+// go to the head's columns of dqkv (rows ld3 apart), a to a2 (rows inner
+// apart).
+__device__ __forceinline__ void core_bwd(const bf16* qs, const bf16* ks,
+                                         const bf16* vs, const bf16* das,
+                                         bf16* ps, bf16* dss, bf16* dqkv,
+                                         i64 ld3, int inner, bf16* a2,
+                                         int seq, uint32_t frame,
+                                         uint32_t head, int warp, int lane,
+                                         float scale, float scale_log2,
+                                         const Drop& drop) {
+  const int gr = lane >> 2, t = lane & 3;
+  if (warp < 4 && 16 * warp < seq) {
+    const int r0 = 16 * warp;
+    float w[8][4] = {};
+    row_products<kTcHead>(qs, ks, r0, lane, seq, w);
+    softmax_rows(w, lane, seq, scale_log2);
+    const uint32_t keep = attention_keep(drop, frame, head, r0, lane, seq);
+    float dw[8][4] = {};
+    row_products<kTcHead>(das, vs, r0, lane, seq, dw);   // d_dropped
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dw[n][e] = (keep >> (4 * n + e)) & 1u ? dw[n][e] * drop.inv_keep : 0.f;
+        if (e < 2)
+          dot0 += dw[n][e] * w[n][e];
+        else
+          dot1 += dw[n][e] * w[n][e];
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, off);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, off);
+    }
+    // Padded query rows get zero dropped weights and ds, so that they add
+    // nothing to dv, dk and a; padded key columns have w = 0, hence ds = 0.
+    const bool upper = r0 + gr < seq, lower = r0 + gr + 8 < seq;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool row_ok = e < 2 ? upper : lower;
+        const bool kept = (keep >> (4 * n + e)) & 1u;
+        pv[e] = row_ok && kept ? w[n][e] * drop.inv_keep : 0.f;
+        dsv[e] = row_ok ? w[n][e] * (dw[n][e] - (e < 2 ? dot0 : dot1)) * scale
+                        : 0.f;
+      }
+      bf16* at = ps + (r0 + gr) * kTcStride + 8 * n + 2 * t;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(pv[0], pv[1]);
+      *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) =
+          pack_bf16(pv[2], pv[3]);
+      at = dss + (r0 + gr) * kTcStride + 8 * n + 2 * t;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(dsv[0], dsv[1]);
+      *reinterpret_cast<uint32_t*>(at + 8 * kTcStride) =
+          pack_bf16(dsv[2], dsv[3]);
+    }
+  }
+  __syncthreads();
+  const int j0 = 16 * (warp & 3);
+  if (j0 >= seq) return;
+  const bool ds_warp = warp < 4;
+  const bf16* rows = ds_warp ? dss : ps;
+  uint32_t frag[4][4];
+  row_fragments(rows, j0, lane, frag);
+  float acc[8][4] = {};
+  times_tile<kTcHead>(frag, ds_warp ? ks : vs, lane, seq, acc);  // dq, a
+  store_frag_rows<8>(acc, ds_warp ? dqkv : a2, ds_warp ? ld3 : inner, j0,
+                     seq, lane);
+  float acc_t[8][4] = {};
+  transposed_products(rows, ds_warp ? qs : das, j0, lane, seq, acc_t);
+  store_frag_rows<8>(acc_t, dqkv + (ds_warp ? inner : 2 * inner), ld3, j0,
+                     seq, lane);                                 // dk, dv
+}
+
+// The backward of one frame a block. parts: (batch, 3 d) f32, a block's row
+// [dbo | dg | dbe]; hbuf, dobbuf (B*T, d), a2buf (B*T, inner), dqkv (B*T, 3
+// inner) emitted for the weight-gradient products.
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
+                   const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                   const bf16* __restrict__ wo, const float* __restrict__ g,
+                   const float* __restrict__ be, const bf16* __restrict__ gy,
+                   bf16* hbuf, bf16* dobbuf, bf16* a2buf, bf16* dqkv,
+                   bf16* __restrict__ dx, float* __restrict__ parts, int seq,
+                   int d, int heads, float scale_log2, float eps, Drop drop) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* hs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* qs = hs + kBM * kTcPitchH;   // then ks, vs, das, ps, dss
+  bf16* ks = qs + kTcTileElems;
+  bf16* vs = ks + kTcTileElems;
+  bf16* das = vs + kTcTileElems;
+  bf16* ps = das + kTcTileElems;
+  bf16* dss = ps + kTcTileElems;
+  float* dhs = reinterpret_cast<float*>(tc_smem);   // after the head loop
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem + kTcBwdRegion);
+  float* rowbuf = reinterpret_cast<float*>(ring);   // outside the rings
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 32 * (warp >> 2), wn = warp & 3;
+  const int frame = blockIdx.x;
+  const i64 r0 = (i64)frame * seq;
+  const int inner = heads * kTcHead;
+  const int kc = d / kTcChunk, ki = inner / kTcChunk;
+  const i64 ld3 = 3LL * inner;
+  float* my_parts = parts + (i64)frame * 3 * d;
+
+  ln_rows_to_shared(x + r0 * d, hs, g, be, seq, d, eps);
+  {
+    // do = drop1's mask on gy, rounded, to dobbuf; dbo's partial row.
+    float sum[kPerLane];
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) sum[e] = 0.f;
+    for (int i = warp; i < seq; i += kWarps)
+      masked_grad_row<bf16>(gy + (r0 + i) * d, dobbuf + (r0 + i) * d, drop,
+                            1u, (uint32_t)i, (uint32_t)frame, d, lane, sum);
+    block_col_sums(sum, d, rowbuf, my_parts);   // ends with a barrier
+  }
+  for (int idx = threadIdx.x; idx < seq * (d / 8); idx += kThreads) {
+    const int i = idx / (d / 8), c = idx % (d / 8);
+    *reinterpret_cast<uint4*>(hbuf + (r0 + i) * d + c * 8) =
+        *reinterpret_cast<const uint4*>(hs + i * kTcPitchH + c * 8);
+  }
+
+  // Per head, in chunks of 64 over d: warps 0-5 form [q | k | v] (64 x 192,
+  // a warp 32 x 64) from h, warps 6-7 da (64 x 64) = do Wo[:, head] from
+  // do; stage rows 0-191 hold the weights' rows [n][k], 192-255 do's
+  // [m][k], 256-319 wo's [k][n]. Then the core.
+  const bool qkv_warp = warp < 6;
+  const int pm = qkv_warp ? 32 * (warp / 3) : 32 * (warp - 6);
+  const int pn = qkv_warp ? 64 * (warp % 3) : 0;
+  float acc[2][8][4];
+  zero_frags(acc);
+  run_ring<2, kTcHeadStageElems>(
+      ring, heads * kc,
+      [&](int c, bf16* st) {
+        const int head = c / kc, k0 = (c % kc) * kTcChunk;
+        stage_qkv_weights(st, wq, wk, wv, head, k0, d);
+        stage_chunk<8>(st + 192 * kTcStride, kTcStride, dobbuf + r0 * d + k0,
+                       d, 64, seq, 8);
+        stage_chunk<8>(st + 256 * kTcStride, kTcStride,
+                       wo + (i64)k0 * inner + head * kTcHead, inner, 64, 64,
+                       8);
+      },
+      [&](int c, const bf16* st) {
+        const int head = c / kc, j = c % kc;
+        if (qkv_warp)
+          mma_chunk<kTcChunk, 2, 8, false, false>(
+              hs + j * kTcChunk, kTcPitchH, pm, st, kTcStride, pn, lane, acc);
+        else
+          mma_chunk<kTcChunk, 2, 8, false, true>(
+              st + 192 * kTcStride, kTcStride, pm, st + 256 * kTcStride,
+              kTcStride, 0, lane, acc);
+        if (j != kc - 1) return;
+        frags_to_tiles(acc, qkv_warp ? qs : das, pm, pn, lane);
+        zero_frags(acc);
+        __syncthreads();
+        core_bwd(qs, ks, vs, das, ps, dss, dqkv + r0 * ld3 + head * kTcHead,
+                 ld3, inner, a2buf + r0 * inner + head * kTcHead, seq, frame,
+                 head, warp, lane, 0.125f, scale_log2, drop);
+      });
+
+  // dh (64 x d, f32) = dq Wq + dk Wk + dv Wv in passes of 256 columns over
+  // 3 inner, in chunks of 64: stage rows 0-63 dqkv's [m][k], then 64 rows
+  // of the weights [k][n], kTcPitchDh2 elements apart.
+  const int kq = 3 * ki;
+  float out[2][8][4];
+  zero_frags(out);
+  run_ring<2, kTcDhStageElems>(
+      ring, (d + 255) / 256 * kq,
+      [&](int c, bf16* st) {
+        const int n0 = (c / kq) * 256, j = c % kq;
+        const bf16* w = j < ki ? wq : j < 2 * ki ? wk : wv;
+        stage_chunk<8>(st, kTcStride, dqkv + r0 * ld3 + j * kTcChunk, ld3,
+                       64, seq, 8);
+        stage_chunk<32>(st + kTcTileElems, kTcPitchDhB,
+                        w + (i64)(j % ki) * kTcChunk * d + n0, d, 64, 64,
+                        (d - n0) / 8);
+      },
+      [&](int c, const bf16* st) {
+        const int j = c % kq;
+        mma_chunk<kTcChunk, 2, 8, false, true>(st, kTcStride, m0,
+                                               st + kTcTileElems, kTcPitchDhB,
+                                               64 * wn, lane, out);
+        if (j != kq - 1) return;
+        const int c0 = (c / kq) * 256 + 64 * wn;
+        if (c0 < d) {
+          const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              float* at = dhs + (m0 + 16 * i + gr) * kTcPitchDh + c0 +
+                          8 * jj + 2 * t;
+              *reinterpret_cast<float2*>(at) =
+                  make_float2(out[i][jj][0], out[i][jj][1]);
+              *reinterpret_cast<float2*>(at + 8 * kTcPitchDh) =
+                  make_float2(out[i][jj][2], out[i][jj][3]);
+            }
+        }
+        zero_frags(out);
+      });
+
+  float sc[kPerLane], dg[kPerLane], dbe[kPerLane];
+  load_param(g, d, lane, sc);
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) dg[e] = dbe[e] = 0.f;
+  for (int i = warp; i < seq; i += kWarps) {
+    const i64 r = r0 + i;
+    ln_bwd_row<bf16>(x + r * d, gy + r * d, dhs + i * kTcPitchDh, dx + r * d,
+                     sc, d, lane, eps, dg, dbe);
+  }
+  block_col_sums(dg, d, rowbuf, my_parts + d);
+  block_col_sums(dbe, d, rowbuf, my_parts + 2 * d);
+}
+
+// ---------------------------------------------------------------------------
 // The second pass: weight gradients and the sums of the partial rows
 // ---------------------------------------------------------------------------
 
@@ -1245,6 +2016,66 @@ sum_rows_kernel(const float* __restrict__ parts, int nparts, int width,
   }
 }
 
+// The weight-gradient product on the tensor cores (bf16 operands whose rows
+// take 16-byte groups): C (M x N) = A^T B over the rows of a split, A
+// (rows, M) and B (rows, N) row-major. A block owns a 128 x 128 tile of C,
+// a warp 64 x 32 of it; the rows stream 32 at a time through a ring of four
+// cp.async stages, both operands [k][.] and read transposed by ldmatrix.
+// Partials are written and summed as grad_weight_kernel's.
+constexpr int kGwTile = 128;
+constexpr int kGwDepth = 32;
+constexpr int kGwPitch = kGwTile + 8;
+constexpr int kGwStages = 4;
+constexpr int kGwStageElems = 2 * kGwDepth * kGwPitch;
+constexpr int kGwBytes = kGwStages * kGwStageElems * 2;
+static_assert(kBK == kGwDepth, "a split starts on a chunk of the ring");
+
+__global__ void __launch_bounds__(kThreads)
+grad_weight_tc_kernel(const bf16* A, i64 lda, const bf16* B, i64 ldb,
+                      float* c, i64 scm, i64 scn, float* partial, int M,
+                      int N, i64 rows, i64 per) {
+  extern __shared__ __align__(128) unsigned char gw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(gw_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 64 * (warp >> 2), wn = 32 * (warp & 3);
+  const int n0 = blockIdx.x * kGwTile, m0 = blockIdx.y * kGwTile;
+  const i64 first = (i64)blockIdx.z * per;
+  i64 count = rows - first;
+  if (count > per) count = per;
+  const int chunks = count > 0 ? (int)((count + kGwDepth - 1) / kGwDepth) : 0;
+  float acc[4][4][4];
+  zero_frags(acc);
+  run_ring<kGwStages, kGwStageElems>(
+      ring, chunks,
+      [&](int k, bf16* st) {
+        const i64 r = first + (i64)k * kGwDepth;
+        const i64 left = count - (i64)k * kGwDepth;
+        const int valid = left < kGwDepth ? (int)left : kGwDepth;
+        stage_chunk<16>(st, kGwPitch, A + r * lda + m0, lda, kGwDepth, valid,
+                        (M - m0) / 8);
+        stage_chunk<16>(st + kGwDepth * kGwPitch, kGwPitch, B + r * ldb + n0,
+                        ldb, kGwDepth, valid, (N - n0) / 8);
+      },
+      [&](int, const bf16* st) {
+        mma_chunk<kGwDepth, 4, 4, true, true>(st, kGwPitch, wm,
+                                              st + kGwDepth * kGwPitch,
+                                              kGwPitch, wn, lane, acc);
+      });
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + 16 * i + gr + 8 * (e >> 1);
+        const int n = n0 + wn + 8 * j + 2 * t + (e & 1);
+        if (m >= M || n >= N) continue;
+        if (gridDim.z == 1) c[m * scm + n * scn] = acc[i][j][e];
+        else partial[((i64)blockIdx.z * M + m) * N + n] = acc[i][j][e];
+      }
+}
+
 inline int splits_for(i64 rows) {
   const i64 want = rows / 2048;
   return (int)(want < 1 ? 1 : want > kMaxSplits ? kMaxSplits : want);
@@ -1259,10 +2090,27 @@ int launch_grad_weight(const void* A, i64 lda, const void* B, i64 ldb,
   // A multiple of the staged depth, so that every split starts on a
   // 16-byte boundary of its operands.
   const i64 per = ((rows + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  grad_weight_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(A), lda, static_cast<const T*>(B), ldb,
-      static_cast<float*>(c), scm, scn, partial, M, N, rows, per);
+  bool tc = false;
+  if constexpr (std::is_same<T, bf16>::value)
+    tc = lda % 8 == 0 && ldb % 8 == 0 && M % 8 == 0 && N % 8 == 0 &&
+         (reinterpret_cast<uintptr_t>(A) & 15u) == 0 &&
+         (reinterpret_cast<uintptr_t>(B) & 15u) == 0;
+  if (tc) {
+    cudaError_t set = cudaFuncSetAttribute(
+        grad_weight_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGwBytes);
+    if (set != cudaSuccess) return (int)set;
+    const dim3 grid((N + kGwTile - 1) / kGwTile, (M + kGwTile - 1) / kGwTile,
+                    splits);
+    grad_weight_tc_kernel<<<grid, kThreads, kGwBytes, s>>>(
+        static_cast<const bf16*>(A), lda, static_cast<const bf16*>(B), ldb,
+        static_cast<float*>(c), scm, scn, partial, M, N, rows, per);
+  } else {
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+    grad_weight_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(A), lda, static_cast<const T*>(B), ldb,
+        static_cast<float*>(c), scm, scn, partial, M, N, rows, per);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const i64 cells = (i64)M * N;
@@ -1402,6 +2250,60 @@ int run_attn_bwd(const void* x, const void* const* w, const i64* strides,
                                partial, inner, d, rows, s);
 }
 
+// What the tc variant takes beyond bad_attn: heads of 64, d a multiple of
+// 64 (up to 512), the bf16 dtype (checked by the entries).
+bool bad_tc(int d, int head_dim) {
+  return head_dim != kTcHead || d % kTcChunk != 0;
+}
+
+// scale * log2(e) for the softmax's exp2f: scale = 1 / sqrt(64).
+constexpr float kTcScaleLog2 = 0.125f * 1.4426950408889634f;
+
+int run_attn_tc_fwd(const void* x, const void* const* w, const void* bo,
+                    const void* g, const void* be, void* hbuf, void* abuf,
+                    void* y, int batch, int seq, int d, int heads, int slots,
+                    float eps, Drop drop, cudaStream_t s) {
+  int err = allow_shared(attn_fwd_tc_kernel, kTcFwdBytes);
+  if (err != 0) return err;
+  attn_fwd_tc_kernel<<<slots, kThreads, kTcFwdBytes, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w[0]),
+      static_cast<const bf16*>(w[1]), static_cast<const bf16*>(w[2]),
+      static_cast<const bf16*>(w[3]), static_cast<const float*>(bo),
+      static_cast<const float*>(g), static_cast<const float*>(be),
+      static_cast<bf16*>(hbuf), static_cast<bf16*>(abuf),
+      static_cast<bf16*>(y), batch, seq, d, heads, kTcScaleLog2, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+int run_attn_tc_bwd(const void* x, const void* const* w, const void* g,
+                    const void* be, const void* gy, void* hbuf, void* dobbuf,
+                    void* a2buf, void* dqkv, void* dx, void* dwo,
+                    const i64* sdo, void* small, float* work, int batch,
+                    int seq, int d, int heads, float eps, Drop drop,
+                    cudaStream_t s) {
+  int err = allow_shared(attn_bwd_tc_kernel, kTcSmem);
+  if (err != 0) return err;
+  const int inner = heads * kTcHead;
+  const i64 rows = (i64)batch * seq;
+  float* parts = work;
+  float* partial = work + (i64)batch * 3 * d;
+  attn_bwd_tc_kernel<<<batch, kThreads, kTcSmem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w[0]),
+      static_cast<const bf16*>(w[1]), static_cast<const bf16*>(w[2]),
+      static_cast<const bf16*>(w[3]), static_cast<const float*>(g),
+      static_cast<const float*>(be), static_cast<const bf16*>(gy),
+      static_cast<bf16*>(hbuf), static_cast<bf16*>(dobbuf),
+      static_cast<bf16*>(a2buf), static_cast<bf16*>(dqkv),
+      static_cast<bf16*>(dx), parts, seq, d, heads, kTcScaleLog2, eps, drop);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = launch_sum_rows(parts, batch, 3 * d, static_cast<float*>(small), s);
+  if (err != 0) return err;
+  // dWo (inner, d) = a2^T do
+  return launch_grad_weight<bf16>(a2buf, inner, dobbuf, d, dwo, sdo[0],
+                                  sdo[1], partial, inner, d, rows, s);
+}
+
 }  // namespace
 
 // Conventions of every entry: dtype 0 = float32, 1 = bfloat16 for x, y, gy,
@@ -1536,4 +2438,44 @@ extern "C" int attn_block_bwd(
                                        small, w, batch, seq, d, heads,
                                        head_dim, scale, eps, drop, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tc variant of attn_block_fwd: bfloat16 only (dtype 1), heads of 64,
+// d a multiple of 64 up to 512, seq <= 64; scale 1 / 8. weights: wq, wk, wv
+// (heads * 64, d) and wo (d, heads * 64), each contiguous as stored (out,
+// in). hbuf: (batch * seq, d) scratch; abuf: (slots * 64, heads * 64)
+// scratch; ``slots`` blocks (1 to batch) walk the frames.
+extern "C" int attn_block_tc_fwd(const void* x, const void* const* weights,
+                                 const void* bo, const void* g,
+                                 const void* be, void* hbuf, void* abuf,
+                                 void* y,
+                                 int batch, int seq, int d, int heads,
+                                 int slots, float eps, int dtype,
+                                 unsigned int seed, unsigned int threshold,
+                                 float inv_keep, void* stream) {
+  if (bad_attn(batch, seq, d, heads, kTcHead) || bad_tc(d, kTcHead) ||
+      dtype != 1 || slots < 1 || slots > batch)
+    return (int)cudaErrorInvalidValue;
+  return run_attn_tc_fwd(x, weights, bo, g, be, hbuf, abuf, y, batch, seq, d,
+                         heads, slots, eps, Drop{seed, threshold, inv_keep},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The tc variant of attn_block_bwd, under the conditions of
+// attn_block_tc_fwd, the weights given as there; the other arguments as
+// attn_block_bwd's.
+extern "C" int attn_block_tc_bwd(
+    const void* x, const void* const* weights, const void* g, const void* be,
+    const void* gy, void* hbuf, void* dobbuf, void* a2buf, void* dqkv,
+    void* dx, void* dwo, long long sdo_in, long long sdo_out, void* small,
+    void* work, int batch, int seq, int d, int heads, float eps, int dtype,
+    unsigned int seed, unsigned int threshold, float inv_keep, void* stream) {
+  if (bad_attn(batch, seq, d, heads, kTcHead) || bad_tc(d, kTcHead) ||
+      dtype != 1)
+    return (int)cudaErrorInvalidValue;
+  const i64 sdo[2] = {sdo_in, sdo_out};
+  return run_attn_tc_bwd(x, weights, g, be, gy, hbuf, dobbuf, a2buf, dqkv, dx,
+                         dwo, sdo, small, static_cast<float*>(work), batch,
+                         seq, d, heads, eps, Drop{seed, threshold, inv_keep},
+                         static_cast<cudaStream_t>(stream));
 }

@@ -60,8 +60,9 @@
 // of 16 up to 64, T <= 64 (the flagship: T = 50, D = 64). Every product
 // runs on the tensor cores through mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), whose fragment layouts the PTX ISA specifies, so the scores
-// never leave registers (ldmatrix, mma.sync, the fragment packing and the
-// keep bits are csrc/tc_common.cuh's, shared with flash_attention.cu):
+// never leave registers (ldmatrix, mma.sync, the fragment packing, the
+// keep bits and the core's row_products, softmax_rows and times_tile are
+// csrc/tc_common.cuh's, shared with flash_attention.cu and fused_block.cu):
 //   - one block of four warps per (frame, head); q, k, v (and g) come into
 //     shared memory as bf16 by 16-byte cp.async, rows padded to 144 bytes
 //     so that ldmatrix's eight row addresses fall on distinct banks; rows T
@@ -384,7 +385,6 @@ int launch_bwd_scalar(const void* q, const void* k, const void* v,
 // ---- The "tc" variant: bf16 on the tensor cores (mma.sync.m16n8k16) ----
 
 constexpr int kTcWarps = 4;                   // 16 query rows each
-constexpr int kTcStride = kMaxHeadDim + 8;    // bf16 a tile row: 144 bytes
 constexpr int kTcTile = kMaxSeq * kTcStride;  // bf16 a (64, D) tile
 constexpr int kTcBwdBytes = 6 * kTcTile * 2;  // q, k, v, g, dropped, ds
 
@@ -409,105 +409,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
 
 __device__ __forceinline__ void wait_loads() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// s[n] += the C fragment of key tile n (keys 8n..8n+7) of A B^T, A the 16
-// rows from r0 of tile a, B the rows of tile b: lane (g = lane / 4, t =
-// lane % 4) holds s[n][e] at row r0 + g + 8 (e / 2), key 8n + 2t + e % 2.
-// Key tiles from seq on are skipped (they stay as they were).
-template <int D>
-__device__ __forceinline__ void row_products(const __nv_bfloat16* a,
-                                             const __nv_bfloat16* b, int r0,
-                                             int lane, int seq,
-                                             float (&s)[8][4]) {
-  uint32_t frag[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(a + (r0 + (lane & 15)) * kTcStride + kk * 16 + (lane >> 4) * 8,
-            frag[kk]);
-#pragma unroll
-  for (int n = 0; n < 8; n += 2) {
-    if (8 * n >= seq) break;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t bf[4];
-      ldsm_x4(b + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
-                  kk * 16 + ((lane >> 3) & 1) * 8,
-              bf);
-      mma_bf16(s[n], frag[kk], bf[0], bf[1]);
-      mma_bf16(s[n + 1], frag[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[n] += the C fragment of output tile n (columns 8n..8n+7) of P X for
-// the warp's 16 rows: p[kk] the A fragment of P's keys 16kk..16kk+15, X
-// the (64, D) tile x read transposed by ldmatrix. Key steps from seq on are
-// skipped.
-template <int D>
-__device__ __forceinline__ void times_tile(uint32_t (&p)[4][4],
-                                           const __nv_bfloat16* x, int lane,
-                                           int seq, float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (16 * kk >= seq) break;
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4_trans(x + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                            kTcStride +
-                        8 * n + (lane >> 4) * 8,
-                    bf);
-      mma_bf16(acc[n], p[kk], bf[0], bf[1]);
-      mma_bf16(acc[n + 1], p[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// The row softmax of the scores s (C layout, unscaled) in place: the
-// weights in f32, key columns from seq on masked to weight 0.
-__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
-                                             int seq, float scale_log2) {
-  const int t = lane & 3;
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
-      if (e < 2)
-        m0 = fmaxf(m0, s[n][e]);
-      else
-        m1 = fmaxf(m1, s[n][e]);
-    }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-  }
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // exp(scale * (s - max)): the scale is positive, so the row's max of
-      // the scaled scores is the scaled max.
-      s[n][e] = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * scale_log2);
-      if (e < 2)
-        l0 += s[n][e];
-      else
-        l1 += s[n][e];
-    }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
 }
 
 // acc (C layout, the warp's 16 rows) into rows 0..15 of a staging tile as

@@ -1,18 +1,22 @@
-// Building blocks of the bf16 tensor-core kernels (mhsa_short.cu's and
-// flash_attention.cu's "tc" variants), for Hopper (sm_90a): ldmatrix,
-// mma.sync.m16n8k16 by inline PTX, fragment packing, and the dropout keep
-// bits of a C fragment.
+// Building blocks of the bf16 tensor-core kernels (the "tc" variants of
+// mhsa_short.cu, flash_attention.cu and fused_block.cu), for Hopper
+// (sm_90a): ldmatrix, mma.sync.m16n8k16 by inline PTX, fragment packing,
+// the dropout keep bits of a C fragment, cp.async, and the short-sequence
+// attention core that K1 and K6 share (the scores of 16 query rows against
+// up to 64 keys held in registers, their softmax, products with a (64, D)
+// tile).
 //
 // Fragment layouts are the PTX ISA's for mma.m16n8k16 with bf16 operands:
 // lane (g = lane / 4, t = lane % 4) holds, of a 16 x 8 C tile, the
 // elements (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), in that
 // order. build.py hashes this header with every source, so an edit here
-// rebuilds both libraries.
+// rebuilds every library.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -147,6 +151,110 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// A (64, <= 64) bf16 tile of the short-sequence attention cores (K1's tc
+// kernels and K6's tc kernels): rows padded to 144 bytes, so that
+// ldmatrix's eight row addresses fall on distinct banks.
+constexpr int kTcStride = 72;
+
+// s[n] += the C fragment of key tile n (keys 8n..8n+7) of A B^T, A the 16
+// rows from r0 of tile a, B the rows of tile b: lane (g = lane / 4, t =
+// lane % 4) holds s[n][e] at row r0 + g + 8 (e / 2), key 8n + 2t + e % 2.
+// Key tiles from seq on are skipped (they stay as they were).
+template <int D>
+__device__ __forceinline__ void row_products(const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b, int r0,
+                                             int lane, int seq,
+                                             float (&s)[8][4]) {
+  uint32_t frag[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(a + (r0 + (lane & 15)) * kTcStride + kk * 16 + (lane >> 4) * 8,
+            frag[kk]);
+#pragma unroll
+  for (int n = 0; n < 8; n += 2) {
+    if (8 * n >= seq) break;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bf[4];
+      ldsm_x4(b + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
+                  kk * 16 + ((lane >> 3) & 1) * 8,
+              bf);
+      mma_bf16(s[n], frag[kk], bf[0], bf[1]);
+      mma_bf16(s[n + 1], frag[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[n] += the C fragment of output tile n (columns 8n..8n+7) of P X for
+// the warp's 16 rows: p[kk] the A fragment of P's keys 16kk..16kk+15, X
+// the (64, D) tile x read transposed by ldmatrix. Key steps from seq on are
+// skipped.
+template <int D>
+__device__ __forceinline__ void times_tile(uint32_t (&p)[4][4],
+                                           const __nv_bfloat16* x, int lane,
+                                           int seq, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= seq) break;
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t bf[4];
+      ldsm_x4_trans(x + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            kTcStride +
+                        8 * n + (lane >> 4) * 8,
+                    bf);
+      mma_bf16(acc[n], p[kk], bf[0], bf[1]);
+      mma_bf16(acc[n + 1], p[kk], bf[2], bf[3]);
+    }
+  }
+}
+
+// The row softmax of the scores s (C layout, unscaled) in place: the
+// weights in f32, key columns from seq on masked to weight 0.
+__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
+                                             int seq, float scale_log2) {
+  const int t = lane & 3;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
+      if (e < 2)
+        m0 = fmaxf(m0, s[n][e]);
+      else
+        m1 = fmaxf(m1, s[n][e]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // exp(scale * (s - max)): the scale is positive, so the row's max of
+      // the scaled scores is the scaled max.
+      s[n][e] = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * scale_log2);
+      if (e < 2)
+        l0 += s[n][e];
+      else
+        l1 += s[n][e];
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
 }
 
 }  // namespace

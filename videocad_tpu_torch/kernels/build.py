@@ -4,8 +4,8 @@ Each source is one ``.cu`` file under ``videocad_tpu_torch/csrc/`` with
 plain C entry points (a source may hold several kernels that share code:
 ``mhsa_short.cu`` the forward and the backward), and may include the
 headers beside it (``tc_common.cuh``: the tensor-core building blocks of
-``mhsa_short.cu`` and ``flash_attention.cu``). It is compiled with
-``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``mhsa_short.cu``, ``flash_attention.cu`` and ``fused_block.cu``). It is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root, at first use, and loaded with
 ``ctypes``. The library's file name carries a hash of its source and of
 the headers, so an edited source or header is rebuilt and a stale library

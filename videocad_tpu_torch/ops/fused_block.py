@@ -41,7 +41,12 @@ Dispatch: a CPU tensor runs the plain PyTorch versions
 :func:`mlp_block_reference`, :func:`mlp_block_backward_reference`); a CUDA
 tensor launches the kernels or raises. There is no fallback from one to the
 other. The kernels take float32 or bfloat16, T <= 64, D <= 512 and heads of
-at most 64.
+at most 64. The attention sub-block has two kernel variants, which
+:func:`_attn_variant` picks from the dtype and the shape alone: "tc"
+(bfloat16, heads of 64, D a multiple of 64: every product on the tensor
+cores, the flagship ViT's shapes) and "tile" (float32, and every other
+shape the kernels take); neither stands in for the other when a launch
+fails.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from videocad_tpu_torch.kernels import build
 from videocad_tpu_torch.ops.prng import (SITE_ATTN_RES, SITE_ATTN_W,
                                          SITE_MLP_HID, SITE_MLP_RES,
                                          block_site_bits, dropout_threshold,
@@ -61,7 +67,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SEQ = 64        # a block of the attention kernels owns one frame
 _MAX_DIM = 512       # a warp holds a row of x in registers
 _MAX_HEAD_DIM = 64
+_TC_HEAD_DIM = 64    # the head width of the attention's tc variant
 _F32 = torch.float32
+ATTN_VARIANTS = ("tc", "tile")
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +394,27 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _attn_variant(dtype: torch.dtype, t: int, d: int, head_dim: int) -> str:
+    """The attention kernels' variant for a CUDA call: "tc" for bfloat16
+    with heads of 64, D a multiple of 64 up to 512 and 1 <= T <= 64, "tile"
+    for everything else the kernels take (float32: the tensor cores would
+    round it to TF32)."""
+    if (dtype == torch.bfloat16 and head_dim == _TC_HEAD_DIM
+            and d % 64 == 0 and 64 <= d <= _MAX_DIM and 1 <= t <= _MAX_SEQ):
+        return "tc"
+    return "tile"
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
+
+
 def _mlp_forward(x, w1, b1, w2, b2, g, be, seed, rate, eps):
     if x.device.type == "cpu":
         return mlp_block_reference(x, w1, b1, w2, b2, g, be, seed, rate, eps)
@@ -483,7 +512,21 @@ def _weight_args(x, *weights):
     return cast, pointers, strides
 
 
-def _attn_forward(x, wq, wk, wv, wo, bo, g, be, seed, num_heads, rate, eps):
+def _stored_weights(x, *weights):
+    """The four weights as the tc kernels read them, each cast to x's dtype
+    and contiguous as an (out, in) matrix is stored (for the model's
+    ``weight.t()`` views no copy), kept alive by the caller, and their
+    pointers as a C array."""
+    stored = [w.detach().to(x.dtype).t().contiguous() for w in weights]
+    return stored, (ctypes.c_void_p * len(stored))(
+        *(w.data_ptr() for w in stored))
+
+
+def _attn_forward(x, wq, wk, wv, wo, bo, g, be, seed, num_heads, rate, eps,
+                  variant=None):
+    """The forward of :func:`attn_block`; ``variant`` (of
+    :data:`ATTN_VARIANTS`) overrides :func:`_attn_variant` on a CUDA
+    tensor."""
     if x.device.type == "cpu":
         return attn_block_reference(x, wq, wk, wv, wo, bo, g, be, seed,
                                     num_heads, rate, eps)
@@ -492,19 +535,34 @@ def _attn_forward(x, wq, wk, wv, wo, bo, g, be, seed, num_heads, rate, eps):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    variant = variant or _attn_variant(x.dtype, t, d, head_dim)
     entries = _entries or load_library()
-    cast, pointers, strides = _weight_args(x, wq, wk, wv, wo)
     bo, g, be = (_param(v) for v in (bo, g, be))
-    hbuf = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = entries["attn_block_fwd"](
-            x.data_ptr(), pointers, strides, bo.data_ptr(), g.data_ptr(),
-            be.data_ptr(), hbuf.data_ptr(), y.data_ptr(), b, t, d, num_heads,
-            head_dim, 1.0 / math.sqrt(head_dim), eps, _DTYPE_CODES[x.dtype],
-            *_dropout_args(seed, rate), _stream(x))
+    tail = (eps, _DTYPE_CODES[x.dtype], *_dropout_args(seed, rate))
+    hbuf = torch.empty_like(x)    # h = LN(x): each block reads back its own
+    if variant == "tc":
+        cast, pointers = _stored_weights(x, wq, wk, wv, wo)
+        # Two blocks an SM walk the frames; each has its 64 rows of the
+        # merged heads, which stay in L2, as h does.
+        slots = min(b, 2 * _sm_count(x.device))
+        abuf = torch.empty((slots * _MAX_SEQ, inner), dtype=x.dtype,
+                           device=x.device)
+        err = build.launch(
+            entries["attn_block_tc_fwd"], x.device.index, x.data_ptr(),
+            pointers, bo.data_ptr(), g.data_ptr(), be.data_ptr(),
+            hbuf.data_ptr(), abuf.data_ptr(), y.data_ptr(), b, t, d,
+            num_heads, slots, *tail)
+    else:
+        cast, pointers, strides = _weight_args(x, wq, wk, wv, wo)
+        err = build.launch(
+            entries["attn_block_fwd"], x.device.index, x.data_ptr(),
+            pointers, strides, bo.data_ptr(), g.data_ptr(), be.data_ptr(),
+            hbuf.data_ptr(), y.data_ptr(), b, t, d, num_heads, head_dim,
+            1.0 / math.sqrt(head_dim), *tail)
     del cast    # held until the launch was queued
-    _raise_on(err, "attn_block")
+    _raise_on(err, f"attn_block {variant}")
     attn_block.launches += 1
+    attn_block.tc_launches += variant == "tc"
     return y
 
 
@@ -515,7 +573,8 @@ def attn_block_backward(x, wq, wk, wv, wo, bo, g, be, gy, seed,
     output gradient ``gy``: on a CUDA tensor the backward kernel, its
     partial sums and the dWo product, all hand-written, and one
     ``torch.matmul`` for dWq, dWk, dWv on the emitted h and dqkv
-    (``attn_block_backward.launches`` counts the calls); on a CPU tensor
+    (``attn_block_backward.launches`` counts the calls, ``.tc_launches``
+    those of the tc variant); on a CPU tensor
     :func:`attn_block_backward_reference`."""
     _check_attn(x, wq, wk, wv, wo, bo, g, be, num_heads)
     require_seed(seed, dropout_rate, "attn_block")
@@ -525,39 +584,56 @@ def attn_block_backward(x, wq, wk, wv, wo, bo, g, be, gy, seed,
         return attn_block_backward_reference(x, wq, wk, wv, wo, bo, g, be,
                                              gy, seed, num_heads,
                                              dropout_rate, eps)
+    return _attn_backward(x, wq, wk, wv, wo, bo, g, be, gy, seed, num_heads,
+                          dropout_rate, eps)
+
+
+def _attn_backward(x, wq, wk, wv, wo, bo, g, be, gy, seed, num_heads,
+                   dropout_rate, eps, variant=None):
+    """:func:`attn_block_backward` on a CUDA tensor; ``variant`` as for
+    :func:`_attn_forward`."""
     gy = gy.contiguous()
     _check_kernel_inputs("attn_block", x, gy)
     b, t, d, inner, head_dim = _attn_kernel_shapes(x, wq, num_heads)
+    variant = variant or _attn_variant(x.dtype, t, d, head_dim)
     rows = b * t
     dx = torch.empty_like(x)
     dwo = _grad_like(wo)
-    small = torch.zeros(3 * d, dtype=_F32, device=x.device)
+    # [dbo | dg | dbe]: the kernels write every entry.
+    small = torch.empty(3 * d, dtype=_F32, device=x.device)
     new = lambda width: torch.empty((rows, width), dtype=x.dtype,  # noqa: E731
                                     device=x.device)
     hbuf, dqkv = new(d), new(3 * inner)
     if rows > 0:
         entries = _entries or load_library()
-        cast, pointers, strides = _weight_args(x, wq, wk, wv, wo)
         gc, bec = _param(g), _param(be)
         dobbuf, a2buf = new(d), new(inner)
         work = torch.empty(
             entries["attn_block_bwd_workspace"](b, t, d, inner), dtype=_F32,
             device=x.device)
-        with torch.cuda.device(x.device):
-            err = entries["attn_block_bwd"](
-                x.data_ptr(), pointers, strides, gc.data_ptr(),
-                bec.data_ptr(), gy.data_ptr(), hbuf.data_ptr(),
-                dobbuf.data_ptr(), a2buf.data_ptr(), dqkv.data_ptr(),
-                dx.data_ptr(), dwo.data_ptr(), *dwo.stride(),
-                small.data_ptr(), work.data_ptr(), b, t, d, num_heads,
-                head_dim, 1.0 / math.sqrt(head_dim), eps,
-                _DTYPE_CODES[x.dtype], *_dropout_args(seed, dropout_rate),
-                _stream(x))
+        buffers = (gc.data_ptr(), bec.data_ptr(), gy.data_ptr(),
+                   hbuf.data_ptr(), dobbuf.data_ptr(), a2buf.data_ptr(),
+                   dqkv.data_ptr(), dx.data_ptr(), dwo.data_ptr(),
+                   *dwo.stride(), small.data_ptr(), work.data_ptr(), b, t, d,
+                   num_heads)
+        tail = (eps, _DTYPE_CODES[x.dtype],
+                *_dropout_args(seed, dropout_rate))
+        if variant == "tc":
+            cast, pointers = _stored_weights(x, wq, wk, wv, wo)
+            err = build.launch(entries["attn_block_tc_bwd"], x.device.index,
+                               x.data_ptr(), pointers, *buffers, *tail)
+        else:
+            cast, pointers, strides = _weight_args(x, wq, wk, wv, wo)
+            err = build.launch(entries["attn_block_bwd"], x.device.index,
+                               x.data_ptr(), pointers, strides, *buffers,
+                               head_dim, 1.0 / math.sqrt(head_dim), *tail)
         del cast    # held until the launch was queued
-        _raise_on(err, "attn_block_backward")
+        _raise_on(err, f"attn_block_backward {variant}")
         attn_block_backward.launches += 1
+        attn_block_backward.tc_launches += variant == "tc"
     else:
         dwo.zero_()
+        small.zero_()
     dwq, dwk, dwv = _qkv_weight_grads(hbuf, dqkv, inner)
     dbo, dg, dbe = small.split([d, d, d])
     return (dx, dwq.to(wq.dtype), dwk.to(wk.dtype), dwv.to(wv.dtype),
@@ -642,7 +718,8 @@ def attn_block(x, wq, wk, wv, wo, bo, g, be, seed, num_heads: int,
     On a CUDA tensor it launches the hand-written kernels and raises on what
     they do not take (as :func:`mlp_block`, and T > 64 or a head wider than
     64); ``attn_block.launches`` and ``attn_block_backward.launches`` count
-    the launches. On a CPU tensor it runs the plain versions.
+    the launches, their ``.tc_launches`` those of the tensor-core variant
+    (:func:`_attn_variant`). On a CPU tensor it runs the plain versions.
     """
     _check_attn(x, wq, wk, wv, wo, bo, g, be, num_heads)
     require_seed(seed, dropout_rate, "attn_block")
@@ -655,26 +732,23 @@ def attn_block(x, wq, wk, wv, wo, bo, g, be, seed, num_heads: int,
 
 
 attn_block.launches = 0
+attn_block.tc_launches = 0
 attn_block_backward.launches = 0
+attn_block_backward.tc_launches = 0
 mlp_block.launches = 0
 mlp_block_backward.launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
-def load_library():
-    """Build (at first use) and load the kernels' library; returns its C
-    entries by name, bound once and kept for every later launch."""
-    global _entries
-    from videocad_tpu_torch.kernels import build
-
-    lib = build.load("fused_block")
+def _signatures():
+    """(restype, argtypes) of each C entry of ``csrc/fused_block.cu``."""
     ptr, i64, i32, f32, u32 = (ctypes.c_void_p, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_float, ctypes.c_uint)
     # Pointers and the stream as c_void_p: without argtypes ctypes would
     # pass each Python int as a 32-bit int and cut the pointer.
     drop_tail = [f32, i32, u32, u32, f32, ptr]   # eps, dtype, dropout, stream
     weight = [ptr, i64, i64]
-    signatures = {
+    return {
         "mlp_block_fwd": (i32, [ptr] + weight + [ptr] + weight + [ptr] * 5
                           + [i64, i32, i32, i32] + drop_tail),
         "mlp_block_bwd": (i32, [ptr] + weight + [ptr] + weight + [ptr] * 8
@@ -683,11 +757,21 @@ def load_library():
         "attn_block_fwd": (i32, [ptr] * 8 + [i32] * 5 + [f32] + drop_tail),
         "attn_block_bwd": (i32, [ptr] * 12 + [i64, i64, ptr, ptr]
                            + [i32] * 5 + [f32] + drop_tail),
+        "attn_block_tc_fwd": (i32, [ptr] * 8 + [i32] * 5 + drop_tail),
+        "attn_block_tc_bwd": (i32, [ptr] * 11 + [i64, i64, ptr, ptr]
+                              + [i32] * 4 + drop_tail),
         "mlp_block_bwd_workspace": (i64, [i64, i32, i32]),
         "attn_block_bwd_workspace": (i64, [i64, i32, i32, i32]),
     }
+
+
+def load_library():
+    """Build (at first use) and load the kernels' library; returns its C
+    entries by name, bound once and kept for every later launch."""
+    global _entries
+    lib = build.load("fused_block")
     entries = {}
-    for name, (restype, argtypes) in signatures.items():
+    for name, (restype, argtypes) in _signatures().items():
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
         entries[name] = fn
