@@ -41,12 +41,13 @@ imports nothing of JAX. Phases, each of which must pass:
      each of the four dropout sites read off outputs under constructed
      parameters, gradients against autograd through the plain forwards at
      float32, bit-equal repeats, and the port's own unfused sub-block timed
-     beside them; the attention entries run their tensor-core variant in
-     bf16 (checked by its counters) and the present kernels in float32,
-     and their bf16 rows also time the present kernels on the same inputs,
-     give device times beside the unfused sub-block's, the backward's
-     device time by piece (kernel, dWo product, its sums, torch.matmul)
-     and the tensor-core kernels' registers and spills (nvcc -Xptxas -v);
+     beside them; all four entries run their tensor-core variant in bf16
+     (checked by its counters) and the present kernels in float32, and
+     their bf16 rows also time the present kernels on the same inputs,
+     give device times beside the unfused sub-block's, each backward's
+     device time by piece (kernel, weight-gradient products, their sums,
+     torch.matmul) and the tensor-core kernels' registers and spills
+     (nvcc -Xptxas -v);
   4. serve: the flagship config at full width in bf16 with seeded random
      weights, through the serving CLI's build_engine, behind the HTTP
      server; three staggered sessions step through ServingClient, some
@@ -88,8 +89,8 @@ imports nothing of JAX. Phases, each of which must pass:
      block through the fused sub-block kernels): one epoch of 2 steps at
      B=8 with validation, a checkpoint and the test evaluation, without a
      host synchronisation in the epoch loop, 12 launches of each of the
-     four entries a step and none of mhsa_short, the attention's all of its
-     tensor-core variant, and a peak device memory below train D's;
+     four entries a step and none of mhsa_short, all of the tensor-core
+     variant, and a peak device memory below train D's;
  13. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
      rollout's logits and one train step's loss and gradients compared,
@@ -1503,15 +1504,13 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
     check(repeat, f"fused blocks {label}: two backward runs differ in a bit")
 
     with torch.no_grad():
-        tc_marks = (fb.attn_block.tc_launches,
-                    fb.attn_block_backward.tc_launches)
+        tc_marks = [w.tc_launches for w in wrappers]
         y_attn = fb.attn_block(x, *attn, seed, HEADS, rate)
-        y_mlp = fb.mlp_block(x, *mlp, seed, rate)
         g_attn = fb.attn_block_backward(x, *attn, gy, seed, HEADS, rate)
+        y_mlp = fb.mlp_block(x, *mlp, seed, rate)
         g_mlp = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
-        ran = ["tc" if now > before else "tile" for now, before in zip(
-            (fb.attn_block.tc_launches, fb.attn_block_backward.tc_launches),
-            tc_marks)]
+        ran = ["tc" if w.tc_launches > before else "tile"
+               for w, before in zip(wrappers, tc_marks)]
         checks = {
             "attn_block": block_close([y_attn], [fb.attn_block_reference(
                 x, *attn, seed, HEADS, rate)], dtype),
@@ -1532,9 +1531,9 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
     for name, (err, tol, ok) in checks.items():
         check(ok, f"fused blocks {label}: {name} max err {err} (limit {tol})")
     # bf16 takes the tensor-core variant at the flagship's widths, float32
-    # the present kernels.
+    # the present kernels, in both sub-blocks.
     want_variant = "tile" if f32 else "tc"
-    for name, variant in zip(("attn_block", "attn_block_bwd"), ran):
+    for name, variant in zip(BLOCK_KERNELS, ran):
         rows[name]["variant"] = variant
         check(variant == want_variant, f"fused blocks {label}: {name} ran "
               f"the {variant} variant, expected {want_variant}")
@@ -1606,14 +1605,18 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
                         x, *attn, seed, HEADS, rate, 1e-5, variant="tile"),
                     "attn_block_bwd": lambda: fb._attn_backward(
                         x, *attn, gy, seed, HEADS, rate, 1e-5,
-                        variant="tile")}
+                        variant="tile"),
+                    "mlp_block": lambda: fb._mlp_forward(
+                        x, *mlp, seed, rate, 1e-5, variant="tile"),
+                    "mlp_block_bwd": lambda: fb._mlp_backward(
+                        x, *mlp, gy, seed, rate, 1e-5, variant="tile")}
             for name, run in tile.items():
                 rows[name]["tile_ms"] = cuda_ms(run, **reps)
                 rows[name]["tile_device_ms"] = device_ms(run, 5)
-            for name in ("attn_block", "attn_block_bwd"):
+            for name in BLOCK_KERNELS:
                 rows[name]["device_ms"] = device_ms(calls[name][0], 5)
-            rows["attn_block_bwd"]["pieces"] = block_pieces(
-                calls["attn_block_bwd"][0])
+            for name in ("attn_block_bwd", "mlp_block_bwd"):
+                rows[name]["pieces"] = block_pieces(calls[name][0])
     block, attn_half, mlp_half = unfused
     block.train(rate > 0)
     rng = DropoutRng(5, "cuda") if rate else None
@@ -1628,7 +1631,7 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
         both = cuda_ms(both_run, **reps)
         rows[fwd_name]["unfused_ms"] = fwd
         rows[fwd_name + "_bwd"]["unfused_ms"] = both - fwd
-        if not f32 and fwd_name == "attn_block":
+        if not f32:
             with torch.no_grad():
                 fwd_dev = device_ms(fwd_run, 5)
             rows[fwd_name]["unfused_device_ms"] = fwd_dev
@@ -1644,10 +1647,11 @@ def block_case(fb, prng, gen, batch, dtype, rate, unfused):
 
 
 def block_pieces(run):
-    """The device time of one attention backward call by piece
+    """The device time of one backward call of a sub-block by piece
     (torch.profiler; cli/block_cost.py's grouping): the sub-block kernel,
-    the dWo product, its two sums, and the rest (torch.matmul's GEMM for
-    dWqkv, the casts)."""
+    the weight-gradient products (dWo; dW1 and dW2), their partial sums,
+    the partial rows' sums, and the rest (torch.matmul's GEMM for dWqkv,
+    the casts)."""
     from videocad_tpu_torch.cli.block_cost import pieces_of
     from videocad_tpu_torch.cli.profile import profile_work
 
@@ -2436,7 +2440,7 @@ def phase_train_e(counters, card, root, dataset_argv, peak_d_gb):
     check(launches["mhsa_short"] == 0 and launches["mhsa_short_bwd"] == 0,
           "train E launched the short-sequence attention kernels, which "
           "the fused sub-blocks replace")
-    for kernel in ("attn_block", "attn_block_bwd"):
+    for kernel in BLOCK_KERNELS:
         check(launches[kernel + "_tc"] == launches[kernel],
               f"train E launched {kernel} {launches[kernel]} times, "
               f"{launches[kernel + '_tc']} of them the tensor-core variant")
@@ -2761,6 +2765,8 @@ def main() -> None:
         "attn_block_bwd_tc": (fb.attn_block_backward, "tc_launches"),
         "mlp_block": (fb.mlp_block, "launches"),
         "mlp_block_bwd": (fb.mlp_block_backward, "launches"),
+        "mlp_block_tc": (fb.mlp_block, "tc_launches"),
+        "mlp_block_bwd_tc": (fb.mlp_block_backward, "tc_launches"),
     }
 
     def counter(name):
@@ -2810,7 +2816,7 @@ def main() -> None:
                       "train_e": launches_e[name]} for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]
-                if name in BLOCK_KERNELS or name.startswith("attn_block")
+                if name.startswith(("attn_block", "mlp_block"))
                 else launches_d[name] if name.startswith("flash")
                 else launches_c[name] if name.startswith(("layer_norm",
                                                           "hw_dropout"))
@@ -2900,34 +2906,35 @@ def main() -> None:
                              launches[name], rows, pick_train, same)
         row = next(r for r in rows if r["kernel"] == name and pick_train(r))
         entry["unfused_ms"] = row["unfused_ms"]
-        if name.startswith("attn_block"):
-            # The tensor-core variant's rows: the present kernels' time on
-            # the same inputs, the device times beside U's, the rate-0 and
-            # small-batch times, registers and spills.
-            entry.update({key: row[key] for key in (
-                "variant", "tile_ms", "tile_device_ms", "device_ms",
-                "unfused_device_ms") if key in row})
-            entry["tc_launches"] = launches[name + "_tc"]
-            entry["roofline_share"] = row["bound_ms"] / row["device_ms"]
-            for suffix, pick in (
-                    ("_rate0", lambda r: at_train(r) and r["rate"] == 0.0),
-                    ("_b8", lambda r: r["batch"] == 8
-                     and r["dtype"] == "bfloat16" and r["rate"] == RATE),
-                    ("_b1", lambda r: r["batch"] == 1
-                     and r["dtype"] == "bfloat16" and r["rate"] == RATE)):
-                other = next(r for r in rows if r["kernel"] == name
-                             and pick(r))
-                entry.update({key + suffix: other[key] for key in (
-                    "ms", "device_ms", "tile_ms", "tile_device_ms",
-                    "unfused_ms", "unfused_device_ms") if key in other})
-            kernel = ("attn_fwd_tc_kernel" if name == "attn_block"
-                      else "attn_bwd_tc_kernel")
-            entry["ptxas"] = {kernel: ptxas_usage(fused_log, kernel)}
-            if name == "attn_block_bwd":
-                entry["pieces"] = row["pieces"]
-                entry["ptxas"]["grad_weight_tc_kernel"] = ptxas_usage(
-                    fused_log, "grad_weight_tc_kernel")
-            print(f"{name}: {entry['ptxas']}", flush=True)
+        # The tensor-core variant's rows: the present kernels' time on
+        # the same inputs, the device times beside U's, the rate-0 and
+        # small-batch times, registers and spills.
+        entry.update({key: row[key] for key in (
+            "variant", "tile_ms", "tile_device_ms", "device_ms",
+            "unfused_device_ms") if key in row})
+        entry["tc_launches"] = launches[name + "_tc"]
+        entry["roofline_share"] = row["bound_ms"] / row["device_ms"]
+        for suffix, pick in (
+                ("_rate0", lambda r: at_train(r) and r["rate"] == 0.0),
+                ("_b8", lambda r: r["batch"] == 8
+                 and r["dtype"] == "bfloat16" and r["rate"] == RATE),
+                ("_b1", lambda r: r["batch"] == 1
+                 and r["dtype"] == "bfloat16" and r["rate"] == RATE)):
+            other = next(r for r in rows if r["kernel"] == name
+                         and pick(r))
+            entry.update({key + suffix: other[key] for key in (
+                "ms", "device_ms", "tile_ms", "tile_device_ms",
+                "unfused_ms", "unfused_device_ms") if key in other})
+        kernel = {"attn_block": "attn_fwd_tc_kernel",
+                  "attn_block_bwd": "attn_bwd_tc_kernel",
+                  "mlp_block": "mlp_fwd_tc_kernel",
+                  "mlp_block_bwd": "mlp_bwd_tc_kernel"}[name]
+        entry["ptxas"] = {kernel: ptxas_usage(fused_log, kernel)}
+        if name.endswith("_bwd"):
+            entry["pieces"] = row["pieces"]
+            entry["ptxas"]["grad_weight_tc_kernel"] = ptxas_usage(
+                fused_log, "grad_weight_tc_kernel")
+        print(f"{name}: {entry['ptxas']}", flush=True)
         blocks.append(entry)
     kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash + blocks
     for entry in kernels:

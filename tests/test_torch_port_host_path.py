@@ -1,10 +1,9 @@
 """The host path of the standalone dropout (K5), LayerNorm (K4) and fused
-attention sub-block (K6a, K6b) wrappers, on the CPU: the rules that pick
-the LayerNorm forward's instantiation and the attention sub-block's
-variant, the C entries the wrappers bind against the source, and the
-dispatch that the lean wrappers keep (the plain versions for a CPU tensor,
-no launch counted, the kernels' input checks with their error types and
-messages)."""
+sub-block (K6a-d) wrappers, on the CPU: the rules that pick the LayerNorm
+forward's instantiation and each sub-block's variant, the C entries the
+wrappers bind against the source, and the dispatch that the lean wrappers
+keep (the plain versions for a CPU tensor, no launch counted, the kernels'
+input checks with their error types and messages)."""
 
 import re
 from pathlib import Path
@@ -187,3 +186,70 @@ def test_tc_weights_are_the_stored_matrices():
     dense = params[0].contiguous()            # an (in, out) matrix as is
     (copied,), _ = fb._stored_weights(x, dense)
     assert copied.is_contiguous() and torch.equal(copied, dense.t().to(BF16))
+
+
+@pytest.mark.parametrize("dtype,d,f,variant", [
+    (BF16, 512, 512, "tc"),     # the flagship ViT
+    (BF16, 64, 64, "tc"),
+    (BF16, 192, 320, "tc"),     # neither a multiple of 128
+    (BF16, 512, 128, "tc"),
+    (F32, 512, 512, "tile"),    # float32 keeps the present kernels
+    (BF16, 96, 512, "tile"),    # D not a multiple of 64
+    (BF16, 512, 100, "tile"),   # F not a multiple of 64
+    (BF16, 32, 64, "tile"),
+    (BF16, 512, 2048, "tc"),    # F is not held in shared memory
+    (BF16, 576, 512, "tile"),   # D past 512: the kernels raise
+])
+def test_mlp_variant_rule(dtype, d, f, variant):
+    assert fb._mlp_variant(dtype, d, f) == variant
+    assert variant in fb.MLP_VARIANTS
+
+
+def _mlp_case(dtype, b=2, t=5, d=16, f=24, seed=0):
+    rng = np.random.default_rng(seed)
+    new = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+    x = new(b, t, d).to(dtype)
+    params = (new(f, d, scale=d ** -0.5).t(), new(f) * 0.3,
+              new(d, f, scale=f ** -0.5).t(), new(d) * 0.3,
+              1 + new(d) * 0.1, new(d) * 0.3)
+    return x, new(b, t, d).to(dtype), params
+
+
+def _mlp_counts():
+    return (fb.mlp_block.launches, fb.mlp_block.tc_launches,
+            fb.mlp_block_backward.launches,
+            fb.mlp_block_backward.tc_launches)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_mlp_wrappers_run_the_plain_versions_on_the_cpu(dtype, rate):
+    """Forward, backward and autograd through mlp_block on the CPU equal
+    the plain versions, and no launch counter moves."""
+    x, gy, params = _mlp_case(dtype)
+    seed = 33 if rate else None
+    marks = _mlp_counts()
+    with torch.no_grad():
+        assert torch.equal(fb.mlp_block(x, *params, seed, rate),
+                           fb.mlp_block_reference(x, *params, seed, rate))
+        got = fb.mlp_block_backward(x, *params, gy, seed, rate)
+        want = fb.mlp_block_backward_reference(x, *params, gy, seed, rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    leaves = [p.clone().requires_grad_() for p in (x,) + params]
+    fb.mlp_block(leaves[0], *leaves[1:], seed, rate).backward(gy)
+    assert all(torch.equal(leaf.grad, w) for leaf, w in zip(leaves, want))
+    assert _mlp_counts() == marks
+
+
+def test_mlp_tc_weights_are_the_stored_matrices():
+    """The MLP's tc kernels read w1 and w2 as the (out, in) matrices are
+    stored: the cast of the (in, out) view the model hands over, and for a
+    view of a matrix already in x's dtype that matrix itself, no copy."""
+    x, _, params = _mlp_case(BF16)
+    for w in (params[0], params[2]):
+        stored = fb._stored(x, w)
+        assert stored.is_contiguous() and stored.dtype == BF16
+        assert torch.equal(stored, w.t().to(BF16))
+        held = w.t().to(BF16)                 # stored (out, in) in bf16
+        assert fb._stored(x, held.t()).data_ptr() == held.data_ptr()

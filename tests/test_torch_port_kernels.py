@@ -935,6 +935,84 @@ def test_attn_block_tc_variant_draws_the_plain_versions_sets(cuda):
             assert torch.equal(kept, plain) and torch.equal(kept, bits)
 
 
+# The MLP sub-block's tc variant (bf16, D and F multiples of 64, D up to
+# 512): every shape here takes it; row counts that are not multiples of a
+# tile's 64 rows.
+TC_MLP_SHAPES = [
+    # b, t, d, f
+    (1, 50, 512, 512),    # the flagship ViT: CAD encode
+    (8, 50, 512, 512),    # one served tick: 400 rows
+    (3, 7, 512, 512),     # 21 rows
+    (64, 50, 512, 512),   # 3,200 rows, 50 blocks
+    (3, 7, 128, 192),     # narrower, F not a multiple of 128
+    (5, 33, 192, 64),     # D not a multiple of 128, the narrowest F
+    (2, 25, 256, 1024),   # F wider than D
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d,f", TC_MLP_SHAPES)
+def test_mlp_block_tc_variant_matches_the_plain_versions(cuda, b, t, d, f,
+                                                         rate):
+    """Forward and every gradient against the plain versions and against
+    the present kernels ("tile") on the same inputs; the tc counters move;
+    the gradients repeat bit for bit."""
+    mlp, _ = _block_params(d, f, 64, seed=b * 10 + t + f)
+    x, gy = _block_inputs(b, t, d, BF16, seed=t + 2)
+    seed = 6161 if rate else None
+    assert fb._mlp_variant(BF16, d, f) == "tc"
+    marks = (fb.mlp_block.tc_launches, fb.mlp_block_backward.tc_launches)
+    with torch.no_grad():
+        y = fb.mlp_block(x, *mlp, seed, rate)
+        grads = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
+        again = fb.mlp_block_backward(x, *mlp, gy, seed, rate)
+        torch.cuda.synchronize()
+        assert (fb.mlp_block.tc_launches,
+                fb.mlp_block_backward.tc_launches) == (marks[0] + 1,
+                                                       marks[1] + 2)
+        _assert_tc_close([y], [fb.mlp_block_reference(x, *mlp, seed, rate)],
+                         "forward")
+        _assert_tc_close(grads, fb.mlp_block_backward_reference(
+            x, *mlp, gy, seed, rate), "backward")
+        _assert_tc_close([y], [fb._mlp_forward(
+            x, *mlp, seed, rate, 1e-5, variant="tile")], "forward vs tile")
+        _assert_tc_close(grads, fb._mlp_backward(
+            x, *mlp, gy, seed, rate, 1e-5, variant="tile"),
+            "backward vs tile")
+    for i, (g1, g2) in enumerate(zip(grads, again)):
+        assert torch.equal(g1, g2), f"gradient {i} differs between two runs"
+
+
+def test_mlp_block_tc_variant_draws_the_plain_versions_sets(cuda):
+    """The kept sets of sites 3 and 2 at the flagship's widths, read off
+    the outputs under constructed parameters (as chip_smoke.py's
+    block_kept_sets), over 400 rows whose 64-row blocks span frames:
+    identical to the plain version's and to the bit function's."""
+    b, t, d, f, rate, seed = 8, 50, 512, 512, 0.1, 88
+    mlp, _ = _block_params(d, f, 64, seed=10)
+    keep = lambda site, cols: prng.keep_mask(  # noqa: E731
+        prng.block_site_bits(seed, site, b, 1, t, cols, device="cuda"),
+        rate)[:, 0]
+    zero = torch.zeros((b, t, d), device="cuda", dtype=BF16)
+    with torch.no_grad():
+        # Site 3: x = 0 and a bias of 50 make the output the dropped branch,
+        # non-zero exactly where it was kept.
+        biased = mlp[:3] + (torch.full((d,), 50.0, device="cuda"),) + mlp[4:]
+        got = fb.mlp_block(zero, *biased, seed, rate) != 0
+        want = fb.mlp_block_reference(zero, *biased, seed, rate) != 0
+        assert torch.equal(got, want)
+        assert torch.equal(got, keep(prng.SITE_MLP_RES, d))
+        # Site 2: W2 = I and b2 = 0 pass the dropped hidden layer through,
+        # so the output is non-zero where sites 2 and 3 both kept.
+        through = (mlp[0], mlp[1], torch.eye(f, d, device="cuda"),
+                   torch.zeros(d, device="cuda"), mlp[4], mlp[5])
+        got = fb.mlp_block(zero, *through, seed, rate) != 0
+        want = fb.mlp_block_reference(zero, *through, seed, rate) != 0
+        clean = fb.mlp_block_reference(zero, *through, None, 0.0) != 0
+        both = keep(prng.SITE_MLP_HID, f) & keep(prng.SITE_MLP_RES, d)
+        assert torch.equal(got, want) and torch.equal(got, both & clean)
+
+
 def test_block_model_train_step_on_the_card_matches_the_cpu(cuda):
     """The tiny model under "block" with dropout off, float32: one train
     step's loss and gradients on the card (kernels) against the CPU (plain

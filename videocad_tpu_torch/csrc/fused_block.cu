@@ -42,8 +42,8 @@
 // right of the card's ridge, so the floor is the tensor cores' rate (0.34,
 // 0.94, 0.08 and 0.20 ms at 1,528 frames in bf16).
 //
-// Two designs. The MLP kernels, the attention kernels in float32 and every
-// shape the second design does not take ("tile") put every product of a
+// Two designs. The kernels in float32 and every shape the second design
+// does not take ("tile") put every product of a
 // block through one routine, gemm_tile: a 64 x 64 output tile, both
 // operands staged 32 deep through shared memory, one tile ahead through
 // registers; bf16 tiles move as 16-byte groups onto the tensor cores
@@ -85,6 +85,25 @@
 // its loads, which one block an SM cannot hide (two frames a block, with
 // half the weight bytes a frame, ran slower than two blocks an SM), and
 // the core, whose 16 heads a frame run one after another on four warps.
+//
+// The MLP sub-block's "tc" variant (bf16, D and F multiples of 64, D up to
+// 512: mlp_fwd_tc_kernel, mlp_bwd_tc_kernel) works the same way on 64 rows
+// of the flattened stream a tile, two blocks an SM, each walking tiles:
+//   * h = LN(x) stays in shared memory as bf16 in the 128-byte swizzle
+//     (swz), which wgmma reads and ldmatrix reads without bank conflicts;
+//     the other operands stream 64 deep through cp.async rings;
+//   * the forward runs z = h W1^T and o = a W2^T on wgmma in passes of 128
+//     columns, the hidden layer a going through scratch rows that stay in
+//     L2; the backward runs z and dad = do W2 on mma.sync on the same
+//     chunks, then dh = dz W1, do, dz and dh (f32) going through such rows;
+//   * the epilogues (GELU and its derivative, sites 2 and 3 by
+//     keep_bits_at, the biases, + x) work on the accumulator fragments.
+// With one block an SM (h and a, or h and do, resident) a tile's phases
+// (LayerNorm, products, epilogues) ran one after another and left the SM
+// idle in each other's waits; two blocks an SM overlap them at the price
+// of the scratch rows' traffic through L2. The MLP's weights (1 MB in bf16)
+// are read from L2 once per 64 rows by the forward and 1.5 times by the
+// backward.
 
 // What the design does where the TPU design does not carry over:
 //   * Weights in persistent VMEM -> the weights stay in device memory (the
@@ -578,23 +597,20 @@ __device__ __forceinline__ void masked_grad_row(const T* gy_row, T* dob_row,
 
 // The LayerNorm backward of one row: dx = gy + rstd * (dxhat - mean(dxhat) -
 // xhat * mean(dxhat * xhat)), dxhat = dh * g; adds dh * xhat and dh to the
-// lane's dg and dbe sums.
-template <typename T>
-__device__ __forceinline__ void ln_bwd_row(const T* x_row, const T* gy_row,
-                                           const float* dh_row, T* dx_row,
-                                           const float (&sc)[kPerLane], int d,
-                                           int lane, float eps,
-                                           float (&dg)[kPerLane],
-                                           float (&dbe)[kPerLane]) {
-  float xhat[kPerLane], gy[kPerLane], dh[kPerLane];
-  load_row<T>(x_row, d, lane, xhat);
+// lane's dg and dbe sums. The row's x (normalized in place), gy and dh are
+// given as the lane's values (col_of's layout, 0 past d), and dx is left
+// in dh; ln_bwd_row loads them from rows and stores dx.
+__device__ __forceinline__ void ln_bwd_values(float (&xhat)[kPerLane],
+                                              const float (&gy)[kPerLane],
+                                              float (&dh)[kPerLane],
+                                              const float (&sc)[kPerLane],
+                                              int d, int lane, float eps,
+                                              float (&dg)[kPerLane],
+                                              float (&dbe)[kPerLane]) {
   const float rstd = normalize_row(xhat, d, lane, eps);
-  load_row<T>(gy_row, d, lane, gy);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int e = 0; e < kPerLane; ++e) {
-    const int col = col_of(e, lane);
-    dh[e] = col < d ? dh_row[col] : 0.f;
     dg[e] = fmaf(dh[e], xhat[e], dg[e]);
     dbe[e] += dh[e];
     dh[e] *= sc[e];
@@ -604,11 +620,30 @@ __device__ __forceinline__ void ln_bwd_row(const T* x_row, const T* gy_row,
   const float m1 = warp_sum(s1) / (float)d;
   const float m2 = warp_sum(s2) / (float)d;
 #pragma unroll
+  for (int e = 0; e < kPerLane; ++e)
+    dh[e] = gy[e] + rstd * (dh[e] - m1 - xhat[e] * m2);
+}
+
+template <typename T>
+__device__ __forceinline__ void ln_bwd_row(const T* x_row, const T* gy_row,
+                                           const float* dh_row, T* dx_row,
+                                           const float (&sc)[kPerLane], int d,
+                                           int lane, float eps,
+                                           float (&dg)[kPerLane],
+                                           float (&dbe)[kPerLane]) {
+  float xhat[kPerLane], gy[kPerLane], dh[kPerLane];
+  load_row<T>(x_row, d, lane, xhat);
+  load_row<T>(gy_row, d, lane, gy);
+#pragma unroll
   for (int e = 0; e < kPerLane; ++e) {
     const int col = col_of(e, lane);
-    if (col < d)
-      dx_row[col] =
-          from_f32<T>(gy[e] + rstd * (dh[e] - m1 - xhat[e] * m2));
+    dh[e] = col < d ? dh_row[col] : 0.f;
+  }
+  ln_bwd_values(xhat, gy, dh, sc, d, lane, eps, dg, dbe);
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e) {
+    const int col = col_of(e, lane);
+    if (col < d) dx_row[col] = from_f32<T>(dh[e]);
   }
 }
 
@@ -1272,15 +1307,23 @@ __device__ __forceinline__ void stage_chunk(bf16* dst, int pitch,
 // chunk c, step(c, stage) consumes it once every thread's loads of it have
 // landed. Chunk c + kStages - 1 is issued after the barrier that ends
 // everyone's step c - 1, into the stage that step read. Ends with every
-// load done and a barrier. Every thread of the block calls it.
-template <int kStages, int kStageElems, typename Issue, typename Step>
-__device__ __forceinline__ void run_ring(bf16* ring, int total, Issue issue,
-                                         Step step) {
+// load done and a barrier. Every thread of the block calls it. ring_start
+// issues the first kStages - 1 chunks and ring_steps runs the rest, so that
+// a kernel can do other work while the first loads are in flight; run_ring
+// does both.
+template <int kStages, int kStageElems, typename Issue>
+__device__ __forceinline__ void ring_start(bf16* ring, int total,
+                                           Issue issue) {
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < total) issue(c, ring + c * kStageElems);
     cp_async_commit();
   }
+}
+
+template <int kStages, int kStageElems, typename Issue, typename Step>
+__device__ __forceinline__ void ring_steps(bf16* ring, int total, Issue issue,
+                                           Step step) {
   for (int c = 0; c < total; ++c) {
     cp_async_wait<kStages - 2>();
     // What cp.async wrote (generic proxy) may be read by wgmma (async
@@ -1294,6 +1337,13 @@ __device__ __forceinline__ void run_ring(bf16* ring, int total, Issue issue,
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+template <int kStages, int kStageElems, typename Issue, typename Step>
+__device__ __forceinline__ void run_ring(bf16* ring, int total, Issue issue,
+                                         Step step) {
+  ring_start<kStages, kStageElems>(ring, total, issue);
+  ring_steps<kStages, kStageElems>(ring, total, issue, step);
 }
 
 // acc[i][j] += the C fragments of the warp's (16 MT, 8 NT) piece, rows
@@ -1467,9 +1517,10 @@ __device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) {
 
 // Keeps the compiler from moving accesses to the accumulators across the
 // asynchronous products.
-__device__ __forceinline__ void fence_operands(float (&d)[48]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d += A B^T for a warpgroup: A 64 x 16 and B 96 x 16, both K-major in
@@ -1520,6 +1571,50 @@ __device__ __forceinline__ void wgmma_chunk(float (&acc)[48], const bf16* a,
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_m64n96k16(acc, da + 2 * kk, db + 2 * kk);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(acc);
+}
+
+// d += A B^T for a warpgroup: A 64 x 16 and B 64 x 16, both K-major in
+// shared memory; d in the C fragment layout of wgmma_m64n96k16, for 8
+// tiles of 8 columns.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc (a warpgroup's 64 x 64) += A B^T over one 64-deep chunk: A 64 rows
+// from a, B 64 rows from b (the MLP's tc forward).
+__device__ __forceinline__ void wgmma_chunk(float (&acc)[32], const bf16* a,
+                                            const bf16* b) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_operands(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint64_t da = wgmma_desc(a), db = wgmma_desc(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_operands(acc);
@@ -1949,6 +2044,583 @@ attn_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq,
 }
 
 // ---------------------------------------------------------------------------
+// The "tc" variant of the MLP sub-block: bf16, d and f multiples of 64, d
+// up to 512 (the flagship ViT: d = f = 512). The weights arrive as stored, (out,
+// in) row-major: w1 (f, d), w2 (d, f). A tile is 64 rows of the flattened
+// (B*T, d) stream; operands in shared memory are (64, 64) chunks in the
+// 128-byte swizzle that wgmma reads and ldmatrix reads without bank
+// conflicts.
+// ---------------------------------------------------------------------------
+
+constexpr int kSwzChunk = 64 * 64;                          // 8 KB of bf16
+constexpr int kMlpRowsBytes = kMaxD / 64 * kSwzChunk * 2;   // 64 rows of d
+// The forward, two blocks an SM: h resident, a ring of three stages of 128
+// weight rows 64 deep for z = h W1^T, then one of four stages of a's 64
+// rows and 128 weight rows for o = a W2^T over both regions.
+constexpr int kMlpPass = 128;
+constexpr int kMlpHStageElems = kMlpPass * 64;
+constexpr int kMlpOStageElems = kSwzChunk + kMlpPass * 64;
+constexpr int kMlpFwdBytes = 1024 + kMlpRowsBytes + 3 * kMlpHStageElems * 2;
+// The backward, two blocks an SM: h resident; a ring of two stages of
+// phase A (W1's (64, 64) chunk [n][k], W2's [k][n], do's [m][k]), then one
+// of four stages of phase B (dz's (64, 64) [m][k], W1's (64, 128) [k][n])
+// over both regions; db1's partial sums of one 64-column chunk.
+constexpr int kMlpStageElems = 3 * kSwzChunk;
+constexpr int kMlpBwdBytes =
+    128 + kMlpRowsBytes + 2 * kMlpStageElems * 2 + 2 * 64 * 4;
+static_assert(2 * (kMlpFwdBytes + 1024) <= 233472 &&
+                  4 * kMlpOStageElems * 2 <=
+                      kMlpRowsBytes + 3 * kMlpHStageElems * 2 &&
+                  2 * (kMlpBwdBytes + 1024) <= 233472 &&
+                  4 * kMlpStageElems * 2 <=
+                      kMlpRowsBytes + 2 * kMlpStageElems * 2 &&
+                  kWarps * kMaxD * 4 <= kMlpRowsBytes,
+              "two blocks of either kernel fit an SM; each kernel's second "
+              "ring fits the region of h and the first ring; block_col_sums' "
+              "buffer fits h's place");
+
+// p moved up to the next multiple of ``align`` bytes (a power of 2) of the
+// shared address space.
+template <unsigned kAlign>
+__device__ __forceinline__ unsigned char* aligned(unsigned char* p) {
+  return p + ((kAlign - (smem_addr(p) & (kAlign - 1u))) & (kAlign - 1u));
+}
+
+// Element (row, col) of an operand kept as chunks of 64 columns, ``chunk``
+// elements apart, rows of 128 bytes in stage_swizzled's layout: the 16-byte
+// group c of row r at group c ^ (r % 8).
+__device__ __forceinline__ int swz(int row, int col, int chunk) {
+  return (col >> 6) * chunk + row * 64 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+constexpr int kGroups = kPerLane / 4;   // a lane's groups of four columns
+
+// Row i of a bf16 tensor (rows d apart) as the lane's values (col_of's
+// layout, 0 past d): load_row's, a lane's four columns in one 8-byte load,
+// which d a multiple of 4 and an aligned tensor allow.
+__device__ __forceinline__ void row_values(const bf16* rows, int i, int d,
+                                           int lane, float (&v)[kPerLane]) {
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c) {
+    const int col = (32 * c + lane) * 4;
+    uint2 u = make_uint2(0u, 0u);
+    if (col < d) u = *reinterpret_cast<const uint2*>(rows + i * d + col);
+    const __nv_bfloat162* two = reinterpret_cast<const __nv_bfloat162*>(&u);
+    v[4 * c] = __low2float(two[0]);
+    v[4 * c + 1] = __high2float(two[0]);
+    v[4 * c + 2] = __low2float(two[1]);
+    v[4 * c + 3] = __high2float(two[1]);
+  }
+}
+
+__device__ __forceinline__ uint2 pack4(const float* v) {
+  return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// h = LN(x) of a tile's rows (``valid`` of its 64, d apart from x; the
+// others zeros), rounded to bf16 as ln_row rounds it, into hs (swizzled
+// chunks) and, where hout is given, to hout's rows. Warp per row.
+__device__ __forceinline__ void mlp_ln_rows(const bf16* x, bf16* hs,
+                                            bf16* hout, const float* g,
+                                            const float* be, int valid, int d,
+                                            float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float sc[kPerLane], bi[kPerLane];
+  load_param(g, d, lane, sc);
+  load_param(be, d, lane, bi);
+  for (int i = warp; i < kBM; i += kWarps) {
+    float v[kPerLane];
+    if (i < valid) {
+      row_values(x, i, d, lane, v);
+      normalize_row(v, d, lane, eps);
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e)
+        v[e] = __fadd_rn(__fmul_rn(v[e], sc[e]), bi[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      const int col = (32 * c + lane) * 4;
+      if (col >= d) continue;
+      const uint2 packed = pack4(v + 4 * c);
+      *reinterpret_cast<uint2*>(hs + swz(i, col, kSwzChunk)) = packed;
+      if (hout != nullptr && i < valid)
+        *reinterpret_cast<uint2*>(hout + (i64)i * d + col) = packed;
+    }
+  }
+}
+
+// do = drop3's mask on gy for the block's rows from r0 (absolute; ``valid``
+// of them), as masked_grad_row computes it, rounded to bf16 into dobbuf's
+// rows; the f32 values are added to the lane's column sums. Warp per row.
+__device__ __forceinline__ void mlp_masked_rows(const bf16* gy, bf16* dobbuf,
+                                                i64 r0, int valid, int seq,
+                                                int d, const Drop& drop,
+                                                float (&sum)[kPerLane]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < valid; i += kWarps) {
+    const i64 r = r0 + i;
+    const uint32_t row = (uint32_t)(r % seq), frame = (uint32_t)(r / seq);
+    float v[kPerLane];
+    row_values(gy, i, d, lane, v);
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      const int group = 32 * c + lane, col = group * 4;
+      if (col >= d) continue;
+      if (drop.threshold != 0u) {
+        bool keep[4];
+        keep4(drop, 3u, (uint32_t)group, row, frame, keep);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[4 * c + e] = keep[e] ? v[4 * c + e] * drop.inv_keep : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[4 * c + e] += v[4 * c + e];
+      *reinterpret_cast<uint2*>(dobbuf + (i64)i * d + col) = pack4(v + 4 * c);
+    }
+  }
+}
+
+// The counter words (row % seq, row / seq) of the row that a lane draws
+// in keep_bits_at for a warp's 16 rows from rb, absolute rows of the
+// flattened stream (which may span two frames).
+__device__ __forceinline__ uint2 drawn_row(i64 rb, int lane, int seq) {
+  const i64 r = rb + (lane >> 2) + ((lane & 1) ? 8 : 0);
+  return make_uint2((uint32_t)(r % seq), (uint32_t)(r / seq));
+}
+
+// The keep bits (keep_bits' layout) of elementwise site ``site`` for a
+// warp's 16 rows, ``drawn`` the lane's drawn_row, against the kTiles * 8
+// columns from c0.
+template <int kTiles>
+__device__ __forceinline__ uint32_t mlp_keep_bits(const Drop& drop,
+                                                  uint32_t site, uint2 drawn,
+                                                  int c0, int lane,
+                                                  int width) {
+  if (drop.threshold == 0u) return 0xffffffffu;
+  return keep_bits_at<kTiles>(drop.seed, 3u + site, drawn.x, drawn.y, 0u, c0,
+                              lane, width, drop.threshold);
+}
+
+// a = drop2(gelu(z + b1)) of a warpgroup warp's (16, 64) piece of z (rows
+// wr.. of the block, ``drawn`` the lane's drawn_row; columns n0.., a
+// multiple of 64 below f), rounded to bf16 into the block's scratch rows
+// of a (rows f apart).
+__device__ __forceinline__ void hidden_epilogue(const float (&z)[32],
+                                                bf16* a0, const float* b1,
+                                                uint2 drawn, int wr, int n0,
+                                                int f, int lane,
+                                                const Drop& drop) {
+  const int gr = lane >> 2, t = lane & 3;
+  // Every load before the first store, which the compiler cannot move
+  // loads across.
+  float2 bias[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    bias[j] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * j + 2 * t);
+  const uint32_t keep = mlp_keep_bits<8>(drop, 2u, drawn, n0, lane, f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float bias0 = bias[j].x, bias1 = bias[j].y;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = 4 * j + 2 * h;
+      float a_0 = gelu(z[at] + bias0), a_1 = gelu(z[at + 1] + bias1);
+      if (drop.threshold != 0u) {
+        a_0 = (keep >> at) & 1u ? a_0 * drop.inv_keep : 0.f;
+        a_1 = (keep >> (at + 1)) & 1u ? a_1 * drop.inv_keep : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(a0 + (wr + gr + 8 * h) * f + col) =
+          pack_bf16(a_0, a_1);
+    }
+  }
+}
+
+// y = x + drop3(o + b2) of a warpgroup warp's (16, 64) piece of o (rows
+// rb.., absolute, ``drawn`` the lane's drawn_row; columns n0.., a multiple
+// of 64 below d); rows from ``rows`` on are skipped.
+__device__ __forceinline__ void mlp_output_epilogue(const float (&o)[32],
+                                                    const bf16* x,
+                                                    const float* b2, bf16* y,
+                                                    i64 rb, uint2 drawn,
+                                                    i64 rows, int n0, int d,
+                                                    int lane,
+                                                    const Drop& drop) {
+  const int gr = lane >> 2, t = lane & 3;
+  // Every load before the first store, which the compiler cannot move
+  // loads across.
+  float2 bias[8];
+  __nv_bfloat162 xv[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    bias[j] = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const i64 r = rb + gr + 8 * h;
+      xv[j][h] = r < rows ? *reinterpret_cast<const __nv_bfloat162*>(
+                                x + r * d + col)
+                          : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+  const uint32_t keep = mlp_keep_bits<8>(drop, 3u, drawn, n0, lane, d);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const i64 r = rb + gr + 8 * h;
+      if (r >= rows) continue;
+      const int at = 4 * j + 2 * h;
+      float o0 = o[at] + bias[j].x, o1 = o[at + 1] + bias[j].y;
+      if (drop.threshold != 0u) {
+        o0 = (keep >> at) & 1u ? o0 * drop.inv_keep : 0.f;
+        o1 = (keep >> (at + 1)) & 1u ? o1 * drop.inv_keep : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(y + r * d + col) = pack_bf16(
+          __low2float(xv[j][h]) + o0, __high2float(xv[j][h]) + o1);
+    }
+  }
+}
+
+// y = x + drop3(drop2(gelu(LN(x) W1^T + b1)) W2^T + b2), two blocks an SM
+// (kMlpFwdBytes of shared memory, at most 128 registers a thread), so that
+// one block's loads, barriers, LayerNorm and epilogues overlap the other's
+// products. A block walks the 64-row tiles blockIdx.x, + gridDim.x, ...
+// For each: h = LN(x) in shared memory as bf16; z = h W1^T on wgmma in
+// passes of 128 columns of f, a warpgroup 64 of them, W1's chunks through a
+// three-stage ring; each pass's epilogue (+ b1, GELU, site 2, bf16) writes
+// a to the block's scratch rows of abuf (gridDim.x * 64, f), which only
+// the block reads back and which stay in L2; o = a W2^T in passes of 128
+// columns of d over a four-stage ring of a's and W2's chunks in h's and the
+// first ring's place, each pass ending in + b2, site 3 and + x into y.
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                  const float* __restrict__ b1, const bf16* __restrict__ w2,
+                  const float* __restrict__ b2, const float* __restrict__ g,
+                  const float* __restrict__ be, bf16* abuf,
+                  bf16* __restrict__ y, i64 rows, int seq, int d, int f,
+                  float eps, Drop drop) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* hs = reinterpret_cast<bf16*>(aligned<1024>(tc_smem));
+  bf16* ring = hs + kMlpRowsBytes / 2;   // z's ring; o's ring starts at hs
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wr = 16 * (warp & 3);
+  const int kd = d / 64, kf = f / 64;
+  const int nz = (f + kMlpPass - 1) / kMlpPass * kd;
+  const int no = (d + kMlpPass - 1) / kMlpPass * kf;
+  bf16* a0 = abuf + (i64)blockIdx.x * kBM * f;
+  const i64 tiles = (rows + kBM - 1) / kBM;
+  for (i64 tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const i64 r0 = tile * kBM;
+    const int valid = (int)(rows - r0 < kBM ? rows - r0 : kBM);
+    const uint2 drawn = drawn_row(r0 + wr, lane, seq);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    auto issue_z = [&](int c, bf16* st) {
+      const int p = c / kd * kMlpPass;
+      stage_swizzled(st, w1 + (i64)p * d + (c % kd) * 64, d, kMlpPass, f - p);
+    };
+    ring_start<3, kMlpHStageElems>(ring, nz, issue_z);
+    mlp_ln_rows(x + r0 * d, hs, nullptr, g, be, valid, d, eps);
+    ring_steps<3, kMlpHStageElems>(
+        ring, nz, issue_z, [&](int c, const bf16* st) {
+          const int k = c % kd, n0 = c / kd * kMlpPass + 64 * wg;
+          if (n0 < f)   // uniform in a warpgroup
+            wgmma_chunk(acc, hs + k * kSwzChunk, st + 64 * wg * 64);
+          if (k != kd - 1) return;
+          if (n0 < f)
+            hidden_epilogue(acc, a0, b1, drawn, wr, n0, f, lane, drop);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        });
+    // The block's rows of a, written above, are read back after the
+    // barrier that ended the ring.
+    run_ring<4, kMlpOStageElems>(
+        hs, no,
+        [&](int c, bf16* st) {
+          const int p = c / kf * kMlpPass, k0 = (c % kf) * 64;
+          stage_swizzled(st, a0 + k0, f, 64, 64);
+          stage_swizzled(st + kSwzChunk, w2 + (i64)p * f + k0, f, kMlpPass,
+                         d - p);
+        },
+        [&](int c, const bf16* st) {
+          const int n0 = c / kf * kMlpPass + 64 * wg;
+          if (n0 < d)
+            wgmma_chunk(acc, st, st + kSwzChunk + 64 * wg * 64);
+          if (c % kf != kf - 1) return;
+          if (n0 < d)
+            mlp_output_epilogue(acc, x, b2, y, r0 + wr, drawn, rows, n0, d,
+                                lane, drop);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        });
+  }
+}
+
+// mma_chunk over one 64-deep chunk of operands in swz's layout: A [m][k]
+// (one chunk); B [n][k] (one chunk of as many rows as it has) or, with
+// BKRow, [k][n] (64 rows, chunks of 64 columns kSwzChunk apart).
+template <int MT, int NT, bool BKRow>
+__device__ __forceinline__ void mma_swz(const bf16* A, int m0, const bf16* B,
+                                        int n0, int lane,
+                                        float (&acc)[MT][NT][4]) {
+  static_assert(NT % 2 == 0, "B fragments come two n-tiles at a time");
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4(A + swz(m0 + 16 * i + (lane & 15), kk + (lane >> 4) * 8,
+                      kSwzChunk),
+              a[i]);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int n = n0 + 8 * j;
+      uint32_t b[4];
+      if (BKRow)
+        ldsm_x4_trans(B + swz(kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              n + (lane >> 4) * 8, kSwzChunk),
+                      b);
+      else
+        ldsm_x4(B + swz(n + (lane & 7) + ((lane >> 4) << 3),
+                        kk + ((lane >> 3) & 1) * 8, kSwzChunk),
+                b);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// On a warp's (32, 8 NT) piece of z and dad (rows wr.. of the block, r0
+// its first row's absolute index, ``drawn`` the lane's drawn_row of each
+// 16; columns n0..): a = drop2(gelu(z + b1)), da =
+// drop2's mask on dad, dz = da gelu'(z + b1), as mlp_bwd_kernel forms
+// them; a and dz rounded to abbuf and dzbuf for the rows below ``valid``,
+// whose f32 dz is added to cs[j][e] (column n0 + 8 j + 2 t + e).
+template <int NT>
+__device__ __forceinline__ void dz_epilogue(const float (&z)[2][NT][4],
+                                            const float (&dad)[2][NT][4],
+                                            const float* b1, bf16* abbuf,
+                                            bf16* dzbuf, i64 r0, int wr,
+                                            const uint2 (&drawn)[2],
+                                            int valid, int n0, int f,
+                                            int lane, const Drop& drop,
+                                            float (&cs)[NT][2]) {
+  const int gr = lane >> 2, t = lane & 3;
+  // Every load before the first store, which the compiler cannot move
+  // loads across.
+  float2 biases[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    biases[j] = *reinterpret_cast<const float2*>(b1 + n0 + 8 * j + 2 * t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rb = wr + 16 * i;
+    const uint32_t keep = mlp_keep_bits<NT>(drop, 2u, drawn[i], n0, lane, f);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      const float bias[2] = {biases[j].x, biases[j].y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rb + gr + 8 * h;
+        if (row >= valid) continue;
+        float a[2], dz[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float zz = z[i][j][2 * h + e] + bias[e];
+          float da = dad[i][j][2 * h + e];
+          a[e] = gelu(zz);
+          if (drop.threshold != 0u) {
+            const bool kept = (keep >> (4 * j + 2 * h + e)) & 1u;
+            a[e] = kept ? a[e] * drop.inv_keep : 0.f;
+            da = kept ? da * drop.inv_keep : 0.f;
+          }
+          dz[e] = da * dgelu(zz);
+          cs[j][e] += dz[e];
+        }
+        const i64 at = (r0 + row) * f + col;
+        *reinterpret_cast<uint32_t*>(abbuf + at) = pack_bf16(a[0], a[1]);
+        *reinterpret_cast<uint32_t*>(dzbuf + at) = pack_bf16(dz[0], dz[1]);
+      }
+    }
+  }
+}
+
+// The backward, two blocks an SM (kMlpBwdBytes of shared memory, at most
+// 128 registers a thread), on mma.sync, in mlp_bwd_kernel's order of work.
+// A block walks the 64-row tiles blockIdx.x, + gridDim.x, ... For each:
+// h = LN(x) stays in shared memory as bf16, do goes to dobbuf (and db2's
+// partial row); phase A walks f in chunks of 64 columns, each over d in
+// 64-deep chunks of a ring (W1's [n][k], W2's [k][n] and do's [m][k], read
+// back from dobbuf): z = h W1^T and dad = do W2, a warp 32 x 16 of each;
+// then a, dz and db1's partial on the fragments, a and dz to abbuf and
+// dzbuf; phase B: dh = dz W1 in passes of 128 columns over f, dz read back
+// from dzbuf, a warp 32 x 32, in f32 to the block's scratch rows of dhbuf
+// (gridDim.x * 64, d); then the LayerNorm backward, warp per row. What the
+// block reads back it wrote itself, and stays in L2. parts: (tiles, 3 d +
+// f) f32, a tile's row [db2 | dg | dbe | db1], each summed in a fixed
+// order.
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                  const float* __restrict__ b1, const bf16* __restrict__ w2,
+                  const float* __restrict__ g, const float* __restrict__ be,
+                  const bf16* __restrict__ gy, bf16* hbuf, bf16* dobbuf,
+                  bf16* abbuf, bf16* dzbuf, float* dhbuf,
+                  bf16* __restrict__ dx, float* __restrict__ parts, i64 rows,
+                  int seq, int d, int f, float eps, Drop drop) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* base = aligned<128>(tc_smem);
+  bf16* hs = reinterpret_cast<bf16*>(base);
+  bf16* ring = hs + kMlpRowsBytes / 2;   // phase A's; phase B's starts at hs
+  float* rowbuf = reinterpret_cast<float*>(base);   // outside the phases
+  float* colsum = reinterpret_cast<float*>(ring + 2 * kMlpStageElems);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3, gr = lane >> 2, t = lane & 3;
+  const int kd = d / 64, kf = f / 64;
+  float* dh0 = dhbuf + (i64)blockIdx.x * kBM * d;
+  const i64 tiles = (rows + kBM - 1) / kBM;
+  for (i64 tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const i64 r0 = tile * kBM;
+    const int valid = (int)(rows - r0 < kBM ? rows - r0 : kBM);
+    float* my_parts = parts + tile * (3 * d + f);
+    const uint2 drawn[2] = {drawn_row(r0 + 32 * wm, lane, seq),
+                            drawn_row(r0 + 32 * wm + 16, lane, seq)};
+
+    {
+      float sum[kPerLane];
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) sum[e] = 0.f;
+      mlp_masked_rows(gy + r0 * d, dobbuf + r0 * d, r0, valid, seq, d, drop,
+                      sum);
+      block_col_sums(sum, d, rowbuf, my_parts);   // db2; ends with a barrier
+    }
+    mlp_ln_rows(x + r0 * d, hs, hbuf + r0 * d, g, be, valid, d, eps);
+    // do's rows, written above, are read back after the ring's first
+    // barrier.
+
+    float z[2][2][4], dad[2][2][4];
+    zero_frags(z);
+    zero_frags(dad);
+    run_ring<2, kMlpStageElems>(
+        ring, kf * kd,
+        [&](int c, bf16* st) {
+          const int fc = c / kd * 64, k0 = (c % kd) * 64;
+          stage_swizzled(st, w1 + (i64)fc * d + k0, d, 64, 64);
+          stage_swizzled(st + kSwzChunk, w2 + (i64)k0 * f + fc, f, 64, 64);
+          stage_swizzled(st + 2 * kSwzChunk, dobbuf + r0 * d + k0, d, 64,
+                         valid);
+        },
+        [&](int c, const bf16* st) {
+          const int fc = c / kd * 64, k = c % kd;
+          mma_swz<2, 2, false>(hs + k * kSwzChunk, 32 * wm, st, 16 * wn,
+                               lane, z);
+          mma_swz<2, 2, true>(st + 2 * kSwzChunk, 32 * wm, st + kSwzChunk,
+                              16 * wn, lane, dad);
+          if (k != kd - 1) return;
+          float cs[2][2] = {};
+          dz_epilogue(z, dad, b1, abbuf, dzbuf, r0, 32 * wm, drawn, valid,
+                      fc + 16 * wn, f, lane, drop, cs);
+          // db1: the warp's 32 rows, then the block's two halves.
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1)
+                cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], off);
+              if (lane < 4)
+                colsum[wm * 64 + 16 * wn + 8 * j + 2 * t + e] = cs[j][e];
+            }
+          __syncthreads();
+          const int col = threadIdx.x;
+          if (col < 64)
+            my_parts[3 * d + fc + col] = colsum[col] + colsum[64 + col];
+          zero_frags(z);
+          zero_frags(dad);
+        });
+
+    // dz's rows, written above, are read back after the ring's barrier.
+    float acc[2][4][4];
+    zero_frags(acc);
+    run_ring<4, kMlpStageElems>(
+        hs, (d + 127) / 128 * kf,
+        [&](int c, bf16* st) {
+          const int n0 = c / kf * 128, k0 = (c % kf) * 64;
+          stage_swizzled(st, dzbuf + r0 * f + k0, f, 64, valid);
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            if (n0 + 64 * s < d)
+              stage_swizzled(st + (1 + s) * kSwzChunk,
+                             w1 + (i64)k0 * d + n0 + 64 * s, d, 64, 64);
+        },
+        [&](int c, const bf16* st) {
+          const int n0 = c / kf * 128 + 32 * wn;
+          if (n0 < d)
+            mma_swz<2, 4, true>(st, 32 * wm, st + kSwzChunk, 32 * wn, lane,
+                                acc);
+          if (c % kf != kf - 1) return;
+          if (n0 < d) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int row = 32 * wm + 16 * i + gr + 8 * h;
+                  *reinterpret_cast<float2*>(dh0 + row * d + n0 + 8 * j +
+                                             2 * t) =
+                      make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+                }
+          }
+          zero_frags(acc);
+        });
+
+    // dh's rows, written above, are read back after the ring's barrier.
+    float dg[kPerLane], dbe[kPerLane];
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) dg[e] = dbe[e] = 0.f;
+    for (int i = warp; i < valid; i += kWarps) {
+      float sc[kPerLane], xhat[kPerLane], gyv[kPerLane], dh[kPerLane];
+      load_param(g, d, lane, sc);   // per row: fewer registers held
+
+      row_values(x + r0 * d, i, d, lane, xhat);
+      row_values(gy + r0 * d, i, d, lane, gyv);
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) {
+        const int col = (32 * c + lane) * 4;
+        const float4 v =
+            col < d ? *reinterpret_cast<const float4*>(dh0 + i * d + col)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        dh[4 * c] = v.x;
+        dh[4 * c + 1] = v.y;
+        dh[4 * c + 2] = v.z;
+        dh[4 * c + 3] = v.w;
+      }
+      ln_bwd_values(xhat, gyv, dh, sc, d, lane, eps, dg, dbe);
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) {
+        const int col = (32 * c + lane) * 4;
+        if (col < d)
+          *reinterpret_cast<uint2*>(dx + (r0 + i) * d + col) =
+              pack4(dh + 4 * c);
+      }
+    }
+    block_col_sums(dg, d, rowbuf, my_parts + d);
+    block_col_sums(dbe, d, rowbuf, my_parts + 2 * d);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The second pass: weight gradients and the sums of the partial rows
 // ---------------------------------------------------------------------------
 
@@ -2166,6 +2838,26 @@ int run_mlp_fwd(const void* x, const void* w1, const i64* s1, const void* b1,
   return (int)cudaGetLastError();
 }
 
+// The MLP backward's second pass, after its kernel: the sums of the
+// partial rows into small, dW1 (d, f) = h^T dz and dW2 (f, d) = a^T do.
+template <typename T>
+int mlp_bwd_sums(const void* hbuf, const void* dobbuf, const void* abbuf,
+                 const void* dzbuf, void* dw1, const i64* sd1, void* dw2,
+                 const i64* sd2, void* small, float* work, i64 rows, int d,
+                 int f, cudaStream_t s) {
+  const int blocks = (int)((rows + kBM - 1) / kBM);
+  const int width = 3 * d + f;
+  float* partial = work + (i64)blocks * width;
+  int err = launch_sum_rows(work, blocks, width, static_cast<float*>(small),
+                            s);
+  if (err != 0) return err;
+  err = launch_grad_weight<T>(hbuf, d, dzbuf, f, dw1, sd1[0], sd1[1], partial,
+                              d, f, rows, s);
+  if (err != 0) return err;
+  return launch_grad_weight<T>(abbuf, f, dobbuf, d, dw2, sd2[0], sd2[1],
+                               partial, f, d, rows, s);
+}
+
 template <typename T>
 int run_mlp_bwd(const void* x, const void* w1, const i64* s1, const void* b1,
                 const void* w2, const i64* s2, const void* g, const void* be,
@@ -2177,26 +2869,17 @@ int run_mlp_bwd(const void* x, const void* w1, const i64* s1, const void* b1,
   int err = allow_shared(mlp_bwd_kernel<T>, bytes);
   if (err != 0) return err;
   const int blocks = (int)((rows + kBM - 1) / kBM);
-  const int width = 3 * d + f;
-  float* parts = work;
-  float* partial = work + (i64)blocks * width;
   mlp_bwd_kernel<T><<<blocks, kThreads, bytes, s>>>(
       static_cast<const T*>(x), weight<T>(w1, s1[0], s1[1]),
       static_cast<const float*>(b1), weight<T>(w2, s2[0], s2[1]),
       static_cast<const float*>(g), static_cast<const float*>(be),
       static_cast<const T*>(gy), static_cast<T*>(hbuf),
       static_cast<T*>(dobbuf), static_cast<T*>(abbuf), static_cast<T*>(dzbuf),
-      static_cast<T*>(dx), parts, rows, seq, d, f, eps, drop);
+      static_cast<T*>(dx), work, rows, seq, d, f, eps, drop);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = launch_sum_rows(parts, blocks, width, static_cast<float*>(small), s);
-  if (err != 0) return err;
-  // dW1 (d, f) = h^T dz; dW2 (f, d) = a^T do
-  err = launch_grad_weight<T>(hbuf, d, dzbuf, f, dw1, sd1[0], sd1[1], partial,
-                              d, f, rows, s);
-  if (err != 0) return err;
-  return launch_grad_weight<T>(abbuf, f, dobbuf, d, dw2, sd2[0], sd2[1],
-                               partial, f, d, rows, s);
+  return mlp_bwd_sums<T>(hbuf, dobbuf, abbuf, dzbuf, dw1, sd1, dw2, sd2,
+                         small, work, rows, d, f, s);
 }
 
 template <typename T>
@@ -2302,6 +2985,49 @@ int run_attn_tc_bwd(const void* x, const void* const* w, const void* g,
   // dWo (inner, d) = a2^T do
   return launch_grad_weight<bf16>(a2buf, inner, dobbuf, d, dwo, sdo[0],
                                   sdo[1], partial, inner, d, rows, s);
+}
+
+// What the MLP's tc variant takes beyond bad_mlp: d and f multiples of
+// 64 (the bf16 dtype is checked by the entries).
+bool bad_mlp_tc(int d, int f) { return d % 64 != 0 || f % 64 != 0; }
+
+int run_mlp_tc_fwd(const void* x, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const void* g,
+                   const void* be, void* abuf, void* y, i64 rows, int seq,
+                   int d, int f, int slots, float eps, Drop drop,
+                   cudaStream_t s) {
+  int err = allow_shared(mlp_fwd_tc_kernel, kMlpFwdBytes);
+  if (err != 0) return err;
+  mlp_fwd_tc_kernel<<<slots, kThreads, kMlpFwdBytes, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(g),
+      static_cast<const float*>(be), static_cast<bf16*>(abuf),
+      static_cast<bf16*>(y), rows, seq, d, f, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+int run_mlp_tc_bwd(const void* x, const void* w1, const void* b1,
+                   const void* w2, const void* g, const void* be,
+                   const void* gy, void* hbuf, void* dobbuf, void* abbuf,
+                   void* dzbuf, void* dhbuf, void* dx, void* dw1,
+                   const i64* sd1, void* dw2, const i64* sd2, void* small,
+                   float* work, i64 rows, int seq, int d, int f, int slots,
+                   float eps, Drop drop, cudaStream_t s) {
+  int err = allow_shared(mlp_bwd_tc_kernel, kMlpBwdBytes);
+  if (err != 0) return err;
+  mlp_bwd_tc_kernel<<<slots, kThreads, kMlpBwdBytes, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(g), static_cast<const float*>(be),
+      static_cast<const bf16*>(gy), static_cast<bf16*>(hbuf),
+      static_cast<bf16*>(dobbuf), static_cast<bf16*>(abbuf),
+      static_cast<bf16*>(dzbuf), static_cast<float*>(dhbuf),
+      static_cast<bf16*>(dx), work, rows, seq, d, f, eps, drop);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return mlp_bwd_sums<bf16>(hbuf, dobbuf, abbuf, dzbuf, dw1, sd1, dw2, sd2,
+                            small, work, rows, d, f, s);
 }
 
 }  // namespace
@@ -2478,4 +3204,46 @@ extern "C" int attn_block_tc_bwd(
                          dwo, sdo, small, static_cast<float*>(work), batch,
                          seq, d, heads, eps, Drop{seed, threshold, inv_keep},
                          static_cast<cudaStream_t>(stream));
+}
+
+// The tc variant of mlp_block_fwd: bfloat16 only (dtype 1), d and f
+// multiples of 64, d up to 512. w1 (f, d) and w2 (d, f), each
+// contiguous as stored (out, in). abuf: (slots * 64, f) scratch; ``slots``
+// blocks (1 to the number of 64-row tiles) walk the tiles.
+extern "C" int mlp_block_tc_fwd(const void* x, const void* w1, const void* b1,
+                                const void* w2, const void* b2,
+                                const void* g, const void* be, void* abuf,
+                                void* y, long long rows, int seq, int d,
+                                int f, int slots, float eps, int dtype,
+                                unsigned int seed, unsigned int threshold,
+                                float inv_keep, void* stream) {
+  if (bad_mlp(rows, seq, d, f) || bad_mlp_tc(d, f) || dtype != 1 ||
+      slots < 1 || slots > (rows + kBM - 1) / kBM)
+    return (int)cudaErrorInvalidValue;
+  return run_mlp_tc_fwd(x, w1, b1, w2, b2, g, be, abuf, y, rows, seq, d, f,
+                        slots, eps, Drop{seed, threshold, inv_keep},
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The tc variant of mlp_block_bwd, under the conditions of
+// mlp_block_tc_fwd, the weights given as there; dhbuf: (slots * 64, d)
+// f32 scratch, ``slots`` as for mlp_block_tc_fwd; the other arguments as
+// mlp_block_bwd's.
+extern "C" int mlp_block_tc_bwd(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* g, const void* be, const void* gy, void* hbuf, void* dobbuf,
+    void* abbuf, void* dzbuf, void* dhbuf, void* dx, void* dw1,
+    long long sd1_in, long long sd1_out, void* dw2, long long sd2_in,
+    long long sd2_out, void* small, void* work, long long rows, int seq,
+    int d, int f, int slots, float eps, int dtype, unsigned int seed,
+    unsigned int threshold, float inv_keep, void* stream) {
+  if (bad_mlp(rows, seq, d, f) || bad_mlp_tc(d, f) || dtype != 1 ||
+      slots < 1 || slots > (rows + kBM - 1) / kBM)
+    return (int)cudaErrorInvalidValue;
+  const i64 sd1[2] = {sd1_in, sd1_out}, sd2[2] = {sd2_in, sd2_out};
+  return run_mlp_tc_bwd(x, w1, b1, w2, g, be, gy, hbuf, dobbuf, abbuf, dzbuf,
+                        dhbuf, dx, dw1, sd1, dw2, sd2, small,
+                        static_cast<float*>(work), rows, seq, d, f, slots,
+                        eps, Drop{seed, threshold, inv_keep},
+                        static_cast<cudaStream_t>(stream));
 }

@@ -92,27 +92,20 @@ __device__ __forceinline__ uint4 philox(uint32_t seed, uint32_t key_word,
   return make_uint4(c0, c1, c2, c3);
 }
 
-// The keep bits of a warp's 16 query rows from r0 against the kTiles * 8
-// keys from c0 (a multiple of 4), one per element of the C layout: bit
-// 4n + e for element e of key tile n. A bit is the bit function's: word
-// j % 4 of Philox4x32-10, key (seed, key_word), counter (j / 4, i, head,
-// batch), kept where it is >= threshold. One Philox call per lane and key
-// tile: the group of keys c0 + 8n + 4(t / 2) .. + 3 is held by lanes t and
-// t ^ 1 of the quad, each for rows r0 + g and r0 + g + 8; the even lane
-// draws row r0 + g, the odd one row r0 + g + 8, and they swap their four
-// bits with one shuffle. Key tiles from valid_cols on keep every bit and
-// cost no call.
+// keep_bits (below) with the counter words of the row this lane draws
+// given by the caller: (row, batch) of row r0 + g for an even lane, of row
+// r0 + g + 8 for an odd one, so that a warp's 16 rows need not share one
+// batch.
 template <int kTiles>
-__device__ __forceinline__ uint32_t keep_bits(uint32_t seed,
-                                              uint32_t key_word,
-                                              uint32_t batch, uint32_t head,
-                                              int r0, int c0, int lane,
-                                              int valid_cols,
-                                              uint32_t threshold) {
+__device__ __forceinline__ uint32_t keep_bits_at(uint32_t seed,
+                                                 uint32_t key_word,
+                                                 uint32_t row, uint32_t batch,
+                                                 uint32_t head, int c0,
+                                                 int lane, int valid_cols,
+                                                 uint32_t threshold) {
   static_assert(kTiles <= 8, "32 keep bits at most");
   const int t = lane & 3;
   const bool even = (t & 1) == 0;
-  const uint32_t row = (uint32_t)(r0 + (lane >> 2) + (even ? 0 : 8));
   const int shift = even ? 0 : 2;     // the lane's keys are words 0-1 or 2-3
   uint32_t bits = 0xffffffffu;
 #pragma unroll
@@ -133,6 +126,29 @@ __device__ __forceinline__ uint32_t keep_bits(uint32_t seed,
     bits = (bits & ~(0xfu << (4 * n))) | (nibble << (4 * n));
   }
   return bits;
+}
+
+// The keep bits of a warp's 16 query rows from r0 against the kTiles * 8
+// keys from c0 (a multiple of 4), one per element of the C layout: bit
+// 4n + e for element e of key tile n. A bit is the bit function's: word
+// j % 4 of Philox4x32-10, key (seed, key_word), counter (j / 4, i, head,
+// batch), kept where it is >= threshold. One Philox call per lane and key
+// tile: the group of keys c0 + 8n + 4(t / 2) .. + 3 is held by lanes t and
+// t ^ 1 of the quad, each for rows r0 + g and r0 + g + 8; the even lane
+// draws row r0 + g, the odd one row r0 + g + 8, and they swap their four
+// bits with one shuffle. Key tiles from valid_cols on keep every bit and
+// cost no call.
+template <int kTiles>
+__device__ __forceinline__ uint32_t keep_bits(uint32_t seed,
+                                              uint32_t key_word,
+                                              uint32_t batch, uint32_t head,
+                                              int r0, int c0, int lane,
+                                              int valid_cols,
+                                              uint32_t threshold) {
+  const bool even = (lane & 1) == 0;
+  return keep_bits_at<kTiles>(seed, key_word,
+                              (uint32_t)(r0 + (lane >> 2) + (even ? 0 : 8)),
+                              batch, head, c0, lane, valid_cols, threshold);
 }
 
 // 16 bytes from global to shared memory; src_bytes 0 zero-fills them.

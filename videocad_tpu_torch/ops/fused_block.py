@@ -41,12 +41,13 @@ Dispatch: a CPU tensor runs the plain PyTorch versions
 :func:`mlp_block_reference`, :func:`mlp_block_backward_reference`); a CUDA
 tensor launches the kernels or raises. There is no fallback from one to the
 other. The kernels take float32 or bfloat16, T <= 64, D <= 512 and heads of
-at most 64. The attention sub-block has two kernel variants, which
-:func:`_attn_variant` picks from the dtype and the shape alone: "tc"
-(bfloat16, heads of 64, D a multiple of 64: every product on the tensor
-cores, the flagship ViT's shapes) and "tile" (float32, and every other
-shape the kernels take); neither stands in for the other when a launch
-fails.
+at most 64. Each sub-block has two kernel variants, which
+:func:`_attn_variant` and :func:`_mlp_variant` pick from the dtype and the
+shape alone: "tc" (bfloat16, D a multiple of 64, and heads of 64 for the
+attention, F a multiple of 64 for the MLP: every product on the tensor
+cores, the flagship ViT's shapes) and "tile" (float32, and every
+other shape the kernels take); neither stands in for the other when a
+launch fails.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ _MAX_HEAD_DIM = 64
 _TC_HEAD_DIM = 64    # the head width of the attention's tc variant
 _F32 = torch.float32
 ATTN_VARIANTS = ("tc", "tile")
+MLP_VARIANTS = ("tc", "tile")
 
 
 # ---------------------------------------------------------------------------
@@ -390,10 +392,6 @@ def _raise_on(err: int, op: str) -> None:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _attn_variant(dtype: torch.dtype, t: int, d: int, head_dim: int) -> str:
     """The attention kernels' variant for a CUDA call: "tc" for bfloat16
     with heads of 64, D a multiple of 64 up to 512 and 1 <= T <= 64, "tile"
@@ -405,17 +403,32 @@ def _attn_variant(dtype: torch.dtype, t: int, d: int, head_dim: int) -> str:
     return "tile"
 
 
+def _mlp_variant(dtype: torch.dtype, d: int, f: int) -> str:
+    """The MLP kernels' variant for a CUDA call: "tc" for bfloat16 with D
+    and F multiples of 64, D up to 512, "tile" for everything else the
+    kernels take (float32: the tensor cores would round it to TF32)."""
+    if (dtype == torch.bfloat16 and d % 64 == 0 and f % 64 == 0
+            and 64 <= d <= _MAX_DIM and f >= 64):
+        return "tc"
+    return "tile"
+
+
 _sm_counts: dict = {}
 
 
-def _sm_count(device: torch.device) -> int:
+def _slots(tiles: int, device: torch.device) -> int:
+    """Blocks of a tc kernel that runs two an SM on a persistent grid and
+    walks ``tiles`` tiles (frames or 64-row tiles)."""
     if device.index not in _sm_counts:
         _sm_counts[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    return _sm_counts[device.index]
+    return min(tiles, 2 * _sm_counts[device.index])
 
 
-def _mlp_forward(x, w1, b1, w2, b2, g, be, seed, rate, eps):
+def _mlp_forward(x, w1, b1, w2, b2, g, be, seed, rate, eps, variant=None):
+    """The forward of :func:`mlp_block`; ``variant`` (of
+    :data:`MLP_VARIANTS`) overrides :func:`_mlp_variant` on a CUDA
+    tensor."""
     if x.device.type == "cpu":
         return mlp_block_reference(x, w1, b1, w2, b2, g, be, seed, rate, eps)
     _check_kernel_inputs("mlp_block", x)
@@ -424,18 +437,33 @@ def _mlp_forward(x, w1, b1, w2, b2, g, be, seed, rate, eps):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    variant = variant or _mlp_variant(x.dtype, d, f)
     entries = _entries or load_library()
-    w1c, w2c = w1.detach().to(x.dtype), w2.detach().to(x.dtype)
     b1, b2, g, be = (_param(v) for v in (b1, b2, g, be))
-    hbuf = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = entries["mlp_block_fwd"](
-            x.data_ptr(), w1c.data_ptr(), *w1c.stride(), b1.data_ptr(),
-            w2c.data_ptr(), *w2c.stride(), b2.data_ptr(), g.data_ptr(),
-            be.data_ptr(), hbuf.data_ptr(), y.data_ptr(), b * t, t, d, f, eps,
-            _DTYPE_CODES[x.dtype], *_dropout_args(seed, rate), _stream(x))
-    _raise_on(err, "mlp_block")
+    rows = b * t
+    tail = (eps, _DTYPE_CODES[x.dtype], *_dropout_args(seed, rate))
+    if variant == "tc":
+        w1c, w2c = _stored(x, w1), _stored(x, w2)
+        # Each block has its 64 rows of the hidden layer, which stay in L2.
+        slots = _slots(-(-rows // 64), x.device)
+        abuf = torch.empty((slots * 64, f), dtype=x.dtype, device=x.device)
+        err = build.launch(
+            entries["mlp_block_tc_fwd"], x.device.index, x.data_ptr(),
+            w1c.data_ptr(), b1.data_ptr(), w2c.data_ptr(), b2.data_ptr(),
+            g.data_ptr(), be.data_ptr(), abuf.data_ptr(), y.data_ptr(), rows,
+            t, d, f, slots, *tail)
+    else:
+        w1c, w2c = w1.detach().to(x.dtype), w2.detach().to(x.dtype)
+        hbuf = torch.empty_like(x)    # h = LN(x): each block reads its own
+        err = build.launch(
+            entries["mlp_block_fwd"], x.device.index, x.data_ptr(),
+            w1c.data_ptr(), *w1c.stride(), b1.data_ptr(), w2c.data_ptr(),
+            *w2c.stride(), b2.data_ptr(), g.data_ptr(), be.data_ptr(),
+            hbuf.data_ptr(), y.data_ptr(), rows, t, d, f, *tail)
+    del w1c, w2c    # held until the launch was queued
+    _raise_on(err, f"mlp_block {variant}")
     mlp_block.launches += 1
+    mlp_block.tc_launches += variant == "tc"
     return y
 
 
@@ -444,7 +472,8 @@ def mlp_block_backward(x, w1, b1, w2, b2, g, be, gy, seed,
     """(dx, dw1, db1, dw2, db2, dg, dbe) of :func:`mlp_block` for the output
     gradient ``gy``: on a CUDA tensor the backward kernel, its partial sums
     and the two weight-gradient products, all hand-written
-    (``mlp_block_backward.launches`` counts the calls); on a CPU tensor
+    (``mlp_block_backward.launches`` counts the calls, ``.tc_launches``
+    those of the tc variant); on a CPU tensor
     :func:`mlp_block_backward_reference`."""
     _check_mlp(x, w1, b1, w2, b2, g, be)
     require_seed(seed, dropout_rate, "mlp_block")
@@ -453,39 +482,63 @@ def mlp_block_backward(x, w1, b1, w2, b2, g, be, gy, seed,
     if x.device.type == "cpu":
         return mlp_block_backward_reference(x, w1, b1, w2, b2, g, be, gy,
                                             seed, dropout_rate, eps)
+    return _mlp_backward(x, w1, b1, w2, b2, g, be, gy, seed, dropout_rate,
+                         eps)
+
+
+def _mlp_backward(x, w1, b1, w2, b2, g, be, gy, seed, dropout_rate, eps,
+                  variant=None):
+    """:func:`mlp_block_backward` on a CUDA tensor; ``variant`` as for
+    :func:`_mlp_forward`."""
     gy = gy.contiguous()
     _check_kernel_inputs("mlp_block", x, gy)
     b, t, d = x.shape
     f = w1.shape[1]
+    variant = variant or _mlp_variant(x.dtype, d, f)
     rows = b * t
     dx = torch.empty_like(x)
     dw1, dw2 = _grad_like(w1), _grad_like(w2)
-    small = torch.zeros(3 * d + f, dtype=_F32, device=x.device)
+    # [db2 | dg | dbe | db1]: the kernels' sums write every entry.
+    small = torch.empty(3 * d + f, dtype=_F32, device=x.device)
     if rows > 0:
         entries = _entries or load_library()
-        w1c, w2c = w1.detach().to(x.dtype), w2.detach().to(x.dtype)
         b1c, gc, bec = (_param(v) for v in (b1, g, be))
         new = lambda width: torch.empty((rows, width), dtype=x.dtype,  # noqa: E731
                                         device=x.device)
         hbuf, dobbuf, abbuf, dzbuf = new(d), new(d), new(f), new(f)
         work = torch.empty(entries["mlp_block_bwd_workspace"](rows, d, f),
                            dtype=_F32, device=x.device)
-        with torch.cuda.device(x.device):
-            err = entries["mlp_block_bwd"](
-                x.data_ptr(), w1c.data_ptr(), *w1c.stride(), b1c.data_ptr(),
-                w2c.data_ptr(), *w2c.stride(), gc.data_ptr(), bec.data_ptr(),
-                gy.data_ptr(),
-                hbuf.data_ptr(), dobbuf.data_ptr(), abbuf.data_ptr(),
-                dzbuf.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-                *dw1.stride(), dw2.data_ptr(), *dw2.stride(),
-                small.data_ptr(), work.data_ptr(), rows, t, d, f, eps,
-                _DTYPE_CODES[x.dtype], *_dropout_args(seed, dropout_rate),
-                _stream(x))
-        _raise_on(err, "mlp_block_backward")
+        inputs = (gc.data_ptr(), bec.data_ptr(), gy.data_ptr(),
+                  hbuf.data_ptr(), dobbuf.data_ptr(), abbuf.data_ptr(),
+                  dzbuf.data_ptr())
+        outputs = (dx.data_ptr(), dw1.data_ptr(), *dw1.stride(),
+                   dw2.data_ptr(), *dw2.stride(), small.data_ptr(),
+                   work.data_ptr(), rows, t, d, f)
+        tail = (eps, _DTYPE_CODES[x.dtype],
+                *_dropout_args(seed, dropout_rate))
+        if variant == "tc":
+            w1c, w2c = _stored(x, w1), _stored(x, w2)
+            # Each block has its 64 rows of dh (float32), which stay in L2.
+            slots = _slots(-(-rows // 64), x.device)
+            dhbuf = torch.empty((slots * 64, d), dtype=_F32, device=x.device)
+            err = build.launch(
+                entries["mlp_block_tc_bwd"], x.device.index, x.data_ptr(),
+                w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(), *inputs,
+                dhbuf.data_ptr(), *outputs, slots, *tail)
+        else:
+            w1c, w2c = w1.detach().to(x.dtype), w2.detach().to(x.dtype)
+            err = build.launch(
+                entries["mlp_block_bwd"], x.device.index, x.data_ptr(),
+                w1c.data_ptr(), *w1c.stride(), b1c.data_ptr(),
+                w2c.data_ptr(), *w2c.stride(), *inputs, *outputs, *tail)
+        del w1c, w2c    # held until the launch was queued
+        _raise_on(err, f"mlp_block_backward {variant}")
         mlp_block_backward.launches += 1
+        mlp_block_backward.tc_launches += variant == "tc"
     else:
         dw1.zero_()
         dw2.zero_()
+        small.zero_()
     db2, dg, dbe, db1 = small.split([d, d, d, f])
     return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(b2.dtype), dg.to(g.dtype), dbe.to(be.dtype))
@@ -512,12 +565,17 @@ def _weight_args(x, *weights):
     return cast, pointers, strides
 
 
+def _stored(x, w):
+    """A weight as the tc kernels read it: cast to x's dtype and contiguous
+    as an (out, in) matrix is stored (for the model's ``weight.t()`` views
+    no copy)."""
+    return w.detach().to(x.dtype).t().contiguous()
+
+
 def _stored_weights(x, *weights):
-    """The four weights as the tc kernels read them, each cast to x's dtype
-    and contiguous as an (out, in) matrix is stored (for the model's
-    ``weight.t()`` views no copy), kept alive by the caller, and their
-    pointers as a C array."""
-    stored = [w.detach().to(x.dtype).t().contiguous() for w in weights]
+    """The weights as the tc kernels read them (:func:`_stored`), kept alive
+    by the caller, and their pointers as a C array."""
+    stored = [_stored(x, w) for w in weights]
     return stored, (ctypes.c_void_p * len(stored))(
         *(w.data_ptr() for w in stored))
 
@@ -544,7 +602,7 @@ def _attn_forward(x, wq, wk, wv, wo, bo, g, be, seed, num_heads, rate, eps,
         cast, pointers = _stored_weights(x, wq, wk, wv, wo)
         # Two blocks an SM walk the frames; each has its 64 rows of the
         # merged heads, which stay in L2, as h does.
-        slots = min(b, 2 * _sm_count(x.device))
+        slots = _slots(b, x.device)
         abuf = torch.empty((slots * _MAX_SEQ, inner), dtype=x.dtype,
                            device=x.device)
         err = build.launch(
@@ -695,8 +753,9 @@ def mlp_block(x, w1, b1, w2, b2, g, be, seed, dropout_rate: float = 0.0,
     On a CUDA tensor it launches the hand-written kernels and raises on what
     they do not take (another dtype than float32 or bfloat16, a
     non-contiguous x, D > 512); ``mlp_block.launches`` and
-    ``mlp_block_backward.launches`` count the launches. On a CPU tensor it
-    runs the plain versions.
+    ``mlp_block_backward.launches`` count the launches, their
+    ``.tc_launches`` those of the tensor-core variant (:func:`_mlp_variant`).
+    On a CPU tensor it runs the plain versions.
     """
     _check_mlp(x, w1, b1, w2, b2, g, be)
     require_seed(seed, dropout_rate, "mlp_block")
@@ -736,7 +795,9 @@ attn_block.tc_launches = 0
 attn_block_backward.launches = 0
 attn_block_backward.tc_launches = 0
 mlp_block.launches = 0
+mlp_block.tc_launches = 0
 mlp_block_backward.launches = 0
+mlp_block_backward.tc_launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
@@ -760,6 +821,10 @@ def _signatures():
         "attn_block_tc_fwd": (i32, [ptr] * 8 + [i32] * 5 + drop_tail),
         "attn_block_tc_bwd": (i32, [ptr] * 11 + [i64, i64, ptr, ptr]
                               + [i32] * 4 + drop_tail),
+        "mlp_block_tc_fwd": (i32, [ptr] * 9 + [i64] + [i32] * 4
+                             + drop_tail),
+        "mlp_block_tc_bwd": (i32, [ptr] * 13 + weight + weight + [ptr, ptr]
+                             + [i64] + [i32] * 4 + drop_tail),
         "mlp_block_bwd_workspace": (i64, [i64, i32, i32]),
         "attn_block_bwd_workspace": (i64, [i64, i32, i32, i32]),
     }
