@@ -18,10 +18,11 @@ imports nothing of JAX. Phases, each of which must pass:
      mask's properties, each in the variant its dtype takes (bf16 on the
      tensor cores, float32 scalar; the bf16 rows also time the scalar
      kernel on the same inputs), the two
-     grayscale kernels, layer_norm forward (the exact-width instantiation
-     checked by its counter) and backward (also against float64),
+     grayscale kernels (also timed on the device), layer_norm forward and
+     backward (the exact-width instantiations checked by their counters;
+     the backward also against float64, and bit-equal over two runs),
      hw_dropout (compared exactly, and its mask's properties), the
-     forward LayerNorm and hw_dropout also timed on the device beside the
+     LayerNorm kernels and hw_dropout also timed on the device beside the
      library call, with the host's cost of a call (host clock minus
      device time), and one library call per kernel that has one
      (scaled_dot_product_attention and its autograd backward, F.layer_norm
@@ -63,8 +64,9 @@ imports nothing of JAX. Phases, each of which must pass:
   8. train C: the training entry point, videocad_tpu_torch.cli.train.main,
      on a synthetic dataset written to disk from a seed (32 sequences of
      150-191 frames of 224 x 224 x 3), the flagship with ln_impl and
-     dropout_impl "pallas" (the LayerNorm forward through its bf16
-     kernels of width 512 and 1,024, each checked by its counter): 2
+     dropout_impl "pallas" (the LayerNorm forward and backward through
+     their bf16 kernels of width 512 and 1,024, each checked by its
+     counter): 2
      epochs of 2 steps at B=8 with validation, a rollout validation,
      checkpoints, the test evaluation and test rollout; then a second
      call with --resume for one epoch more. The epoch loop must not
@@ -307,8 +309,8 @@ def scalar_ms(fa, pick, tensors, seed, rate, **kw):
     b, t, hd = q.shape
     d = hd // HEADS
     entry = fa._entries["scalar"][pick]
-    args = (*(x.data_ptr() for x in tensors), b, t, HEADS, d,
-            1.0 / math.sqrt(d), 1, *fa._dropout_args(seed, rate),
+    args = (*(x.data_ptr() for x in tensors), b, t, HEADS, d, 1,
+            seed & 0xFFFFFFFF if rate else 0, rate,
             torch.cuda.current_stream().cuda_stream)
 
     def run():
@@ -617,12 +619,13 @@ def phase_gray(pp):
             gray = torch.einsum("oh,nhw,pw->nop", rh, gray, rw)
         f64_err = (got[..., 0].double() - (gray / 127.5 - 1.0)).abs().max()
         del x, gray, want
+        kernel = lambda: pp.grayscale_normalize_fused(  # noqa: E731
+            images, True, target)
         ms, plain_ms = in_turns(
-            lambda: pp.grayscale_normalize_fused(images, True, target),
-            lambda: pp.grayscale_normalize(images, True, target))
+            kernel, lambda: pp.grayscale_normalize(images, True, target))
         row = {"kernel": name, "shape": list(shape), "max_abs_err": max_err,
                "max_abs_err_vs_f64": f64_err.item(), "ms": ms,
-               "plain_ms": plain_ms}
+               "plain_ms": plain_ms, "device_ms": device_ms(kernel)}
         row.update(bound(images.numel() + got.numel() * 4,
                          7.0 * got.numel() if target is None
                          else 30.0 * got.numel(), "float32"))
@@ -729,13 +732,19 @@ def phase_layer_norm(ln):
         rows.append(row)
         del got, want
 
-        # Backward, through autograd: one launch of the backward kernel.
+        # Backward, through autograd: one launch of the backward kernel, of
+        # the exact-width instantiation.
         leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
         before = ln.layer_norm_backward.launches
+        counted = ln.layer_norm_backward.variant_launches
+        before_variant = counted[variant]
         ln.layer_norm(*leaves, LN_EPS).backward(g)
         torch.cuda.synchronize()
         check(ln.layer_norm_backward.launches == before + 1,
               "autograd did not launch the LayerNorm backward once")
+        check(counted[variant] == before_variant + 1,
+              f"layer_norm_bwd {n}x{d} {dtype}: the {variant} kernel did "
+              "not run")
         dx, dscale, dbias = (t.grad for t in leaves)
         with torch.no_grad():
             want_dx, want_dscale, want_dbias = ln.layer_norm_backward_plain(
@@ -753,23 +762,35 @@ def phase_layer_norm(ln):
         lib = [x.clone().requires_grad_(), lib_scale.clone().requires_grad_(),
                lib_bias.clone().requires_grad_()]
         lib_out = F.layer_norm(lib[0], (d,), lib[1], lib[2], LN_EPS)
+        kernel = lambda: ln.layer_norm_backward(  # noqa: E731
+            x, scale, g, LN_EPS)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib, g, retain_graph=True)
         with torch.no_grad():
             ms, plain_ms = in_turns(
-                lambda: ln.layer_norm_backward(x, scale, g, LN_EPS),
+                kernel,
                 lambda: ln.layer_norm_backward_plain(x, scale, g, LN_EPS))
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, lib, g, retain_graph=True))
-        del lib, lib_out
+        library_ms = cuda_ms(library)
         row = {"kernel": "layer_norm_bwd", "rows": n, "d": d,
-               "dtype": dtype_name(dtype), "max_abs_err": max_err,
+               "dtype": dtype_name(dtype), "variant": variant,
+               "max_abs_err": max_err,
                "max_err_ulps": max_ulps, "max_abs_err_vs_f64": f64_err,
                "param_grad_rel_err": param_err,
                "param_grad_rel_err_vs_f64": f64_param_err,
                "tolerance": ("dx 1 ulp of bf16" if bf16 else "dx 1e-5")
                + ", dscale and dbias 1e-4 of the largest entry",
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+        with_device_times(row, kernel, library)
+        del lib, lib_out
         row.update(bound(3 * n * d * itemsize + 12 * d, 16.0 * n * d,
                          "float32"))
+        row["roofline_share"] = row["bound_ms"] / row["device_ms"]
+        # Two runs give the same bits: partials a block, summed in a fixed
+        # order, no atomics.
+        first, second = kernel(), kernel()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"layer_norm_bwd {n}x{d} {dtype}: two runs differ")
+        del first, second
         print(f"layer_norm_bwd {row}", flush=True)
         check(math.isfinite(max_err)
               and (max_ulps <= 1.0 if bf16 else max_err <= 1e-5),
@@ -939,8 +960,7 @@ def flash_scalar_ms(fl, pick, tensors, q, k, mask, seed, rate, **kw):
     entry = fl._entries["scalar"][pick]
     args = (*(x.data_ptr() for x in tensors),
             None if mask_tensor is None else mask_tensor.data_ptr(), b, t, s,
-            h, d, 1.0 / math.sqrt(d), 1, mode, window,
-            *fl._dropout_args(seed, rate),
+            h, d, 1, mode, window, seed & 0xFFFFFFFF if rate else 0, rate,
             torch.cuda.current_stream().cuda_stream)
 
     def run():
@@ -2745,10 +2765,15 @@ def main() -> None:
                                   "resize_launches"),
         "layer_norm_fwd": (ln.layer_norm, "launches"),
         "layer_norm_bwd": (ln.layer_norm_backward, "launches"),
-        # Of the forward's, those of the flagship's two exact-width kernels.
+        # Of the forward's and the backward's, those of the flagship's two
+        # exact-width kernels.
         "layer_norm_fwd_bf16_512": (ln.layer_norm.variant_launches,
                                     "bfloat16/512"),
         "layer_norm_fwd_bf16_1024": (ln.layer_norm.variant_launches,
+                                     "bfloat16/1024"),
+        "layer_norm_bwd_bf16_512": (ln.layer_norm_backward.variant_launches,
+                                    "bfloat16/512"),
+        "layer_norm_bwd_bf16_1024": (ln.layer_norm_backward.variant_launches,
                                      "bfloat16/1024"),
         "hw_dropout": (dr.hw_dropout, "launches"),
         "flash_attention": (fl.flash_attention, "launches"),
@@ -2880,22 +2905,27 @@ def main() -> None:
     drop = kernel_entry(
         "hw_dropout", "videocad_tpu/ops/dropout.py:32",
         launches["hw_dropout"], rows, drop_at(DROPOUT_SHAPES[0]), same)
-    # Both clocks for K4's forward and K5, and the host's cost of a call
-    # (host clock minus device time), at the train step's shape and at the
-    # small one (the CAD encoder's rows, the decoder's attention weights).
+    # Both clocks for K4 and K5, and the host's cost of a call (host clock
+    # minus device time), at the train step's shape and at the small one
+    # (the CAD encoder's rows, the decoder's attention weights).
     clocks = ("device_ms", "library_device_ms", "host_ms", "library_host_ms")
     for entry, large, small in (
             (ln_fwd, ln_at(LN_SHAPES[0]), ln_at(LN_SHAPES[2])),
+            (ln_bwd, ln_at(LN_SHAPES[0]), ln_at(LN_SHAPES[2])),
             (drop, drop_at(DROPOUT_SHAPES[0]), drop_at(DROPOUT_SHAPES[1]))):
         row = next(r for r in entry["checks"] if large(r))
         entry.update({key: row[key] for key in clocks + ("roofline_share",)})
         row = next(r for r in entry["checks"] if small(r))
         entry.update({key + "_small": row[key]
                       for key in ("ms", "library_ms") + clocks})
-    ln_fwd.update(variant=next(r for r in ln_fwd["checks"]
-                               if ln_at(LN_SHAPES[0])(r))["variant"],
-                  variant_launches={name: launches[name] for name in (
-                      "layer_norm_fwd_bf16_512", "layer_norm_fwd_bf16_1024")})
+    for entry, way in ((ln_fwd, "fwd"), (ln_bwd, "bwd")):
+        entry.update(variant=next(r for r in entry["checks"]
+                                  if ln_at(LN_SHAPES[0])(r))["variant"],
+                     variant_launches={name: launches[name] for name in (
+                         f"layer_norm_{way}_bf16_512",
+                         f"layer_norm_{way}_bf16_1024")})
+    for entry in (gray, resize):
+        entry["device_ms"] = entry["checks"][0]["device_ms"]
     flash = flash_entries(rows, launches)
     # The fused sub-block kernels at a train step's frames with dropout;
     # the time of the port's unfused sub-block stands beside them.

@@ -1,10 +1,13 @@
-"""The host path of the standalone dropout (K5), LayerNorm (K4) and fused
-sub-block (K6a-d) wrappers, on the CPU: the rules that pick the LayerNorm
-forward's instantiation and each sub-block's variant, the C entries the
-wrappers bind against the source, and the dispatch that the lean wrappers
-keep (the plain versions for a CPU tensor, no launch counted, the kernels'
-input checks with their error types and messages)."""
+"""The host path of the kernel wrappers, on the CPU: the short-sequence
+attention (K1), grayscale (K2), flash attention (K3), LayerNorm (K4),
+standalone dropout (K5) and fused sub-block (K6a-d). The rules that pick
+the LayerNorm kernels' instantiations and each sub-block's variant, the C
+entries the wrappers bind against the source, and the dispatch that the
+lean wrappers keep (the plain versions for a CPU tensor, no launch counted,
+the kernels' input checks with their error types and messages, the launch
+through ``kernels/build.py:launch``)."""
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -12,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from videocad_tpu_torch.ops import attention as fl
 from videocad_tpu_torch.ops import dropout as dr
+from videocad_tpu_torch.ops import fused_attention as fa
 from videocad_tpu_torch.ops import fused_block as fb
 from videocad_tpu_torch.ops import layernorm as ln
+from videocad_tpu_torch.ops import preprocess as pp
 
 BF16, F32 = torch.bfloat16, torch.float32
 CSRC = Path(ln.__file__).resolve().parent.parent / "csrc"
@@ -44,12 +50,73 @@ def test_forward_variant_codes_follow_the_kernel_table():
     """FWD_VARIANTS is the order of csrc/layernorm.cu's kFwdVariants, whose
     entries name their variant in a comment: the variant code the wrapper
     passes picks that entry."""
+    assert _kernel_table("kFwdVariants") == ln.FWD_VARIANTS
+
+
+def _kernel_table(name):
+    """The variants named in the comments of csrc/layernorm.cu's table
+    ``name``, in the order of their codes."""
     src = (CSRC / "layernorm.cu").read_text()
-    table = src[src.index("kFwdVariants[] = {"):]
+    table = src[src.index(name + "[] = {"):]
     table = table[:table.index("};")]
     named = re.findall(r"// (\d) (\w+/\w+)", table)
     assert [int(code) for code, _ in named] == list(range(8))
-    assert tuple(name for _, name in named) == ln.FWD_VARIANTS
+    return tuple(variant for _, variant in named)
+
+
+@pytest.mark.parametrize("d,dtype,aligned,variant", [
+    (512, BF16, True, "bfloat16/512"),      # the ViT's tokens
+    (1024, BF16, True, "bfloat16/1024"),    # the patch rows
+    (512, F32, True, "float32/512"),
+    (1024, F32, True, "float32/1024"),
+    (768, BF16, True, "bfloat16/vector"),
+    (8, BF16, True, "bfloat16/vector"),
+    (768, F32, True, "float32/vector"),
+    (100, F32, True, "float32/vector"),     # 400 bytes: on the grid
+    (100, BF16, True, "bfloat16/scalar"),   # 200 bytes: off it
+    (30, F32, True, "float32/scalar"),
+    (1, F32, True, "float32/scalar"),
+    (512, BF16, False, "bfloat16/scalar"),  # x or g an unaligned view
+    (1024, F32, False, "float32/scalar"),
+])
+def test_backward_variant_rule(d, dtype, aligned, variant):
+    assert ln.backward_variant(d, dtype, aligned) == variant
+    assert variant in ln.BWD_VARIANTS
+
+
+def test_backward_variant_codes_follow_the_kernel_table():
+    """BWD_VARIANTS is the order of csrc/layernorm.cu's kBwdVariants: the
+    code the backward's wrapper passes picks the entry that its comment
+    names."""
+    assert _kernel_table("kBwdVariants") == ln.BWD_VARIANTS
+
+
+@pytest.mark.parametrize("key,value,field", [
+    ("warps", 4, 5), ("warp_rows", 4, 3), ("prefetch", 0, 6),
+    ("block_rows", 128, 7)])
+def test_ln_bwd_sweep_rewrites_the_backward_table(key, value, field):
+    """cli/ln_bwd_sweep.py's copies of csrc/layernorm.cu: each vector and
+    exact-width row of kBwdVariants takes the value, the scalar rows and
+    kBwdSmall stay; "table" everywhere is the source as it is, and
+    min_blocks caps the row kernel's registers."""
+    from videocad_tpu_torch.cli import ln_bwd_sweep as sweep
+
+    src = (CSRC / "layernorm.cu").read_text()
+    table = dict.fromkeys(sweep.OPTIONS, "table")
+    assert sweep.variant_source(src, table) == src
+    out = sweep.variant_source(src, {**table, key: value})
+    rows = [sweep.ROW.findall(text[text.index("kBwdVariants[] = {"):])[:8]
+            for text in (src, out)]
+    want = "false" if key == "prefetch" else str(value)
+    for before, after in zip(*rows):
+        expect = list(before)
+        if before[1] != "1":
+            expect[field] = want
+        assert list(after) == expect
+    small = [text[text.index("kBwdSmall[] = {"):] for text in (src, out)]
+    assert small[0] == small[1]
+    capped = sweep.variant_source(src, {**table, "min_blocks": 2})
+    assert "__launch_bounds__(W * 32, 2)\nlayer_norm_bwd_kernel(" in capped
 
 
 def _ln_case(rows=6, d=16):
@@ -253,3 +320,156 @@ def test_mlp_tc_weights_are_the_stored_matrices():
         assert torch.equal(stored, w.t().to(BF16))
         held = w.t().to(BF16)                 # stored (out, in) in bf16
         assert fb._stored(x, held.t()).data_ptr() == held.data_ptr()
+
+
+# ---- K1, K2, K3: the short-sequence and flash attention, the grayscale ----
+
+_C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint,
+            "long long": ctypes.c_longlong, "float": ctypes.c_float,
+            "double": ctypes.c_double}
+
+
+def _c_entries(source):
+    """{name: (return type, [parameter types])} of the extern "C" functions
+    of ``csrc/<source>``, each parameter as the ctypes type that carries
+    it (every pointer as c_void_p)."""
+    src = (CSRC / source).read_text()
+    entries = {}
+    for ret, name, params in re.findall(
+            r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
+        types = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            kind = param.rsplit(" ", 1)[0].replace("const ", "")
+            types.append(ctypes.c_void_p if "*" in param else _C_TYPES[kind])
+        entries[name] = (_C_TYPES[ret], types)
+    return entries
+
+
+@pytest.mark.parametrize("module,source", [
+    (fa, "mhsa_short.cu"), (pp, "gray_normalize.cu"),
+    (fl, "flash_attention.cu"), (ln, "layernorm.cu")])
+def test_bound_entries_follow_the_source(module, source):
+    """Each C entry a wrapper binds is an extern "C" function of its source
+    with the same return and parameter types, in order: a changed entry
+    and a stale binding cannot pass each other here."""
+    assert module._signatures() == _c_entries(source)
+
+
+def _qkv(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype) for _ in range(4)]
+
+
+def _attention_counts():
+    return tuple((f.launches, f.tc_launches) for f in (
+        fa.mhsa_short, fa.mhsa_short_backward, fl.flash_attention,
+        fl.flash_attention_dq, fl.flash_attention_dkv))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_k1_k3_wrappers_run_the_plain_versions_on_the_cpu(dtype, rate):
+    """mhsa_short and flash_attention on CPU tensors, with and without
+    autograd, equal their plain versions, and no launch counter moves."""
+    seed = 17 if rate else None
+    marks = _attention_counts()
+    q, k, v, g = _qkv((2, 6, 32), dtype, 1)
+    with torch.no_grad():
+        assert torch.equal(fa.mhsa_short(q, k, v, seed, 4, rate),
+                           fa.mhsa_short_reference(q, k, v, seed, 4, rate))
+    want = fa.mhsa_short_backward_reference(q, k, v, g, seed, 4, rate)
+    got = fa.mhsa_short_backward(q, k, v, g, seed, 4, rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.mhsa_short(*leaves, seed, 4, rate).backward(g)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+    q, k, v, g = _qkv((2, 7, 2, 16), dtype, 2)
+    mask = fl.BandMask(7, 7, 3)
+    out, lse = fl.flash_attention_reference(q, k, v, mask, seed, rate)
+    with torch.no_grad():
+        assert torch.equal(fl.flash_attention(q, k, v, mask, seed, rate), out)
+    want = fl.flash_attention_backward_reference(q, k, v, mask, seed, out,
+                                                 lse, g, rate)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fl.flash_attention(*leaves, mask, seed, rate).backward(g)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+    assert _attention_counts() == marks
+
+
+@pytest.mark.parametrize("target", [None, (6, 10), (8, 8)])
+def test_gray_wrapper_runs_the_plain_path_on_the_cpu(target):
+    """grayscale_normalize_fused on a CPU tensor is grayscale_normalize, with
+    the resize or without (a target equal to the input's size is none), and
+    neither launch counter moves."""
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 3, 8, 8, 3),
+                                           dtype=np.uint8))
+    fused = pp.grayscale_normalize_fused
+    marks = (fused.launches, fused.resize_launches)
+    for bgr_as_rgb in (False, True):
+        assert torch.equal(fused(images, bgr_as_rgb, target),
+                           pp.grayscale_normalize(images, bgr_as_rgb, target))
+    assert (fused.launches, fused.resize_launches) == marks
+
+
+def test_k1_k2_k3_wrappers_raise_what_they_raised():
+    """A tensor on neither the CPU nor a card, and what the kernels' checks
+    refuse (float16 among it), raise the errors they raised before their
+    launches went through build.launch; the checks run before anything
+    touches a card."""
+    meta = torch.zeros(2, 6, 32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.mhsa_short(meta, meta, meta, None, 4)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.mhsa_short_backward(meta, meta, meta, meta, None, 4)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        pp.grayscale_normalize_fused(
+            torch.zeros(2, 8, 8, 3, dtype=torch.uint8, device="meta"))
+    flash = torch.zeros(2, 7, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fl.flash_attention(flash, flash, flash)
+    cpu = torch.zeros(2, 7, 2, 16)
+    lse = torch.zeros(2, 2, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fl.flash_attention_dq(cpu, cpu, cpu, None, None, cpu, lse, cpu)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fl.flash_attention_dkv(cpu, cpu, cpu, None, None, lse, lse, cpu)
+
+    q = torch.zeros(2, 6, 32)
+    assert fa._check_kernel_inputs((q, q, q), 4) == (2, 6, 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._check_kernel_inputs((q.half(),) * 3, 4)
+    with pytest.raises(ValueError, match="T <= 64"):
+        fa._check_kernel_inputs((torch.zeros(1, 65, 8),) * 3, 1)
+    with pytest.raises(ValueError, match="D <= 64"):
+        fa._check_kernel_inputs((torch.zeros(1, 6, 128),) * 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._check_kernel_inputs((q, q.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), q), 4)
+    card = torch.device("cuda", 0)   # a name only: nothing touches a card
+    fl._check_kernel_inputs(card, cpu, cpu, cpu)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fl._check_kernel_inputs(card, cpu.half(), cpu.half(), cpu.half())
+    with pytest.raises(ValueError, match="D <= 256"):
+        fl._check_kernel_inputs(card, torch.zeros(1, 4, 1, 320))
+    with pytest.raises(ValueError, match="contiguous"):
+        fl._check_kernel_inputs(card, cpu, cpu.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    pp._check_kernel_inputs(torch.zeros(2, 8, 8, 3, dtype=torch.uint8))
+    with pytest.raises(TypeError, match="uint8"):
+        pp._check_kernel_inputs(torch.zeros(2, 8, 8, 3, dtype=torch.float16))
+
+
+def test_no_wrapper_enters_a_device_guard_or_builds_a_stream_object():
+    """Every kernel wrapper under ops/ reaches its C entry through
+    kernels/build.py:launch (the raw current stream, a device guard only
+    off the current device): none enters torch.cuda.device or reads
+    torch.cuda.current_stream on its own."""
+    ops = Path(ln.__file__).resolve().parent
+    for path in sorted(ops.glob("*.py")):
+        src = path.read_text()
+        assert "torch.cuda.device(" not in src, path.name
+        assert "current_stream(" not in src, path.name

@@ -346,6 +346,98 @@ def test_layer_norm_forward_of_an_unaligned_view(cuda, dtype, variant):
         assert (got - want).abs().max().item() <= 1e-5
 
 
+def _assert_backward_close(got, want, dtype):
+    """dx within one bf16 ulp (1e-5 at float32); dscale and dbias, sums
+    over the rows in another order, within 1e-4 of their largest entry."""
+    if dtype == BF16:
+        assert _within_one_bf16_ulp(got[0], want[0])
+    else:
+        assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == F32 and a.shape == w.shape
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+# Each instantiation of the backward (``ln.backward_variant``), at row counts
+# that are no multiple of the rows a warp takes at a time (4 at d = 512
+# bf16, 2 at 1,024 bf16 or 512 f32) nor of the rows a block owns.
+@pytest.mark.parametrize("rows", [1, 3, 401, 76401])
+@pytest.mark.parametrize("d,dtype,variant", [
+    (512, BF16, "bfloat16/512"),
+    (1024, BF16, "bfloat16/1024"),
+    (512, F32, "float32/512"),
+    (1024, F32, "float32/1024"),
+    (768, BF16, "bfloat16/vector"),
+    (768, F32, "float32/vector"),
+    (100, BF16, "bfloat16/scalar"),   # 200 bytes: off the 16-byte grid
+    (30, F32, "float32/scalar"),
+])
+def test_layer_norm_backward_variants_match_plain_version(cuda, rows, d,
+                                                          dtype, variant):
+    x, scale, _, g = _ln_inputs(rows, d, dtype, seed=rows + d + 1)
+    before = dict(ln.layer_norm_backward.variant_launches)
+    got = ln.layer_norm_backward(x, scale, g, 1e-5)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k]
+             for k, v in ln.layer_norm_backward.variant_launches.items()
+             if v != before[k]}
+    assert moved == {variant: 1}
+    _assert_backward_close(got, ln.layer_norm_backward_plain(x, scale, g,
+                                                             1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype,variant", [(BF16, "bfloat16/scalar"),
+                                           (F32, "float32/scalar")])
+@pytest.mark.parametrize("unaligned", ["x", "g"])
+def test_layer_norm_backward_of_an_unaligned_view(cuda, dtype, variant,
+                                                  unaligned):
+    """x or g a view that starts one element in: the scalar instantiation
+    takes it, whatever its width."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flat = torch.randn(2, 401 * 512 + 1, generator=gen, device="cuda")
+    views = [(t * 2.0 + 0.5).to(dtype)[1:].view(401, 512) for t in flat]
+    x, g = _ln_inputs(401, 512, dtype, seed=13)[::3]
+    x, g = (views[0], g) if unaligned == "x" else (x, views[1])
+    scale = 1.0 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+    before = ln.layer_norm_backward.variant_launches[variant]
+    got = ln.layer_norm_backward(x, scale, g, 1e-5)
+    assert ln.layer_norm_backward.variant_launches[variant] == before + 1
+    _assert_backward_close(got, ln.layer_norm_backward_plain(x, scale, g,
+                                                             1e-5), dtype)
+
+
+@pytest.mark.parametrize("rows,d", [(5000, 512), (76401, 1024)])
+def test_layer_norm_backward_parameter_sums_repeat_exactly(cuda, rows, d):
+    """Partials a block, summed in a fixed order, no atomics: dscale and
+    dbias (and dx) are the same bits in every run."""
+    x, scale, _, g = _ln_inputs(rows, d, BF16, seed=rows)
+    first = ln.layer_norm_backward(x, scale, g, 1e-5)
+    second = ln.layer_norm_backward(x, scale, g, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[1].data_ptr() + 4 * d == first[2].data_ptr()
+
+
+
+@pytest.mark.parametrize("d,dtype", [(1024, F32), (512, BF16)])
+def test_layer_norm_backward_on_a_second_card(cuda, d, dtype):
+    """The backward's launch plan (the SMs, the blocks an SM holds, the
+    shared memory it opts in to: 64 KB a block at 1,024 float32) is asked
+    of the card that holds x: card 1 after card 0 at the same shape, then
+    card 0 again, each against the plain version; cards of one model give
+    the same bits."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    inputs = _ln_inputs(5000, d, dtype, seed=d + 7)
+    results = []
+    for card in ("cuda:0", "cuda:1", "cuda:0"):
+        x, scale, _, g = (t.to(card) for t in inputs)
+        got = ln.layer_norm_backward(x, scale, g, 1e-5)
+        _assert_backward_close(got, ln.layer_norm_backward_plain(
+            x, scale, g, 1e-5), dtype)
+        results.append([t.cpu() for t in got])
+    if torch.cuda.get_device_name(0) == torch.cuda.get_device_name(1):
+        assert all(torch.equal(a, b) for a, b in zip(*results[:2]))
+
 # ---- K5: the standalone dropout ----
 
 @pytest.mark.parametrize("shape,dtype", [

@@ -27,9 +27,11 @@ one JSON line:
               both variants, forward and backward)
   flash_attention_ms  device ms per iteration of the flash attention
               kernels (K3, both variants: forward, dQ, dK/dV)
-  layer_norm_fwd_ms, hw_dropout_ms  device ms per iteration of the
-              LayerNorm forward kernels (K4, every instantiation) and of
-              the standalone dropout kernel (K5)
+  layer_norm_fwd_ms, layer_norm_bwd_ms, hw_dropout_ms  device ms per
+              iteration of the LayerNorm forward kernels (K4, every
+              instantiation), of its backward (the row kernels and the
+              kernel that sums their partials) and of the standalone
+              dropout kernel (K5)
   top         the largest kernels: [device ms per iteration, launches per
               iteration, device ms per launch, name]
 
@@ -49,6 +51,7 @@ import time
 # The port's flash attention kernels (csrc/flash_attention.cu), not
 # PyTorch's own flash kernels.
 _FLASH_KERNEL = re.compile(r"flash_(fwd|dq|dkv)_(tc|scalar)_kernel")
+_LN_BWD_KERNEL = re.compile(r"layer_norm_(bwd|param_grad)_kernel")
 
 
 def _timed(fn, n: int) -> float:
@@ -118,6 +121,8 @@ def profile_work(name: str, fn, n: int, warmup: int = 2,
                                       if _FLASH_KERNEL.search(key)),
             "layer_norm_fwd_ms": sum(ms for key, (ms, _) in by_name.items()
                                      if "layer_norm_fwd_kernel" in key),
+            "layer_norm_bwd_ms": sum(ms for key, (ms, _) in by_name.items()
+                                     if _LN_BWD_KERNEL.search(key)),
             "hw_dropout_ms": sum(ms for key, (ms, _) in by_name.items()
                                  if "hw_dropout_kernel" in key),
             "top": [[ms, count, ms / count, key[:90]]

@@ -1411,9 +1411,12 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+// The launch's shape and constants; the dropout's and the scores' scale
+// derived from ``rate`` and head_dim (tc_common.cuh).
 Shape make_shape(const void* mask, int q_len, int kv_len, int heads,
-                 int head_dim, float scale, int mask_mode, int window,
-                 unsigned int seed, unsigned int threshold, float inv_keep) {
+                 int head_dim, int mask_mode, int window, unsigned int seed,
+                 double rate) {
+  const DropoutArgs drop = dropout_args(rate);
   Shape sh;
   sh.q_len = q_len;
   sh.kv_len = kv_len;
@@ -1422,10 +1425,10 @@ Shape make_shape(const void* mask, int q_len, int kv_len, int heads,
   sh.mask_mode = mask_mode;
   sh.window = window;
   sh.mask = static_cast<const uint8_t*>(mask);
-  sh.scale = scale;
+  sh.scale = score_scale(head_dim);
   sh.seed = seed;
-  sh.threshold = threshold;
-  sh.inv_keep = inv_keep;
+  sh.threshold = drop.threshold;
+  sh.inv_keep = drop.inv_keep;
   return sh;
 }
 
@@ -1458,24 +1461,24 @@ Shape make_shape(const void* mask, int q_len, int kv_len, int heads,
 // lse, delta (batch, heads, q_len) float32. mask_mode: 0 none, 1 band
 // (col <= row && col > row - window; a window of 2^30 is the causal mask),
 // 2 a (q_len, kv_len) byte tensor at ``mask`` (non-zero = attend).
-// ``threshold`` is the u32 dropout cutoff (bits below it are dropped; 0
-// turns dropout off), ``inv_keep`` is 1 / (1 - rate). The launch goes to
-// ``stream`` and does not synchronise. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernels do not take).
+// ``rate`` is the dropout rate in [0, 1) (0 turns dropout off): the entry
+// derives the kernels' u32 cutoff and keep scale from it, and the scores'
+// scale 1 / sqrt(head_dim). The launch goes to ``stream`` and does not
+// synchronise. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or rate the kernels do not take).
 // These three entries launch the scalar variant.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse,
-                                   const void* mask, int batch, int q_len,
-                                   int kv_len, int heads, int head_dim,
-                                   float scale, int dtype, int mask_mode,
-                                   int window, unsigned int seed,
-                                   unsigned int threshold, float inv_keep,
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, const void* mask,
+                                   int batch, int q_len, int kv_len, int heads,
+                                   int head_dim, int dtype, int mask_mode,
+                                   int window, unsigned int seed, double rate,
                                    void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
-                mask))
+                mask) ||
+      bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_fwd, q, k, v, o, static_cast<float*>(lse), batch, sh,
                  s);
@@ -1484,38 +1487,37 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // dq, and delta = rowsum(g * o) for flash_attention_dkv, which must follow
 // on the same stream.
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
-                                  const void* g, const void* o,
-                                  const void* lse, void* dq, void* delta,
-                                  const void* mask, int batch, int q_len,
-                                  int kv_len, int heads, int head_dim,
-                                  float scale, int dtype, int mask_mode,
-                                  int window, unsigned int seed,
-                                  unsigned int threshold, float inv_keep,
+                                  const void* g, const void* o, const void* lse,
+                                  void* dq, void* delta, const void* mask,
+                                  int batch, int q_len, int kv_len, int heads,
+                                  int head_dim, int dtype, int mask_mode,
+                                  int window, unsigned int seed, double rate,
                                   void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
-                mask))
+                mask) ||
+      bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dq, q, k, v, g, o, static_cast<const float*>(lse), dq,
                  static_cast<float*>(delta), batch, sh, s);
 }
 
-extern "C" int flash_attention_dkv(const void* q, const void* k,
-                                   const void* v, const void* g,
-                                   const void* lse, const void* delta,
-                                   void* dk, void* dv, const void* mask,
-                                   int batch, int q_len, int kv_len, int heads,
-                                   int head_dim, float scale, int dtype,
-                                   int mask_mode, int window,
-                                   unsigned int seed, unsigned int threshold,
-                                   float inv_keep, void* stream) {
+extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v,
+                                   const void* g, const void* lse,
+                                   const void* delta, void* dk, void* dv,
+                                   const void* mask, int batch, int q_len,
+                                   int kv_len, int heads, int head_dim,
+                                   int dtype, int mask_mode, int window,
+                                   unsigned int seed, double rate,
+                                   void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
-                mask))
+                mask) ||
+      bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dkv, q, k, v, g, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), dk, dv, batch, sh, s);
@@ -1528,16 +1530,15 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* mask, int batch, int q_len,
                                       int kv_len, int heads, int head_dim,
-                                      float scale, int dtype, int mask_mode,
-                                      int window, unsigned int seed,
-                                      unsigned int threshold, float inv_keep,
+                                      int dtype, int mask_mode, int window,
+                                      unsigned int seed, double rate,
                                       void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
                 mask) ||
-      bad_tc(dtype, head_dim))
+      bad_tc(dtype, head_dim) || bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_TC_DISPATCH(launch_fwd_tc, q, k, v, o, static_cast<float*>(lse),
                     batch, sh, s);
@@ -1548,16 +1549,15 @@ extern "C" int flash_attention_tc_dq(const void* q, const void* k,
                                      const void* o, const void* lse, void* dq,
                                      void* delta, const void* mask, int batch,
                                      int q_len, int kv_len, int heads,
-                                     int head_dim, float scale, int dtype,
-                                     int mask_mode, int window,
-                                     unsigned int seed, unsigned int threshold,
-                                     float inv_keep, void* stream) {
+                                     int head_dim, int dtype, int mask_mode,
+                                     int window, unsigned int seed, double rate,
+                                     void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
                 mask) ||
-      bad_tc(dtype, head_dim))
+      bad_tc(dtype, head_dim) || bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_TC_DISPATCH(launch_dq_tc, q, k, v, g, o,
                     static_cast<const float*>(lse), dq,
@@ -1569,17 +1569,16 @@ extern "C" int flash_attention_tc_dkv(const void* q, const void* k,
                                       const void* lse, const void* delta,
                                       void* dk, void* dv, const void* mask,
                                       int batch, int q_len, int kv_len,
-                                      int heads, int head_dim, float scale,
-                                      int dtype, int mask_mode, int window,
-                                      unsigned int seed,
-                                      unsigned int threshold, float inv_keep,
+                                      int heads, int head_dim, int dtype,
+                                      int mask_mode, int window,
+                                      unsigned int seed, double rate,
                                       void* stream) {
   if (bad_shape(batch, q_len, kv_len, heads, head_dim, mask_mode, window,
                 mask) ||
-      bad_tc(dtype, head_dim))
+      bad_tc(dtype, head_dim) || bad_rate(rate))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim, scale,
-                              mask_mode, window, seed, threshold, inv_keep);
+  const Shape sh = make_shape(mask, q_len, kv_len, heads, head_dim,
+                              mask_mode, window, seed, rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_TC_DISPATCH(launch_dkv_tc, q, k, v, g,
                     static_cast<const float*>(lse),

@@ -24,9 +24,10 @@
 // kernel does not multiply by the dense (OH, H) and (OW, W) interpolation
 // matrices as the TPU's matrix unit does: each output pixel has at most
 // two taps per axis, which the wrapper passes in as small arrays made from
-// the same code that builds the plain version's matrices, so each thread
-// grays its four source pixels and blends them; neighbouring threads read
-// neighbouring source pixels, and the L2 cache absorbs the reuse.
+// the same code that builds the plain version's matrices, so a thread
+// grays the four source pixels of each of its outputs and blends them. A
+// thread owns four neighbouring outputs of a row and reads that row's taps
+// once; the source pixels neighbouring outputs share come from L1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,9 +78,14 @@ gray_normalize_vec4_kernel(const uint32_t* __restrict__ in,
   out[gidx] = r;
 }
 
-// One thread per output pixel. Row taps (lo, hi, weight of lo, weight of
-// hi) for each output row, column taps likewise; where both taps land on
-// one source line (a clamped edge) hi == lo and its weight is 0.
+// kResizeOut neighbouring output pixels of one output row a thread. Row
+// taps (lo, hi, weight of lo, weight of hi) for each output row, column
+// taps likewise; where both taps land on one source line (a clamped edge)
+// hi == lo and its weight is 0. The thread reads its row's taps and source
+// rows once for all its outputs; the source pixels that neighbouring
+// outputs share come from L1.
+constexpr int kResizeOut = 4;
+
 __global__ void __launch_bounds__(kThreads)
 gray_resize_normalize_kernel(const uint8_t* __restrict__ in,
                              float* __restrict__ out, int n, int h, int w,
@@ -92,29 +98,35 @@ gray_resize_normalize_kernel(const uint8_t* __restrict__ in,
                              const float* __restrict__ col_wlo,
                              const float* __restrict__ col_whi, float w0,
                              float w1, float w2) {
+  const int groups = (ow + kResizeOut - 1) / kResizeOut;   // a row's
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)n * oh * ow;
-  if (idx >= total) return;
-  const int ox = (int)(idx % ow);
-  const int oy = (int)((idx / ow) % oh);
-  const long long image = idx / ((long long)oh * ow);
-  const uint8_t* img = in + image * (long long)h * w * 3;
-  const int r0 = row_lo[oy], r1 = row_hi[oy];
-  const int c0 = col_lo[ox], c1 = col_hi[ox];
+  if (idx >= (long long)n * oh * groups) return;
+  const int first = (int)(idx % groups) * kResizeOut;
+  const long long row = idx / groups;                      // image * oh + oy
+  const int oy = (int)(row % oh);
+  const uint8_t* img = in + row / oh * (long long)h * w * 3;
+  const uint8_t* top = img + (long long)row_lo[oy] * w * 3;
+  const uint8_t* bot = img + (long long)row_hi[oy] * w * 3;
   const float a0 = row_wlo[oy], a1 = row_whi[oy];
-  const float b0 = col_wlo[ox], b1 = col_whi[ox];
-  const uint8_t* p00 = img + ((long long)r0 * w + c0) * 3;
-  const uint8_t* p01 = img + ((long long)r0 * w + c1) * 3;
-  const uint8_t* p10 = img + ((long long)r1 * w + c0) * 3;
-  const uint8_t* p11 = img + ((long long)r1 * w + c1) * 3;
-  const float g00 = gray_of(p00[0], p00[1], p00[2], w0, w1, w2);
-  const float g01 = gray_of(p01[0], p01[1], p01[2], w0, w1, w2);
-  const float g10 = gray_of(p10[0], p10[1], p10[2], w0, w1, w2);
-  const float g11 = gray_of(p11[0], p11[1], p11[2], w0, w1, w2);
-  // Rows first (rh @ gray), then columns (. rw^T).
-  const float left = fmaf(a1, g10, __fmul_rn(a0, g00));
-  const float right = fmaf(a1, g11, __fmul_rn(a0, g01));
-  out[idx] = normalize(fmaf(b1, right, __fmul_rn(b0, left)));
+  float* dst = out + row * ow;
+#pragma unroll
+  for (int i = 0; i < kResizeOut; ++i) {
+    const int ox = first + i;
+    if (ox >= ow) break;
+    const uint8_t* p00 = top + col_lo[ox] * 3;
+    const uint8_t* p01 = top + col_hi[ox] * 3;
+    const uint8_t* p10 = bot + col_lo[ox] * 3;
+    const uint8_t* p11 = bot + col_hi[ox] * 3;
+    const float b0 = col_wlo[ox], b1 = col_whi[ox];
+    const float g00 = gray_of(p00[0], p00[1], p00[2], w0, w1, w2);
+    const float g01 = gray_of(p01[0], p01[1], p01[2], w0, w1, w2);
+    const float g10 = gray_of(p10[0], p10[1], p10[2], w0, w1, w2);
+    const float g11 = gray_of(p11[0], p11[1], p11[2], w0, w1, w2);
+    // Rows first (rh @ gray), then columns (. rw^T).
+    const float left = fmaf(a1, g10, __fmul_rn(a0, g00));
+    const float right = fmaf(a1, g11, __fmul_rn(a0, g01));
+    dst[ox] = normalize(fmaf(b1, right, __fmul_rn(b0, left)));
+  }
 }
 
 }  // namespace
@@ -158,8 +170,9 @@ extern "C" int gray_resize_normalize(
     void* stream) {
   if (n < 1 || h < 1 || w < 1 || oh < 1 || ow < 1)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)n * oh * ow;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long threads =
+      (long long)n * oh * ((ow + kResizeOut - 1) / kResizeOut);
+  const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   gray_resize_normalize_kernel<<<(unsigned)blocks, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(

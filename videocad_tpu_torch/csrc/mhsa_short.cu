@@ -695,17 +695,19 @@ bool bad_tc(int dtype, int head_dim) {
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors are contiguous (batch, seq,
 // heads * head_dim) on the current device; the launch goes to ``stream``
-// and does not synchronise. ``threshold`` is the u32 dropout cutoff (bits
-// below it are dropped; 0 turns dropout off) and ``inv_keep`` is
-// 1 / (1 - rate). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// and does not synchronise. ``rate`` is the dropout rate in [0, 1) (0
+// turns dropout off); the entry derives the kernels' u32 cutoff and keep
+// scale from it (dropout_args), and the scores' scale 1 / sqrt(head_dim).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape or rate the kernel does not take).
 extern "C" int mhsa_short_fwd(const void* q, const void* k, const void* v,
                               void* o, int batch, int seq, int heads,
-                              int head_dim, float scale, int dtype,
-                              unsigned int seed, unsigned int threshold,
-                              float inv_keep, void* stream) {
-  if (bad_shape(batch, seq, heads, head_dim))
+                              int head_dim, int dtype, unsigned int seed,
+                              double rate, void* stream) {
+  if (bad_shape(batch, seq, heads, head_dim) || bad_rate(rate))
     return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
   const dim3 grid((unsigned)(batch * heads));
   const dim3 block(kWarps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -713,13 +715,13 @@ extern "C" int mhsa_short_fwd(const void* q, const void* k, const void* v,
     mhsa_short_fwd_scalar_kernel<float><<<grid, block, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
-        head_dim, scale, seed, threshold, inv_keep);
+        head_dim, scale, seed, drop.threshold, drop.inv_keep);
   } else if (dtype == 1) {
     mhsa_short_fwd_scalar_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        seq, heads, head_dim, scale, seed, threshold, inv_keep);
+        seq, heads, head_dim, scale, seed, drop.threshold, drop.inv_keep);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -727,24 +729,25 @@ extern "C" int mhsa_short_fwd(const void* q, const void* k, const void* v,
 }
 
 // The backward: q, k, v and the output's gradient g in, dq, dk, dv out, all
-// of one shape and dtype; seed, threshold and inv_keep as the forward got
-// them.
+// of one shape and dtype; seed and rate as the forward got them.
 extern "C" int mhsa_short_bwd(const void* q, const void* k, const void* v,
                               const void* g, void* dq, void* dk, void* dv,
                               int batch, int seq, int heads, int head_dim,
-                              float scale, int dtype, unsigned int seed,
-                              unsigned int threshold, float inv_keep,
+                              int dtype, unsigned int seed, double rate,
                               void* stream) {
-  if (bad_shape(batch, seq, heads, head_dim))
+  if (bad_shape(batch, seq, heads, head_dim) || bad_rate(rate))
     return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd_scalar<float>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                             head_dim, scale, seed, threshold, inv_keep, s);
+                                    head_dim, scale, seed, drop.threshold,
+                                    drop.inv_keep, s);
   if (dtype == 1)
-    return launch_bwd_scalar<__nv_bfloat16>(q, k, v, g, dq, dk, dv, batch, seq,
-                                     heads, head_dim, scale, seed, threshold,
-                                     inv_keep, s);
+    return launch_bwd_scalar<__nv_bfloat16>(
+        q, k, v, g, dq, dk, dv, batch, seq, heads, head_dim, scale, seed,
+        drop.threshold, drop.inv_keep, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -753,25 +756,27 @@ extern "C" int mhsa_short_bwd(const void* q, const void* k, const void* v,
 // mhsa_short_fwd.
 extern "C" int mhsa_short_tc_fwd(const void* q, const void* k, const void* v,
                                  void* o, int batch, int seq, int heads,
-                                 int head_dim, float scale, int dtype,
-                                 unsigned int seed, unsigned int threshold,
-                                 float inv_keep, void* stream) {
-  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim))
+                                 int head_dim, int dtype, unsigned int seed,
+                                 double rate, void* stream) {
+  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim) ||
+      bad_rate(rate))
     return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
       return launch_fwd_tc<16>(q, k, v, o, batch, seq, heads, scale, seed,
-                               threshold, inv_keep, s);
+                               drop.threshold, drop.inv_keep, s);
     case 32:
       return launch_fwd_tc<32>(q, k, v, o, batch, seq, heads, scale, seed,
-                               threshold, inv_keep, s);
+                               drop.threshold, drop.inv_keep, s);
     case 48:
       return launch_fwd_tc<48>(q, k, v, o, batch, seq, heads, scale, seed,
-                               threshold, inv_keep, s);
+                               drop.threshold, drop.inv_keep, s);
     default:
       return launch_fwd_tc<64>(q, k, v, o, batch, seq, heads, scale, seed,
-                               threshold, inv_keep, s);
+                               drop.threshold, drop.inv_keep, s);
   }
 }
 
@@ -779,24 +784,26 @@ extern "C" int mhsa_short_tc_fwd(const void* q, const void* k, const void* v,
 extern "C" int mhsa_short_tc_bwd(const void* q, const void* k, const void* v,
                                  const void* g, void* dq, void* dk, void* dv,
                                  int batch, int seq, int heads, int head_dim,
-                                 float scale, int dtype, unsigned int seed,
-                                 unsigned int threshold, float inv_keep,
+                                 int dtype, unsigned int seed, double rate,
                                  void* stream) {
-  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim))
+  if (bad_shape(batch, seq, heads, head_dim) || bad_tc(dtype, head_dim) ||
+      bad_rate(rate))
     return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
       return launch_bwd_tc<16>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                               scale, seed, threshold, inv_keep, s);
+                               scale, seed, drop.threshold, drop.inv_keep, s);
     case 32:
       return launch_bwd_tc<32>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                               scale, seed, threshold, inv_keep, s);
+                               scale, seed, drop.threshold, drop.inv_keep, s);
     case 48:
       return launch_bwd_tc<48>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                               scale, seed, threshold, inv_keep, s);
+                               scale, seed, drop.threshold, drop.inv_keep, s);
     default:
       return launch_bwd_tc<64>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                               scale, seed, threshold, inv_keep, s);
+                               scale, seed, drop.threshold, drop.inv_keep, s);
   }
 }

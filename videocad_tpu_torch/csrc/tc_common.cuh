@@ -273,4 +273,24 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
     for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
 }
 
+// The dropout constants of a launch, derived from the rate in the C
+// entries as ops/prng.py:dropout_threshold and the wrappers compute them:
+// the u32 cutoff floor(rate * 2^32) (bits below it are dropped; 0 turns
+// dropout off) and the keep scale 1 / (1 - rate), both in double, rounded
+// once. A rate outside [0, 1) is refused.
+struct DropoutArgs {
+  unsigned int threshold;
+  float inv_keep;
+};
+inline bool bad_rate(double rate) { return !(rate >= 0.0 && rate < 1.0); }
+inline DropoutArgs dropout_args(double rate) {
+  const double scaled = rate * 4294967296.0;
+  return {scaled >= 4294967295.0 ? 0xFFFFFFFFu : (unsigned int)scaled,
+          (float)(1.0 / (1.0 - rate))};
+}
+// The scores' scale 1 / sqrt(head_dim), in double, rounded once.
+inline float score_scale(int head_dim) {
+  return (float)(1.0 / sqrt((double)head_dim));
+}
+
 }  // namespace

@@ -148,3 +148,13 @@ def launch(entry, device_index: int, *args) -> int:
         return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))
     with torch.cuda.device(device_index):
         return entry(*args, torch._C._cuda_getCurrentRawStream(device_index))
+
+
+def on_device(fn, device_index: int, *args):
+    """``fn(*args)``, a C entry that asks the runtime about the current
+    device, with CUDA device ``device_index`` current: a guard is entered
+    only when it is not."""
+    if device_index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(device_index):
+        return fn(*args)

@@ -42,17 +42,18 @@ stands in for the other when a launch fails.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from videocad_tpu_torch.kernels import build
 # 16-byte aligned inputs for the tc variant, as the short-sequence
 # kernels' tc variant takes them.
 from videocad_tpu_torch.ops.fused_attention import _aligned
 from videocad_tpu_torch.ops.prng import (FLASH_KEY_WORD, dropout_bits,
-                                         dropout_threshold, keep_mask,
-                                         require_seed)
+                                         keep_mask, require_seed)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256          # the kernels' widest head (csrc/flash_attention.cu)
@@ -171,10 +172,12 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel variant for a CUDA call: "tc" for bfloat16 with D a
     multiple of 16 from 16 to 256, "scalar" for everything else the
-    kernels take (float32: the tensor cores would round it to TF32)."""
+    kernels take (float32: the tensor cores would round it to TF32).
+    Cached per (dtype, head width)."""
     if (dtype == torch.bfloat16 and head_dim % 16 == 0
             and 16 <= head_dim <= MAX_HEAD_DIM):
         return "tc"
@@ -195,18 +198,17 @@ def _check(q, k, v):
         raise ValueError("flash_attention takes q, k, v on one device")
 
 
-def _check_kernel_inputs(*tensors):
-    """What the kernels take: float32 or bfloat16, contiguous, head width
-    1..256, batch * heads <= 65,535."""
+def _check_kernel_inputs(device, *tensors):
+    """What the kernels take, in one pass over ``tensors`` (q first) on
+    ``device``, q's: CUDA tensors of float32 or bfloat16, head width
+    1..256, batch * heads <= 65,535, contiguous."""
     first = tensors[0]
-    if first.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError(f"the flash_attention kernels take CUDA tensors, "
-                         f"got {first.device}")
+                         f"got {device}")
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {first.dtype}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("flash_attention kernel takes contiguous q, k, v")
     b, _, h, d = first.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM}, "
@@ -214,6 +216,9 @@ def _check_kernel_inputs(*tensors):
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"flash_attention kernel takes B * H <= "
                          f"{_MAX_GRID_Y}, got {b * h}")
+    for x in tensors:
+        if not x.is_contiguous():
+            raise ValueError("flash_attention kernel takes contiguous q, k, v")
 
 
 def _mask_args(mask: Mask, t: int, s: int, device):
@@ -228,28 +233,23 @@ def _mask_args(mask: Mask, t: int, s: int, device):
     return _MASK_TENSOR, 0, _mask_tensor(mask, t, s, device).contiguous()
 
 
-def _dropout_args(seed, dropout_rate) -> Tuple[int, int, float]:
-    """(seed, u32 threshold, 1 / (1 - rate)) as the C entries take them."""
-    if dropout_rate == 0.0:
-        return 0, 0, 1.0
-    return (seed & 0xFFFFFFFF, dropout_threshold(dropout_rate),
-            1.0 / (1.0 - dropout_rate))
-
-
-def _launch(pick, tensors, q, k, mask: Mask, seed, dropout_rate) -> str:
+def _launch(pick, tensors, q, k, device, mask: Mask, seed,
+            dropout_rate) -> str:
     """Launch entry ``pick`` (0 forward, 1 dQ, 2 dK/dV) of the variant the
-    dtype and head width take on ``tensors``; returns the variant."""
+    dtype and head width take on ``tensors`` (on ``device``), through
+    ``kernels/build.py:launch``; returns the variant. The C entry derives
+    the scores' scale and the dropout's cutoff and keep scale."""
     b, t, h, d = q.shape
     s = k.shape[1]
-    variant = _kernel_variant(q.dtype, d)
-    mode, window, tensor = _mask_args(mask, t, s, q.device)
-    mask_ptr = None if tensor is None else tensor.data_ptr()
-    entry = (_entries or load_library())[variant][pick]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(*(x.data_ptr() for x in tensors), mask_ptr, b, t, s, h,
-                    d, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], mode,
-                    window, *_dropout_args(seed, dropout_rate), stream)
+    dtype = q.dtype
+    variant = _kernel_variant(dtype, d)
+    mode, window, tensor = _mask_args(mask, t, s, device)
+    err = build.launch(
+        (_entries or load_library())[variant][pick], device.index,
+        *[x.data_ptr() for x in tensors],
+        None if tensor is None else tensor.data_ptr(), b, t, s, h, d,
+        _DTYPE_CODES[dtype], mode, window,
+        seed & 0xFFFFFFFF if dropout_rate else 0, dropout_rate)
     if err != 0:
         raise RuntimeError(f"flash_attention {variant} kernel launch "
                            f"failed: CUDA error {err}")
@@ -268,18 +268,21 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_seed(seed, dropout_rate, "flash_attention")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} is not in [0, 1)")
-    if q.device.type == "cpu":
+    # The host's path to a launch is kept short: at the decoder's shapes it
+    # takes longer than the kernels (PERF.md section 6).
+    device = q.device
+    if device.type == "cpu":
         return flash_attention_reference(q, k, v, mask, seed, dropout_rate)
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(device, q, k, v)
     b, t, h, _ = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=device)
     if q.numel() == 0:
         return out, lse
     if k.shape[1] == 0:
         raise ValueError("flash_attention over no keys")
     q, k, v = (_aligned(x) for x in (q, k, v))
-    if _launch(0, (q, k, v, out, lse), q, k, mask, seed,
+    if _launch(0, (q, k, v, out, lse), q, k, device, mask, seed,
                dropout_rate) == "tc":
         flash_attention.tc_launches += 1
     flash_attention.launches += 1
@@ -293,12 +296,13 @@ def flash_attention_dq(q, k, v, mask: Mask, seed, out, lse, g,
     also computes ``delta = rowsum(g * out)`` for the dK/dV kernel
     (``flash_attention_dq.launches`` counts them, ``.tc_launches`` those of
     the tc variant). CUDA tensors only."""
-    _check_kernel_inputs(q, k, v, g, out, lse)
+    device = q.device
+    _check_kernel_inputs(device, q, k, v, g, out, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     q, k, v, g, out = (_aligned(x) for x in (q, k, v, g, out))
-    if _launch(1, (q, k, v, g, out, lse, dq, delta), q, k, mask, seed,
-               dropout_rate) == "tc":
+    if _launch(1, (q, k, v, g, out, lse, dq, delta), q, k, device, mask,
+               seed, dropout_rate) == "tc":
         flash_attention_dq.tc_launches += 1
     flash_attention_dq.launches += 1
     return dq, delta
@@ -310,11 +314,12 @@ def flash_attention_dkv(q, k, v, mask: Mask, seed, lse, delta, g,
     """(dk, dv) from one launch of the dK/dV kernel, given the forward's
     lse and the dQ kernel's delta (``flash_attention_dkv.launches`` counts
     them, ``.tc_launches`` those of the tc variant). CUDA tensors only."""
-    _check_kernel_inputs(q, k, v, g, lse, delta)
+    device = q.device
+    _check_kernel_inputs(device, q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     q, k, v, g = (_aligned(x) for x in (q, k, v, g))
-    if _launch(2, (q, k, v, g, lse, delta, dk, dv), q, k, mask, seed,
-               dropout_rate) == "tc":
+    if _launch(2, (q, k, v, g, lse, delta, dk, dv), q, k, device, mask,
+               seed, dropout_rate) == "tc":
         flash_attention_dkv.tc_launches += 1
     flash_attention_dkv.launches += 1
     return dk, dv
@@ -401,6 +406,20 @@ for _counted in (flash_attention, flash_attention_dq, flash_attention_dkv):
 _entries = None    # the C entries, once load_library has bound them
 
 
+def _signatures():
+    """(restype, argtypes) of each C entry of ``csrc/flash_attention.cu``."""
+    ptr, i32, u32, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_double)
+    # Pointers (the mask's, which may be None, among them) and the stream
+    # as c_void_p: without argtypes ctypes would cut each to 32 bits. After
+    # the mask: B, T, S, H, D, the dtype code, the mask mode and window,
+    # the seed and the dropout rate.
+    tail = [ptr] + [i32] * 8 + [u32, f64, ptr]
+    return {prefix + name: (i32, [ptr] * tensors + tail)
+            for prefix in ("flash_attention_", "flash_attention_tc_")
+            for name, tensors in (("fwd", 5), ("dq", 8), ("dkv", 8))}
+
+
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
     entries by variant, ``{"scalar": (flash_attention_fwd,
@@ -408,23 +427,12 @@ def load_library():
     flash_attention_tc_dq, flash_attention_tc_dkv)}``, bound once and kept
     for every later launch."""
     global _entries
-    from videocad_tpu_torch.kernels import build
-
     lib = build.load("flash_attention")
-    # Pointers (the mask's, which may be None, among them) and the stream
-    # as c_void_p: without argtypes ctypes would cut each to 32 bits.
-    tail = ([ctypes.c_void_p] + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
-    entries = {}
-    for variant, prefix in (("scalar", "flash_attention_"),
-                            ("tc", "flash_attention_tc_")):
-        fwd, dq, dkv = (getattr(lib, prefix + name)
-                        for name in ("fwd", "dq", "dkv"))
-        fwd.restype = dq.restype = dkv.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 5 + tail
-        dq.argtypes = [ctypes.c_void_p] * 8 + tail
-        dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-        entries[variant] = (fwd, dq, dkv)
-    _entries = entries
+    for name, (restype, argtypes) in _signatures().items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    _entries = {variant: tuple(getattr(lib, prefix + name)
+                               for name in ("fwd", "dq", "dkv"))
+                for variant, prefix in (("scalar", "flash_attention_"),
+                                        ("tc", "flash_attention_tc_"))}
     return _entries

@@ -27,23 +27,26 @@ take); neither stands in for the other when a launch fails.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from videocad_tpu_torch.ops.prng import (dropout_bits, dropout_threshold,
-                                         keep_mask, require_seed)
+from videocad_tpu_torch.kernels import build
+from videocad_tpu_torch.ops.prng import dropout_bits, keep_mask, require_seed
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SEQ = 64       # the kernels pad T to 64 (csrc/mhsa_short.cu)
 _MAX_HEAD_DIM = 64
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_variant(dtype: torch.dtype, seq: int, head_dim: int) -> str:
     """The kernel variant for a CUDA call: "tc" for bfloat16 with D a
     multiple of 16 up to 64 and T <= 64, "scalar" for everything else the
-    kernels take (float32: the tensor cores would round it to TF32)."""
+    kernels take (float32: the tensor cores would round it to TF32).
+    Cached per (dtype, shape)."""
     if (dtype == torch.bfloat16 and head_dim % 16 == 0
             and 16 <= head_dim <= _MAX_HEAD_DIM and 1 <= seq <= _MAX_SEQ):
         return "tc"
@@ -131,25 +134,26 @@ def _check(q, k, v, num_heads):
                          f"{num_heads} heads")
 
 
-def _check_kernel_inputs(*tensors):
-    """What the kernels take: float32 or bfloat16, contiguous, T <= 64,
-    D <= 64 (checked by the caller's head count)."""
+def _not_cpu_or_cuda(device) -> ValueError:
+    return ValueError(f"mhsa_short runs on CPU or CUDA, not {device}")
+
+
+def _check_kernel_inputs(tensors, num_heads) -> Tuple[int, int, int]:
+    """What the kernels take, in one pass: float32 or bfloat16, T <= 64,
+    D <= 64, contiguous ``tensors`` (q first). Returns (B, T, D)."""
     first = tensors[0]
-    if first.device.type != "cuda":
-        raise ValueError(f"mhsa_short runs on CPU or CUDA, not {first.device}")
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"mhsa_short kernel takes float32 or bfloat16, "
                         f"got {first.dtype}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("mhsa_short kernel takes contiguous q, k, v")
-
-
-def _dropout_args(seed, dropout_rate) -> Tuple[int, int, float]:
-    """(seed, u32 threshold, 1 / (1 - rate)) as the C entries take them."""
-    if dropout_rate == 0.0:
-        return 0, 0, 1.0
-    return (seed & 0xFFFFFFFF, dropout_threshold(dropout_rate),
-            1.0 / (1.0 - dropout_rate))
+    b, t, hd = first.shape
+    head_dim = hd // num_heads
+    if t > _MAX_SEQ or head_dim > _MAX_HEAD_DIM:
+        raise ValueError(f"mhsa_short kernel takes T <= {_MAX_SEQ} and "
+                         f"D <= {_MAX_HEAD_DIM}, got T={t}, D={head_dim}")
+    for x in tensors:
+        if not x.is_contiguous():
+            raise ValueError("mhsa_short kernel takes contiguous q, k, v")
+    return b, t, head_dim
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -158,20 +162,20 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(pick, tensors, q, num_heads, seed, dropout_rate):
-    """Launch entry ``pick`` of the variant the shape takes (0 forward, 1
-    backward) on ``tensors``; returns the variant."""
-    b, t, hd = q.shape
-    head_dim = hd // num_heads
-    variant = _kernel_variant(q.dtype, t, head_dim)
-    entries = _entries or load_library()
-    entry = entries[variant][pick]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(*(x.data_ptr() for x in tensors), b, t, num_heads,
-                    head_dim, 1.0 / math.sqrt(head_dim),
-                    _DTYPE_CODES[q.dtype],
-                    *_dropout_args(seed, dropout_rate), stream)
+def _launch(pick, tensors, device, shape, num_heads, seed,
+            dropout_rate) -> str:
+    """Launch entry ``pick`` (0 forward, 1 backward) of the variant that the
+    dtype and ``shape`` (B, T, D) take, on ``tensors`` (q first), through
+    ``kernels/build.py:launch``; returns the variant. The C entry derives
+    the scores' scale and the dropout's cutoff and keep scale."""
+    b, t, head_dim = shape
+    dtype = tensors[0].dtype
+    variant = _kernel_variant(dtype, t, head_dim)
+    err = build.launch(
+        (_entries or load_library())[variant][pick], device.index,
+        *[x.data_ptr() for x in tensors], b, t, num_heads, head_dim,
+        _DTYPE_CODES[dtype], seed & 0xFFFFFFFF if dropout_rate else 0,
+        dropout_rate)
     if err != 0:
         raise RuntimeError(f"mhsa_short {variant} kernel launch failed: "
                            f"CUDA error {err}")
@@ -179,19 +183,21 @@ def _launch(pick, tensors, q, num_heads, seed, dropout_rate):
 
 
 def _forward(q, k, v, seed, num_heads, dropout_rate):
-    if q.device.type == "cpu":
-        return mhsa_short_reference(q, k, v, seed, num_heads, dropout_rate)
-    _check_kernel_inputs(q, k, v)
-    b, t, hd = q.shape
-    head_dim = hd // num_heads
-    if t > _MAX_SEQ or head_dim > _MAX_HEAD_DIM:
-        raise ValueError(f"mhsa_short kernel takes T <= {_MAX_SEQ} and "
-                         f"D <= {_MAX_HEAD_DIM}, got T={t}, D={head_dim}")
+    # The host's path to a launch is kept short: at a serving tick's 8
+    # frames it takes longer than the kernel (PERF.md section 6).
+    device = q.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return mhsa_short_reference(q, k, v, seed, num_heads,
+                                        dropout_rate)
+        raise _not_cpu_or_cuda(device)
+    shape = _check_kernel_inputs((q, k, v), num_heads)
     out = torch.empty_like(q)
-    if b == 0 or t == 0:
+    if out.numel() == 0:
         return out
     q, k, v = (_aligned(x) for x in (q, k, v))
-    if _launch(0, (q, k, v, out), q, num_heads, seed, dropout_rate) == "tc":
+    if _launch(0, (q, k, v, out), device, shape, num_heads, seed,
+               dropout_rate) == "tc":
         mhsa_short.tc_launches += 1
     mhsa_short.launches += 1
     return out
@@ -210,16 +216,19 @@ def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_seed(seed, dropout_rate, "mhsa_short")
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError("mhsa_short_backward takes g like q")
-    if q.device.type == "cpu":
-        return mhsa_short_backward_reference(q, k, v, g, seed, num_heads,
-                                             dropout_rate)
+    device = q.device
+    if device.type != "cuda":
+        if device.type == "cpu":
+            return mhsa_short_backward_reference(q, k, v, g, seed, num_heads,
+                                                 dropout_rate)
+        raise _not_cpu_or_cuda(device)
     g = g.contiguous()
-    _check_kernel_inputs(q, k, v, g)
+    shape = _check_kernel_inputs((q, k, v, g), num_heads)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
     q, k, v, g = (_aligned(x) for x in (q, k, v, g))
-    if _launch(1, (q, k, v, g, dq, dk, dv), q, num_heads, seed,
+    if _launch(1, (q, k, v, g, dq, dk, dv), device, shape, num_heads, seed,
                dropout_rate) == "tc":
         mhsa_short_backward.tc_launches += 1
     mhsa_short_backward.launches += 1
@@ -276,27 +285,31 @@ mhsa_short_backward.tc_launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
+def _signatures():
+    """(restype, argtypes) of each C entry of ``csrc/mhsa_short.cu``."""
+    ptr, i32, u32, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                          ctypes.c_double)
+    # Pointers and the stream as c_void_p: without argtypes ctypes would
+    # pass each Python int as a 32-bit int and cut the pointer. After the
+    # tensors: B, T, H, D, the dtype code, the seed, the dropout rate.
+    tail = [i32] * 5 + [u32, f64, ptr]
+    return {prefix + name: (i32, [ptr] * tensors + tail)
+            for prefix in ("mhsa_short_", "mhsa_short_tc_")
+            for name, tensors in (("fwd", 4), ("bwd", 7))}
+
+
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
     entries by variant, ``{"scalar": (mhsa_short_fwd, mhsa_short_bwd),
     "tc": (mhsa_short_tc_fwd, mhsa_short_tc_bwd)}``, bound once and kept
     for every later launch."""
     global _entries
-    from videocad_tpu_torch.kernels import build
-
     lib = build.load("mhsa_short")
-    # Pointers and the stream as c_void_p: without argtypes ctypes would
-    # pass each Python int as a 32-bit int and cut the pointer.
-    tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                                 ctypes.c_uint, ctypes.c_float,
-                                 ctypes.c_void_p]
-    entries = {}
-    for variant, prefix in (("scalar", "mhsa_short_"),
-                            ("tc", "mhsa_short_tc_")):
-        fwd, bwd = getattr(lib, prefix + "fwd"), getattr(lib, prefix + "bwd")
-        fwd.restype = bwd.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 4 + tail
-        bwd.argtypes = [ctypes.c_void_p] * 7 + tail
-        entries[variant] = (fwd, bwd)
-    _entries = entries
+    for name, (restype, argtypes) in _signatures().items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    _entries = {variant: (getattr(lib, prefix + "fwd"),
+                          getattr(lib, prefix + "bwd"))
+                for variant, prefix in (("scalar", "mhsa_short_"),
+                                        ("tc", "mhsa_short_tc_"))}
     return _entries

@@ -100,11 +100,12 @@ def _raise_on(err: int) -> None:
                            f"{err}")
 
 
-# The forward kernel's instantiations, in the order of their variant codes
-# (csrc/layernorm.cu: kFwdVariants).
+# The kernels' instantiations, in the order of their variant codes
+# (csrc/layernorm.cu: kFwdVariants, and kBwdVariants in the same order).
 FWD_VARIANTS = ("float32/scalar", "float32/vector", "float32/512",
                 "float32/1024", "bfloat16/scalar", "bfloat16/vector",
                 "bfloat16/512", "bfloat16/1024")
+BWD_VARIANTS = FWD_VARIANTS
 
 
 def forward_variant(d: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -120,12 +121,32 @@ def forward_variant(d: int, dtype: torch.dtype, aligned: bool) -> str:
     return f"{name}/{d}" if d in (512, 1024) else name + "/vector"
 
 
+def backward_variant(d: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The backward kernel's instantiation: the forward's rule, where
+    ``aligned`` says that x and g both start on a 16-byte boundary."""
+    return forward_variant(d, dtype, aligned)
+
+
 @functools.lru_cache(maxsize=None)
 def _variant_code(d: int, dtype_code: int, aligned: bool) -> int:
-    """forward_variant's answer as the code the forward's C entry takes:
-    its index in FWD_VARIANTS."""
+    """forward_variant's (and backward_variant's) answer as the code the C
+    entries take: its index in FWD_VARIANTS (BWD_VARIANTS)."""
     dtype = torch.bfloat16 if dtype_code else torch.float32
     return FWD_VARIANTS.index(forward_variant(d, dtype, aligned))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_blocks(rows: int, d: int, code: int, device_index: int) -> int:
+    """The partials' rows that the backward's instantiation ``code`` needs
+    for ``rows`` rows of width ``d`` on CUDA device ``device_index`` (a
+    grid that card holds at once), asked of the library, on that device,
+    once per (rows, d, code, device)."""
+    blocks = build.on_device((_entries or load_library())[2], device_index,
+                             rows, d, code)
+    if blocks < 1:
+        raise RuntimeError(f"layer_norm backward: no launch plan for "
+                           f"{rows} x {d} ({BWD_VARIANTS[code]})")
+    return blocks
 
 
 def _forward(x, scale, bias, eps):
@@ -160,9 +181,11 @@ def layer_norm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     """(dx, dscale, dbias) of :func:`layer_norm` for the output gradient
     ``g``: on a CUDA tensor the row kernel and the kernel that sums its
     per-block parameter-gradient partials, counted as one launch of the
-    backward (``layer_norm_backward.launches``); on a CPU tensor
+    backward (``layer_norm_backward.launches``, and by instantiation in
+    ``.variant_launches``, :func:`backward_variant`); on a CPU tensor
     :func:`layer_norm_backward_plain`. ``g`` may be non-contiguous, as
-    autograd may hand it over."""
+    autograd may hand it over. dscale and dbias are two views of one (2, D)
+    float32 tensor."""
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("layer_norm_backward takes g like x")
     device = x.device
@@ -170,25 +193,27 @@ def layer_norm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         if device.type == "cpu":
             return layer_norm_backward_plain(x, scale, g, eps)
         raise _not_cpu_or_cuda(device)
-    code = _check_kernel_inputs(x, scale)
+    dtype_code = _check_kernel_inputs(x, scale)
     x, g = x.contiguous(), g.contiguous()
     d = x.shape[-1]
     dx = torch.empty_like(x)
-    if x.numel() == 0:
-        zeros = torch.zeros(d, dtype=torch.float32, device=device)
-        return dx, zeros, zeros.clone()
-    dscale = torch.empty(d, dtype=torch.float32, device=device)
-    dbias = torch.empty(d, dtype=torch.float32, device=device)
-    rows = x.numel() // d
-    entries = _entries or load_library()
-    parts = torch.empty((2, entries[2](rows), d), dtype=torch.float32,
-                        device=device)
+    params = torch.empty((2, d), dtype=torch.float32, device=device)
+    n = x.numel()
+    if n == 0:
+        params.zero_()
+        return dx, params[0], params[1]
+    rows = n // d
+    xp, gp = x.data_ptr(), g.data_ptr()
+    code = _variant_code(d, dtype_code, (xp | gp) % 16 == 0)
+    nparts = _bwd_blocks(rows, d, code, device.index)
+    parts = torch.empty((2, nparts, d), dtype=torch.float32, device=device)
     _raise_on(build.launch(
-        entries[1], device.index, x.data_ptr(), scale.contiguous().data_ptr(),
-        g.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-        parts.data_ptr(), rows, d, eps, code))
+        (_entries or load_library())[1], device.index, xp,
+        scale.contiguous().data_ptr(), gp, dx.data_ptr(), params.data_ptr(),
+        parts.data_ptr(), nparts, rows, d, eps, code))
     layer_norm_backward.launches += 1
-    return dx, dscale, dbias
+    layer_norm_backward.variant_launches[BWD_VARIANTS[code]] += 1
+    return dx, params[0], params[1]
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -216,9 +241,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     On a CUDA tensor it launches the hand-written kernels, which take
     float32 or bfloat16 x, float32 scale and bias and D <= 1,024, and raises
     on anything else; ``layer_norm.launches`` and
-    ``layer_norm_backward.launches`` count those launches, and
-    ``layer_norm.variant_launches`` the forward's by instantiation
-    (:func:`forward_variant`). On a CPU tensor it runs the plain versions.
+    ``layer_norm_backward.launches`` count those launches, and their
+    ``variant_launches`` by instantiation (:func:`forward_variant`,
+    :func:`backward_variant`). On a CPU tensor it runs the plain versions.
     """
     _check(x, scale, bias)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
@@ -231,6 +256,7 @@ layer_norm.launches = 0
 # The forward's launches by instantiation (FWD_VARIANTS).
 layer_norm.variant_launches = dict.fromkeys(FWD_VARIANTS, 0)
 layer_norm_backward.launches = 0
+layer_norm_backward.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 _entries = None    # the C entries, once load_library has bound them
 
 
@@ -241,14 +267,20 @@ def load_library():
     launch."""
     global _entries
     lib = build.load("layernorm")
-    # rows, d, eps, the variant (forward) or dtype (backward) code, stream
-    tail = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p]
-    fwd, bwd, blocks = (lib.layer_norm_fwd, lib.layer_norm_bwd,
-                        lib.layer_norm_bwd_blocks)
-    fwd.restype = bwd.restype = blocks.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 4 + tail
-    bwd.argtypes = [ctypes.c_void_p] * 7 + tail
-    blocks.argtypes = [ctypes.c_longlong]
-    _entries = (fwd, bwd, blocks)
+    entries = []
+    for name, (restype, argtypes) in _signatures().items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+        entries.append(fn)
+    _entries = tuple(entries)
     return _entries
+
+
+def _signatures():
+    """(restype, argtypes) of each C entry of ``csrc/layernorm.cu``."""
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    tail = [i64, i32, f32, i32, ptr]    # rows, d, eps, the variant, stream
+    return {"layer_norm_fwd": (i32, [ptr] * 4 + tail),
+            "layer_norm_bwd": (i32, [ptr] * 6 + [i32] + tail),
+            "layer_norm_bwd_blocks": (i32, [i64, i32, i32])}

@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from videocad_tpu_torch.kernels import build
+
 # ITU-R 601-2 luma weights.
 _RGB_WEIGHTS = (0.299, 0.587, 0.114)
 
@@ -134,12 +136,26 @@ def maybe_preprocess(images: torch.Tensor, bgr_as_rgb: bool = False,
 # The fused kernels
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _luma(bgr_as_rgb: bool) -> Tuple[float, float, float]:
+    """The three luma weights as the kernels' C entries take them."""
+    return tuple(float(x) for x in _weights(3, bgr_as_rgb))
+
+
 @functools.lru_cache(maxsize=32)
 def _device_taps(in_size: int, out_size: int, device: torch.device):
     # One copy per device and size pair: a host-to-device copy on every
     # call would synchronise the step.
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in _resize_taps(in_size, out_size))
+
+
+def _check_kernel_inputs(images: torch.Tensor) -> None:
+    """What the kernels take: uint8 (..., H, W, 3)."""
+    if images.dtype != torch.uint8 or images.dim() < 3:
+        raise TypeError("grayscale_normalize_fused kernel takes uint8 "
+                        f"(..., H, W, 3), got {images.dtype} "
+                        f"{tuple(images.shape)}")
 
 
 def grayscale_normalize_fused(images: torch.Tensor, bgr_as_rgb: bool = False,
@@ -156,37 +172,35 @@ def grayscale_normalize_fused(images: torch.Tensor, bgr_as_rgb: bool = False,
     On a CPU tensor, and for 1-channel input (nothing to fuse), it runs the
     plain path.
     """
-    if images.shape[-1] != 3 or images.device.type == "cpu":
+    # The host's path to a launch is kept short: at the CAD image's size it
+    # takes longer than the kernel (PERF.md section 6).
+    device = images.device
+    if images.shape[-1] != 3 or device.type == "cpu":
         return grayscale_normalize(images, bgr_as_rgb, target_size)
-    if images.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError("grayscale_normalize_fused runs on CPU or CUDA, "
-                         f"not {images.device}")
-    if images.dtype != torch.uint8 or images.dim() < 3:
-        raise TypeError("grayscale_normalize_fused kernel takes uint8 "
-                        f"(..., H, W, 3), got {images.dtype} "
-                        f"{tuple(images.shape)}")
-    lead = tuple(images.shape[:-3])
-    h, w = images.shape[-3:-1]
+                         f"not {device}")
+    _check_kernel_inputs(images)
+    shape = images.shape
+    h, w = shape[-3], shape[-2]
     resize = target_size is not None and tuple(target_size) != (h, w)
     oh, ow = tuple(target_size) if resize else (h, w)
-    out = torch.empty(lead + (oh, ow, 1), dtype=torch.float32,
-                      device=images.device)
+    out = torch.empty(shape[:-3] + (oh, ow, 1), dtype=torch.float32,
+                      device=device)
     if out.numel() == 0:
         return out
     images = images.contiguous()
     n = images.numel() // (h * w * 3)
-    w0, w1, w2 = (float(x) for x in _weights(3, bgr_as_rgb))
     plain, resized = _entries or load_library()
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        if resize:
-            taps = (_device_taps(h, oh, images.device)
-                    + _device_taps(w, ow, images.device))
-            err = resized(images.data_ptr(), out.data_ptr(), n, h, w, oh, ow,
-                          *(t.data_ptr() for t in taps), w0, w1, w2, stream)
-        else:
-            err = plain(images.data_ptr(), out.data_ptr(), n * h * w, w0, w1,
-                        w2, stream)
+    if resize:
+        taps = _device_taps(h, oh, device) + _device_taps(w, ow, device)
+        err = build.launch(resized, device.index, images.data_ptr(),
+                           out.data_ptr(), n, h, w, oh, ow,
+                           *[t.data_ptr() for t in taps],
+                           *_luma(bgr_as_rgb))
+    else:
+        err = build.launch(plain, device.index, images.data_ptr(),
+                           out.data_ptr(), n * h * w, *_luma(bgr_as_rgb))
     if err != 0:
         raise RuntimeError("grayscale_normalize_fused kernel launch failed: "
                            f"CUDA error {err}")
@@ -202,21 +216,26 @@ grayscale_normalize_fused.resize_launches = 0   # gray_resize_normalize
 _entries = None    # the C entries, once load_library has bound them
 
 
+def _signatures():
+    """(restype, argtypes) of each C entry of ``csrc/gray_normalize.cu``."""
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    # Pointers and the stream as c_void_p: without argtypes ctypes would
+    # pass each Python int as a 32-bit int and cut the pointer.
+    return {"gray_normalize": (i32, [ptr] * 2 + [i64] + [f32] * 3 + [ptr]),
+            "gray_resize_normalize": (i32, [ptr] * 2 + [i32] * 5 + [ptr] * 8
+                                      + [f32] * 3 + [ptr])}
+
+
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
     entries (``gray_normalize``, ``gray_resize_normalize``), bound once."""
     global _entries
-    from videocad_tpu_torch.kernels import build
-
     lib = build.load("gray_normalize")
-    plain, resized = lib.gray_normalize, lib.gray_resize_normalize
-    plain.restype = resized.restype = ctypes.c_int
-    # Pointers and the stream as c_void_p: without argtypes ctypes would
-    # pass each Python int as a 32-bit int and cut the pointer.
-    plain.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                      + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    resized.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                        + [ctypes.c_void_p] * 8 + [ctypes.c_float] * 3
-                        + [ctypes.c_void_p])
-    _entries = (plain, resized)
+    entries = []
+    for name, (restype, argtypes) in _signatures().items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+        entries.append(fn)
+    _entries = tuple(entries)
     return _entries
