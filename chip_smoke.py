@@ -93,20 +93,40 @@ imports nothing of JAX. Phases, each of which must pass:
      host synchronisation in the epoch loop, 12 launches of each of the
      four entries a step and none of mhsa_short, all of the tensor-core
      variant, and a peak device memory below train D's;
- 13. reference: at the flagship's widths in float32, with the depth cut to
+ 13. the named configs beyond the flagship, each at its JSON's full width
+     with random weights from seed 0: G, GenCAD
+     (cad_past_10_actions_and_states_gencad: bf16, dropout 0.1, a 256² x 3
+     edge image made here without OpenCV, so the CAD encoder runs K1 at
+     T = 65, its wide instantiation) and M, three views
+     (cad_5_actions_and_states_and_multiview): 1 warm-up and 3 timed
+     train steps at B=8, T=192 (G: K1 12 + 12 a step, 6 + 6 of them wide,
+     and the CAD encoder unchanged at learning rate 0), 8 sessions served
+     behind HTTP with the session's edge image or views, a rollout at B=2,
+     T=187; R, ResNet18-GN with three views
+     (multiview_params_left_right_top, float32): 3 train steps at B=8,
+     T=64 and the one-pass rollout; DT, the decision transformer
+     (base_model, float32, ResNet): 3 train steps at B=8, T=64;
+ 14. reference: at the flagship's widths in float32, with the depth cut to
      2 + 2 layers, on the card and on the CPU (plain versions): the
      rollout's logits and one train step's loss and gradients compared,
      the train step again with ln_impl and dropout_impl "pallas", with
      attention_impl "pallas" as well, with vit_attention_impl "block" on
      top, with vit_attention_impl "pallas" on top instead (the ViT's
      attention through the flash attention kernels), and with
-     vit_attention_impl "fused" beside vit_mlp_impl "block".
+     vit_attention_impl "fused" beside vit_mlp_impl "block"; then the
+     logits of G, M, R and DT at depth 2.
+
+Phase 3 also holds K1's wide instantiation (T = 65) against its plain
+version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
+values, the kept set (read off the output under shifted identity values,
+in two pieces), bit-equal gradients, beside F.scaled_dot_product_attention.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
-around phases 10, 11 and 12: each kernel must have been launched by
-the path that claims it (the flash attention kernels by train D, their
-forward by the evaluation as well, the fused sub-block kernels by train E).
+around phases 10, 11 and 12 and each of 13's four configs: each kernel
+must have been launched by the path that claims it (the flash attention
+kernels by train D, their forward by the evaluation as well, the fused
+sub-block kernels by train E, K1's wide instantiation by G).
 The
 second-to-last lines are a JSON object of the kernels and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
@@ -2636,6 +2656,453 @@ def phase_reference_train(**impls):
           f"{worst} of its largest entry")
 
 
+# ---- The named configs beyond the flagship: GenCAD, multiview, ResNet,
+# the decision transformer, and K1 at the GenCAD CAD encoder's T ----
+
+WIDE_SEQ = 65      # the GenCAD CAD encoder: 8 x 8 patches of 256², and cls
+NAMED = {   # phase -> (config file, name), each at its JSON's full width
+    "G": ("transformer_experiments.json",
+          "cad_past_10_actions_and_states_gencad"),        # :316
+    "M": ("transformer_experiments.json",
+          "cad_5_actions_and_states_and_multiview"),       # :335
+    "R": ("autoregressive_transformer.json",
+          "multiview_params_left_right_top"),              # :36
+    "DT": ("vid_pretrained.json", "base_model"),           # :2
+}
+NAMED_TRAIN = {"G": (TRAIN_BATCH, TRAIN_SEQ), "M": (TRAIN_BATCH, TRAIN_SEQ),
+               "R": (TRAIN_BATCH, 64), "DT": (TRAIN_BATCH, 64)}
+SERVE_STEPS = 4    # steps of each of the 8 sessions of G's and M's serving
+
+
+def named_config(phase):
+    from videocad_tpu_torch.models.factory import load_named_config
+
+    fname, name = NAMED[phase]
+    return load_named_config(str(REPO / "model_configs" / fname), name)
+
+
+def edge_images(n, seed):
+    """uint8 (n, 256, 256, 3) stand-ins for GenCAD's Canny edge images,
+    made without OpenCV: outlines of random rectangles, 255 on 0, the three
+    channels equal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = np.zeros((n, 256, 256), np.uint8)
+    for i in range(n):
+        for _ in range(12):
+            y, x = rng.integers(0, 196, 2)
+            h, w = rng.integers(8, 60, 2)
+            img[i, y, x:x + w + 1] = img[i, y + h, x:x + w + 1] = 255
+            img[i, y:y + h + 1, x] = img[i, y:y + h + 1, x + w] = 255
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def named_inputs(phase, batch, seed):
+    """What a batch of ``phase``'s config takes beyond frames, actions and
+    a frame-sized CAD image: the edge images (G), or (B, V, 224, 224, 1)
+    uint8 multiview renders (M, R)."""
+    import numpy as np
+
+    cfg = named_config(phase)
+    if cfg.get("use_pretrained_cad_model"):
+        return {"cad_image": edge_images(batch, seed)}
+    views = cfg.get("num_views", 0)
+    if views:
+        return {"multiview_images": np.random.default_rng(seed).integers(
+            0, 256, (batch, views, 224, 224, 1), dtype=np.uint8)}
+    return {}
+
+
+def k1_counts(fa):
+    """K1's launch counters: (forward, backward) launches, of the tc
+    variant, of the wide instantiation."""
+    return tuple(getattr(f, attr) for attr in ("launches", "tc_launches",
+                                               "wide_launches")
+                 for f in (fa.mhsa_short, fa.mhsa_short_backward))
+
+
+def phase_named_train(phase, fa):
+    """Train steps of a named config at its JSON's full width with seeded
+    random weights: 1 warm-up and 3 timed steps at NAMED_TRAIN's B and T,
+    224² uint8 frames; K1's launches a step (GenCAD: 6 + 6 of its wide
+    instantiation, the CAD encoder, beside 6 + 6 of the state encoder's;
+    its CAD encoder unchanged at learning rate 0). Returns the model."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state,
+                                          make_train_step)
+
+    cfg = named_config(phase)
+    batch_size, seq = NAMED_TRAIN[phase]
+    torch.cuda.reset_peak_memory_stats()
+    start = time.monotonic()
+    model = create_model(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    gencad = model.config.use_pretrained_cad_model
+    state = create_train_state(dict(model.named_parameters()), {"lr": 1e-5},
+                               freeze_cad=gencad)
+    step_fn = make_train_step(model, LossConfig(REFERENCE_CMD_WEIGHTS))
+    data = synthetic_batch_feed(batch_size, seq, image_size=224, seed=0)
+    data.update(named_inputs(phase, batch_size, seed=1))
+    batch = to_card(data)
+    cad_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if n.startswith("cad_encoder.")}
+    losses, step_ms, per_step = [], [], []
+    for _ in range(4):
+        marks = k1_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, loss, _ = step_fn(state, batch, 0)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss.item())
+        per_step.append(tuple(b - a for a, b in zip(marks, k1_counts(fa))))
+    check(all(math.isfinite(x) for x in losses),
+          f"{phase}: train losses {losses}")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    check(grads and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{phase}: a gradient is not finite")
+    if gencad:
+        unchanged = all(torch.equal(p, cad_before[n])
+                        for n, p in model.named_parameters()
+                        if n.startswith("cad_encoder."))
+        check(unchanged, "G: the CAD encoder moved at learning rate 0")
+        # fwd, bwd launches; of them tc; of them the wide instantiation.
+        want = (12, 12, 12, 12, 6, 6)
+        check(all(c == want for c in per_step),
+              f"G: K1 launches a step {per_step}, expected {want}")
+    timed = step_ms[1:]
+    ms = statistics.mean(timed)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{phase} train: {NAMED[phase][1]} ({cfg.get('dtype')}, "
+          f"{model.config.encoder}, {n_params} parameters), B={batch_size} "
+          f"T={seq}; losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(x, 2) for x in timed]} (mean {ms:.2f}, "
+          f"{batch_size * (seq - 1) / ms * 1e3:.0f} frames/s); peak memory "
+          f"{peak:.2f} GB; K1 launches a step (fwd, bwd, tc fwd, tc bwd, "
+          f"wide fwd, wide bwd) {per_step[-1]}"
+          + ("; CAD encoder unchanged" if gencad else "")
+          + f"; {time.monotonic() - start:.1f} s", flush=True)
+    return model
+
+
+def phase_named_serve(phase, model, fa, np):
+    """8 sessions on 8 lanes of the model's engine behind the HTTP server,
+    opened with the config's session images (G: edge images; M: three
+    views in the request), each stepped SERVE_STEPS frames from its own
+    thread. GenCAD: each opened session launches the CAD encoder's wide
+    K1 forward 6 times."""
+    from videocad_tpu_torch.infer.server import (MuxEngine, ServingClient,
+                                                 make_server)
+
+    start = time.monotonic()
+    engine = MuxEngine(model, lanes=LANES, seq_len=SEQ_LEN)
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(5)
+    extra = named_inputs(phase, LANES, seed=6)
+    cads = extra.get("cad_image", rng.integers(
+        0, 256, (LANES, 224, 224, 3), dtype=np.uint8))
+    views = extra.get("multiview_images")
+    frames = rng.integers(0, 256, (LANES, SERVE_STEPS, 224, 224, 3),
+                          dtype=np.uint8)
+    replies = [[None] * SERVE_STEPS for _ in range(LANES)]
+    wide_before = fa.mhsa_short.wide_launches
+    try:
+        client = ServingClient(f"http://127.0.0.1:{server.server_address[1]}")
+        sids = [client.open_session(cads[i], None if views is None
+                                    else views[i]) for i in range(LANES)]
+        wide = fa.mhsa_short.wide_launches - wide_before
+
+        def run(i):
+            for s in range(SERVE_STEPS):
+                replies[i][s] = client.step(sids[i], frames[i][s])
+
+        workers = [threading.Thread(target=run, args=(i,))
+                   for i in range(LANES)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+            check(not w.is_alive(), f"{phase} serve: a client thread hung")
+        stats = client.stats()
+        for sid in sids:
+            client.close_session(sid)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    for i in range(LANES):
+        for s in range(SERVE_STEPS):
+            check(replies[i][s] is not None and valid_reply(replies[i][s], s),
+                  f"{phase} serve: session {i} step {s}: {replies[i][s]}")
+    check(stats["steps"] == LANES * SERVE_STEPS, f"{phase} serve {stats}")
+    if model.config.use_pretrained_cad_model:
+        check(wide >= 6 * LANES, f"G serve: {wide} wide K1 launches for "
+              f"{LANES} sessions, expected 6 a session")
+    print(f"{phase} serve: {LANES} sessions x {SERVE_STEPS} steps"
+          f"{' with 3 views a session' if views is not None else ''}; "
+          f"ticks {stats['ticks']}, coalescing {stats['coalescing_factor']}, "
+          f"tick ms p50 {stats['p50_tick_ms']} p95 {stats['p95_tick_ms']}; "
+          f"wide K1 launches while opening {wide}; "
+          f"{time.monotonic() - start:.1f} s", flush=True)
+
+
+def phase_named_rollout(phase, model, fa, batch=2, seq=SEQ_LEN):
+    """sequential_inference at B=2, T=187 with the config's inputs: the
+    KV-cached decode loop (G, M), or the one pass of a config without
+    action feedback (R)."""
+    import torch
+
+    from videocad_tpu_torch.infer.rollout import sequential_inference
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    frames = torch.randint(0, 256, (batch, seq, 224, 224, 3), generator=gen,
+                           dtype=torch.uint8, device="cuda")
+    extra = {k: torch.from_numpy(v).cuda()
+             for k, v in named_inputs(phase, batch, seed=8).items()}
+    cad = extra.get("cad_image", torch.randint(
+        0, 256, (batch, 224, 224, 3), generator=gen, dtype=torch.uint8,
+        device="cuda"))
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    cmd, par = sequential_inference(
+        model, frames, cad, multiview_images=extra.get("multiview_images"))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - start
+    check(tuple(cmd.shape) == (batch, seq, 5)
+          and tuple(par.shape) == (batch, seq, 6, 1000)
+          and bool(torch.isfinite(cmd).all())
+          and bool(torch.isfinite(par).all()),
+          f"{phase} rollout: shapes {tuple(cmd.shape)} {tuple(par.shape)} "
+          "or logits not finite")
+    loop = "decode loop" if model.config.enable_past_actions else "one pass"
+    print(f"{phase} rollout: B={batch} T={seq} in {seconds:.2f} s "
+          f"({batch * seq / seconds:.1f} actions/s; {loop})", flush=True)
+
+
+def phase_reference_named(phase):
+    """A named config in float32 at a small depth (ViT 2 blocks, decoder
+    and GPT-2 blocks 2 layers; widths as the JSON has them), on the card
+    and on the CPU (plain versions; the GenCAD CAD encoder through K1's
+    wide scalar kernel on the card): logits within 1e-3, the reference
+    phase's tolerance."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model
+
+    cfg = dict(named_config(phase), dtype="float32", vit_depth=2,
+               num_decoder_layers=2, n_layer=2, dropout=0.0)
+    data = synthetic_batch_feed(1, 6, image_size=224, seed=9)
+    data.update(named_inputs(phase, 1, seed=10))
+    data.pop("timesteps")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = create_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            outs[device] = [x.cpu() for x in model(
+                {k: torch.from_numpy(v).to(device) for k, v in data.items()})]
+    errs = [(g - w).abs().max().item()
+            for g, w in zip(outs["cuda"], outs["cpu"])]
+    print(f"reference {phase}: {NAMED[phase][1]} float32 (depth 2), card vs "
+          f"CPU max abs err cmd {errs[0]:.3g} params {errs[1]:.3g} "
+          "(tol 1e-3)", flush=True)
+    check(all(math.isfinite(e) and e <= 1e-3 for e in errs),
+          f"reference {phase}: the card's logits differ from the CPU's: "
+          f"{errs}")
+
+
+def shifted_identity(batch, t, offset, dtype):
+    """(B, T, H*D) whose head slice holds 1 at (offset + c, c): as V the
+    output's column c is the dropped weight of key offset + c."""
+    import torch
+
+    d = WIDTH // HEADS
+    eye = torch.zeros(t, d, device="cuda", dtype=dtype)
+    rows = torch.arange(offset, min(offset + d, t), device="cuda")
+    eye[rows, rows - offset] = 1
+    return eye.repeat(1, HEADS).expand(batch, t, WIDTH).contiguous()
+
+
+def kept_set_wide(run, batch, t, dtype):
+    """The kept set (B, H, T, T) read off ``run(values)``'s output under
+    shifted identities, keys 0..63 and T-64..T-1 (T <= 128)."""
+    import torch
+
+    d = WIDTH // HEADS
+    kept = torch.zeros(batch, HEADS, t, t, dtype=torch.bool, device="cuda")
+    for offset in (0, max(t - d, 0)):
+        span = min(d, t - offset)
+        out = run(shifted_identity(batch, t, offset, dtype))
+        kept[..., offset:offset + span] = out.reshape(
+            batch, t, HEADS, d)[..., :span].permute(0, 2, 1, 3) > 0
+    return kept
+
+
+def phase_k1_wide(fa, prng):
+    """K1 at T = 65, its wide instantiation (GenCAD's CAD encoder): forward
+    and backward against the plain versions at B = 8 and 1 (the path's) and
+    1,528 (where the host does not bound a call), bf16 (tc) and float32
+    (scalar), dropout 0 and 0.1: values (K1's tolerances at T = 50), the
+    kept set (identical to the plain version's and the bit function's),
+    gradients bit-equal over two launches, float32 against autograd
+    through the plain forward; the kernels and the plain versions timed in
+    turns, F.scaled_dot_product_attention (and its autograd backward)
+    beside them; the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    t = WIDE_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    heads = lambda x: x.view(x.shape[0], t, HEADS, -1).transpose(1, 2)  # noqa: E731
+    rows = []
+    cases = [(b, torch.bfloat16, rate) for b in (8, 1, TRAIN_FRAMES)
+             for rate in (0.0, RATE)]
+    cases += [(8, torch.float32, rate) for rate in (0.0, RATE)]
+    for b, dtype, rate in cases:
+        bf16 = dtype == torch.bfloat16
+        max_tol, mean_tol = (2e-2, 1e-3) if bf16 else (1e-5, 1e-5)
+        q, k, v, g = (randn((b, t, WIDTH), gen, dtype) for _ in range(4))
+        seed = 3000 + b if rate else None
+        reps = dict(reps=3, groups=3, warmup=1) if b > 8 else {}
+        base = {"batch": b, "rate": rate, "dtype": dtype_name(dtype),
+                "seq": t, "variant": fa._kernel_variant(dtype, t, 64)}
+        itemsize = 2 if bf16 else 4
+        cells = b * HEADS * t * t * (WIDTH // HEADS)
+        # forward
+        with torch.no_grad():
+            marks = k1_counts(fa)
+            got = fa.mhsa_short(q, k, v, seed, HEADS, rate)
+            torch.cuda.synchronize()
+            moved = tuple(y - x for x, y in zip(marks, k1_counts(fa)))
+            want = fa.mhsa_short_reference(q, k, v, seed, HEADS, rate)
+            err = (got.float() - want.float()).abs()
+            row = dict(base, kernel="mhsa_short_wide",
+                       max_abs_err=err.max().item(),
+                       mean_abs_err=err.mean().item())
+            if rate:
+                keep = prng.keep_mask(prng.dropout_bits(
+                    seed, b, HEADS, t, t, device="cuda"), rate)
+                kept = kept_set_wide(lambda eye: fa.mhsa_short(
+                    q, k, eye, seed, HEADS, rate), b, t, dtype)
+                kept_plain = kept_set_wide(lambda eye: fa.mhsa_short_reference(
+                    q, k, eye, seed, HEADS, rate), b, t, dtype)
+                positive = kept_set_wide(lambda eye: fa.mhsa_short(
+                    q, k, eye, None, HEADS), b, t, dtype)
+                row["kept_set_identical"] = (
+                    torch.equal(kept, kept_plain)
+                    and torch.equal(kept, keep & positive))
+                del keep, kept, kept_plain, positive
+            row["ms"], row["plain_ms"] = in_turns(
+                lambda: fa.mhsa_short(q, k, v, seed, HEADS, rate),
+                lambda: fa.mhsa_short_reference(q, k, v, seed, HEADS, rate),
+                **reps)
+            row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v), dropout_p=rate))
+        row.update(bound(4 * b * t * WIDTH * itemsize, 4 * cells,
+                         row["dtype"]))
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        print(f"mhsa_short_wide {row}", flush=True)
+        check(moved == (1, 0, int(bf16), 0, 1, 0),
+              f"mhsa_short T={t} B={b} {dtype}: launches moved {moved}, "
+              "expected one of the wide instantiation")
+        check(math.isfinite(row["max_abs_err"])
+              and row["max_abs_err"] <= max_tol
+              and row["mean_abs_err"] <= mean_tol,
+              f"mhsa_short T={t} B={b} {dtype} rate {rate}: {row}")
+        check(row.get("kept_set_identical", True),
+              f"mhsa_short T={t} B={b} {dtype} rate {rate}: the kept set is "
+              "not the plain version's")
+        rows.append(row)
+        # backward
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        marks = k1_counts(fa)
+        fa.mhsa_short(*leaves, seed, HEADS, rate).backward(g)
+        torch.cuda.synchronize()
+        moved = tuple(y - x for x, y in zip(marks, k1_counts(fa)))
+        grads = [x.grad for x in leaves]
+        with torch.no_grad():
+            again = fa.mhsa_short_backward(q, k, v, g, seed, HEADS, rate)
+            want = fa.mhsa_short_backward_reference(q, k, v, g, seed, HEADS,
+                                                    rate)
+        repeats = all(torch.equal(a, x) for a, x in zip(grads, again))
+        errs = [(a.float() - w.float()).abs() for a, w in zip(grads, want)]
+        row = dict(base, kernel="mhsa_short_bwd_wide",
+                   max_abs_err=max(e.max().item() for e in errs),
+                   mean_abs_err=max(e.mean().item() for e in errs),
+                   bit_equal_repeat=repeats)
+        del again, want, errs
+        if not bf16:
+            ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            auto = torch.autograd.grad(fa.mhsa_short_reference(
+                *ref_leaves, seed, HEADS, rate), ref_leaves, g)
+            row["max_abs_err_vs_autograd"] = max(
+                (a - w).abs().max().item() for a, w in zip(grads, auto))
+        with torch.no_grad():
+            row["ms"], row["plain_ms"] = in_turns(
+                lambda: fa.mhsa_short_backward(q, k, v, g, seed, HEADS, rate),
+                lambda: fa.mhsa_short_backward_reference(q, k, v, g, seed,
+                                                         HEADS, rate),
+                **reps)
+        lib = [heads(x).detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*lib, dropout_p=rate)
+        row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, lib, heads(g), retain_graph=True))
+        del lib, out
+        row.update(bound(7 * b * t * WIDTH * itemsize, 10 * cells,
+                         row["dtype"]))
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        print(f"mhsa_short_bwd_wide {row}", flush=True)
+        check(moved == (1, 1, int(bf16), int(bf16), 1, 1),
+              f"mhsa_short backward T={t} B={b} {dtype}: launches moved "
+              f"{moved}, expected a forward and a backward of the wide "
+              "instantiation")
+        check(repeats, f"mhsa_short backward T={t} B={b} {dtype} rate {rate}:"
+              " two launches gave different gradients")
+        check(math.isfinite(row["max_abs_err"])
+              and row["max_abs_err"] <= max_tol
+              and row["mean_abs_err"] <= mean_tol
+              and row.get("max_abs_err_vs_autograd", 0.0) <= 1e-5,
+              f"mhsa_short backward T={t} B={b} {dtype} rate {rate}: {row}")
+        rows.append(row)
+        del q, k, v, g, leaves, grads
+    return rows
+
+
+def phase_named(counters, fa, np):
+    """The G, M, R and DT phases, each driven with the launch counters at
+    0 and read just after; returns {phase: launches}."""
+    import torch
+
+    launches = {}
+    for phase in NAMED:
+        start = time.monotonic()
+        for reset in counters.values():
+            reset(0)
+        model = phase_named_train(phase, fa)
+        if phase in ("G", "M"):
+            phase_named_serve(phase, model, fa, np)
+        if phase != "DT":
+            phase_named_rollout(phase, model, fa)
+        launches[phase] = {name: read() for name, read in counters.items()}
+        del model
+        torch.cuda.empty_cache()
+        print(f"{phase} phase: {time.monotonic() - start:.1f} s; launches "
+              f"{ {k: v for k, v in launches[phase].items() if v} }",
+              flush=True)
+    return launches
+
+
 def kernel_entry(name, replaces, launches, rows, pick, extra):
     """One entry of the kernels line: the times at the train step's shape,
     the largest error over all checks."""
@@ -2747,6 +3214,10 @@ def main() -> None:
     rows = phase_forward(fa) + phase_forward_dropout(fa, prng)
     rows += phase_backward(fa, prng)
     phase_mask(fa)
+    start = time.monotonic()
+    rows += phase_k1_wide(fa, prng)
+    torch.cuda.empty_cache()
+    print(f"K1 wide phase: {time.monotonic() - start:.1f} s", flush=True)
     rows += phase_gray(pp)
     rows += phase_layer_norm(ln)
     rows += phase_hw_dropout(dr)
@@ -2760,6 +3231,9 @@ def main() -> None:
     counted = {
         "mhsa_short": (fa.mhsa_short, "launches"),
         "mhsa_short_bwd": (fa.mhsa_short_backward, "launches"),
+        # Of those, the launches of the wide instantiation (T past 64).
+        "mhsa_short_wide": (fa.mhsa_short, "wide_launches"),
+        "mhsa_short_bwd_wide": (fa.mhsa_short_backward, "wide_launches"),
         "gray_normalize": (pp.grayscale_normalize_fused, "launches"),
         "gray_resize_normalize": (pp.grayscale_normalize_fused,
                                   "resize_launches"),
@@ -2830,21 +3304,26 @@ def main() -> None:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    launches_named = phase_named(counters, fa, np)
     # The path each kernel is claimed on: train E for the fused sub-block
     # kernels, train D for the flash attention kernels, train C for the
-    # kernels behind ln_impl and dropout_impl, the first path for the
-    # others.
+    # kernels behind ln_impl and dropout_impl, GenCAD's (G) for K1's wide
+    # instantiation, the first path for the others.
     by_path = {name: {"serve_rollout_train_ab": launches[name],
                       "train_c": launches_c[name],
                       "train_d": launches_d[name],
                       "evaluate": launches_eval[name],
-                      "train_e": launches_e[name]} for name in counters}
+                      "train_e": launches_e[name],
+                      **{phase: counts[name]
+                         for phase, counts in launches_named.items()}}
+               for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]
                 if name.startswith(("attn_block", "mlp_block"))
                 else launches_d[name] if name.startswith("flash")
                 else launches_c[name] if name.startswith(("layer_norm",
                                                           "hw_dropout"))
+                else launches_named["G"][name] if name.endswith("_wide")
                 else launches[name] for name in counters}
     for name in counters:
         check(launches[name] > 0,
@@ -2860,6 +3339,8 @@ def main() -> None:
     phase_reference_train(**BLOCK)
     phase_reference_train(**dict(ALL_PALLAS, vit_attention_impl="pallas"))
     phase_reference_train(vit_attention_impl="fused", vit_mlp_impl="block")
+    for phase in NAMED:
+        phase_reference_named(phase)
     print(f"reference phase: {time.monotonic() - start:.1f} s", flush=True)
 
     at_train = lambda r: (r["batch"] == TRAIN_FRAMES  # noqa: E731
@@ -2886,6 +3367,27 @@ def main() -> None:
                      library_ms_rate0=without["library_ms"],
                      scalar_ms_rate0=without["scalar_ms"])
     same = lambda r: {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}  # noqa: E731
+    # K1's wide instantiation at T = 65, as GenCAD's train step runs it (the
+    # CAD encoder: B = 8, dropout 0.1); a session's B = 1 and 1,528 frames
+    # beside it.
+    wide = []
+    for name, line in (("mhsa_short_wide", 110), ("mhsa_short_bwd_wide", 129)):
+        at = lambda b, rate: lambda r: (  # noqa: E731
+            r["batch"] == b and r["dtype"] == "bfloat16" and r["rate"] == rate)
+        entry = kernel_entry(name, f"videocad_tpu/ops/fused_attention.py:"
+                             f"{line}", launches[name], rows, at(8, RATE),
+                             same)
+        row = next(r for r in entry["checks"] if at(8, RATE)(r))
+        entry.update(variant=row["variant"], seq=WIDE_SEQ,
+                     roofline_share=row["roofline_share"])
+        for suffix, b, rate in (("_rate0", 8, 0.0), ("_b1", 1, RATE),
+                                ("_b1528", TRAIN_FRAMES, RATE),
+                                ("_b1528_rate0", TRAIN_FRAMES, 0.0)):
+            other = next(r for r in entry["checks"] if at(b, rate)(r))
+            entry.update({key + suffix: other[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms",
+                "roofline_share")})
+        wide.append(entry)
     gray = kernel_entry(
         "gray_normalize", "videocad_tpu/ops/preprocess.py:153",
         launches["gray_normalize"], rows, lambda r: True, same)
@@ -2966,7 +3468,8 @@ def main() -> None:
                 fused_log, "grad_weight_tc_kernel")
         print(f"{name}: {entry['ptxas']}", flush=True)
         blocks.append(entry)
-    kernels = [fwd, bwd, gray, resize, ln_fwd, ln_bwd, drop] + flash + blocks
+    kernels = ([fwd, bwd] + wide + [gray, resize, ln_fwd, ln_bwd, drop]
+               + flash + blocks)
     for entry in kernels:
         entry["launches_by_path"] = by_path[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

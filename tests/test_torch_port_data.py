@@ -8,6 +8,7 @@ of both packages must give the same arrays (they are numpy on both sides).
 import filecmp
 import importlib
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -120,14 +121,71 @@ def test_resize_u8_equals_jax():
                                       jax_dataset.resize_u8(img, size))
 
 
-def test_dataset_refuses_what_is_not_ported(stores, tmp_path):
+def test_dataset_refuses_what_is_not_ported(stores, tmp_path, monkeypatch):
+    """An empty directory, and the GenCAD branch where OpenCV is missing
+    (the card's machine has none): a clear error naming cv2."""
     _, port_dir, _ = stores
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        port_dataset.VideoCADDataset(port_dir, gencad=True)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        port_dataset.VideoCADDataset(port_dir, view_ids=["05"])
     with pytest.raises(ValueError, match="No \\*_data.pkl"):
         port_dataset.VideoCADDataset(str(tmp_path))
+    monkeypatch.setitem(sys.modules, "cv2", None)   # import cv2 fails
+    data = port_dataset.VideoCADDataset(port_dir, gencad=True)
+    with pytest.raises(ImportError, match="needs OpenCV \\(cv2\\)"):
+        data[0]
+
+
+def test_gencad_items_equal_jax(stores):
+    """gencad=True: the CAD image is the 256 x 256 x 3 Canny edge image,
+    byte for byte the JAX reader's."""
+    jax_dir, port_dir, _ = stores
+    want = jax_dataset.VideoCADDataset(jax_dir, gencad=True)
+    got = port_dataset.VideoCADDataset(port_dir, gencad=True)
+    for i in range(len(want)):
+        item = got[i]
+        assert item["cad_image"].shape == (256, 256, 3)
+        assert item["cad_image"].dtype == np.uint8
+        _assert_batches_equal(item, want[i])
+    rgb = np.random.default_rng(2).integers(0, 256, (180, 300, 3),
+                                            dtype=np.uint8)
+    np.testing.assert_array_equal(port_dataset.gencad_cad_image(rgb),
+                                  jax_dataset.gencad_cad_image(rgb))
+
+
+def _write_views(root, ids, views, size, seed):
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for file_id in ids:
+        os.makedirs(os.path.join(root, file_id[:4]), exist_ok=True)
+        for view in views:
+            Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                         dtype=np.uint8)).save(
+                os.path.join(root, file_id[:4], f"{file_id}_{view}.png"))
+
+
+@pytest.mark.parametrize("image_size", [None, 12])
+def test_multiview_items_equal_jax(stores, tmp_path, image_size):
+    """view_ids: each item carries its views (V, H, W, 3), resized to the
+    frames' resolution, byte for byte the JAX reader's; a missing view is
+    reported up front by check_multiview_availability."""
+    jax_dir, port_dir, split = stores
+    views = ["05", "09"]
+    _write_views(str(tmp_path), sorted(split), views, 20, seed=4)
+    kw = dict(view_ids=views, multiview_dir=str(tmp_path),
+              image_size=image_size)
+    want = jax_dataset.VideoCADDataset(jax_dir, **kw)
+    got = port_dataset.VideoCADDataset(port_dir, **kw)
+    got.check_multiview_availability()
+    side = image_size or 16
+    for i in range(len(want)):
+        item = got[i]
+        assert item["multiview_images"].shape == (2, side, side, 3)
+        _assert_batches_equal(item, want[i])
+    batch = port_collate.collate([got[0], got[1]])
+    assert batch["multiview_images"].shape == (2, 2, side, side, 3)
+    first = sorted(split)[0]
+    os.remove(os.path.join(str(tmp_path), first[:4], f"{first}_09.png"))
+    for data in (got, want):
+        with pytest.raises(ValueError, match="1 samples missing"):
+            data.check_multiview_availability()
 
 
 def test_bucket_length_and_pad_to_equal_jax():

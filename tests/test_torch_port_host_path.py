@@ -346,6 +346,23 @@ def _c_entries(source):
     return entries
 
 
+@pytest.mark.parametrize("dtype,t,head_dim,variant", [
+    (BF16, 50, 64, "tc"),           # the flagship ViT
+    (BF16, 64, 64, "tc"),           # T at the first instantiation's limit
+    (BF16, 65, 64, "tc_wide"),      # the GenCAD CAD encoder
+    (BF16, 128, 16, "tc_wide"),     # T at the wide one's
+    (F32, 50, 64, "scalar"),        # float32 keeps the scalar kernels
+    (F32, 65, 64, "scalar_wide"),
+    (BF16, 65, 8, "scalar_wide"),   # D no multiple of 16
+    (BF16, 13, 8, "scalar"),
+])
+def test_k1_variant_rule(dtype, t, head_dim, variant):
+    """The variant by dtype and head width, the instantiation by T: the
+    T <= 64 kernels exactly where they ran before the wide ones came."""
+    assert fa._kernel_variant(dtype, t, head_dim) == variant
+    assert variant in fa.VARIANTS
+
+
 @pytest.mark.parametrize("module,source", [
     (fa, "mhsa_short.cu"), (pp, "gray_normalize.cu"),
     (fl, "flash_attention.cu"), (ln, "layernorm.cu")])
@@ -442,8 +459,11 @@ def test_k1_k2_k3_wrappers_raise_what_they_raised():
     assert fa._check_kernel_inputs((q, q, q), 4) == (2, 6, 8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa._check_kernel_inputs((q.half(),) * 3, 4)
-    with pytest.raises(ValueError, match="T <= 64"):
-        fa._check_kernel_inputs((torch.zeros(1, 65, 8),) * 3, 1)
+    with pytest.raises(ValueError, match="T <= 128"):
+        fa._check_kernel_inputs((torch.zeros(1, 129, 8),) * 3, 1)
+    # T = 65 (the GenCAD CAD encoder) is taken, by the wide instantiation.
+    assert fa._check_kernel_inputs((torch.zeros(1, 65, 8),) * 3, 1) == (
+        1, 65, 8)
     with pytest.raises(ValueError, match="D <= 64"):
         fa._check_kernel_inputs((torch.zeros(1, 6, 128),) * 3, 1)
     with pytest.raises(ValueError, match="contiguous"):

@@ -85,8 +85,12 @@ def test_mhsa_short_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             fa.mhsa_short(q.transpose(0, 1).contiguous().transpose(0, 1),
                           k, v, None, 16)
-        with pytest.raises(ValueError, match="T <= 64"):
-            fa.mhsa_short(*_qkv(1, 65, 64, F32, seed=1), None, 1)
+        with pytest.raises(ValueError, match="T <= 128"):
+            fa.mhsa_short(*_qkv(1, 129, 64, F32, seed=1), None, 1)
+        # T = 65 is taken, by the wide instantiation.
+        before = fa.mhsa_short.wide_launches
+        fa.mhsa_short(*_qkv(1, 65, 64, F32, seed=1), None, 1)
+        assert fa.mhsa_short.wide_launches == before + 1
         with pytest.raises(ValueError, match="D <= 64"):
             fa.mhsa_short(*_qkv(1, 8, 128, F32, seed=2), None, 1)
     with pytest.raises(ValueError, match="explicit int32 seed"):
@@ -184,6 +188,164 @@ def test_mhsa_short_backward_kernel_matches_plain_version(cuda, b, t, h, d,
         ref = fa.mhsa_short_reference(*again, seed, h, rate)
         for leaf, w in zip(leaves, torch.autograd.grad(ref, again, g)):
             assert (leaf.grad - w).abs().max().item() <= 1e-5
+
+
+# ---- K1's wide instantiation: 64 < T <= 128 (the GenCAD CAD encoder) ----
+
+def _k1_counts(counted):
+    return counted.launches, counted.tc_launches, counted.wide_launches
+
+
+def _launched_wide(counted, before, variant):
+    """One launch of the wide ``variant`` since ``before`` (launches,
+    tc_launches, wide_launches)."""
+    return _k1_counts(counted) == (before[0] + 1,
+                                   before[1] + variant.startswith("tc"),
+                                   before[2] + 1)
+
+
+# (B, T, H, D, dtype): the GenCAD CAD encoder at B = 8 and 1 (T = 65, 16
+# heads of 64), T at the limit, uneven T and D, float32 and bf16 with D no
+# multiple of 16 on the scalar variant.
+WIDE_CASES = [
+    (8, 65, 16, 64, BF16),
+    (1, 65, 16, 64, BF16),
+    (3, 128, 4, 64, BF16),
+    (2, 97, 3, 32, BF16),
+    (2, 81, 2, 16, BF16),
+    (8, 65, 16, 64, F32),
+    (2, 128, 4, 64, F32),
+    (3, 100, 2, 8, BF16),
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,h,d,dtype", WIDE_CASES)
+def test_mhsa_short_wide_kernel_matches_plain_version(cuda, b, t, h, d,
+                                                      dtype, rate):
+    q, k, v = _qkv(b, t, h * d, dtype, seed=b * 1000 + t)
+    seed = 77 if rate else None
+    variant = fa._kernel_variant(dtype, t, d)
+    assert variant == ("tc_wide" if dtype == BF16 and d % 16 == 0
+                       else "scalar_wide")
+    with torch.no_grad():
+        before = _k1_counts(fa.mhsa_short)
+        got = fa.mhsa_short(q, k, v, seed, h, rate)
+        torch.cuda.synchronize()
+        assert _launched_wide(fa.mhsa_short, before, variant)
+        want = fa.mhsa_short_reference(q, k, v, seed, h, rate)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= (2e-2 if dtype == BF16 else 1e-5)
+    assert err.mean().item() <= (1e-3 if dtype == BF16 else 1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,h,d,dtype", WIDE_CASES)
+def test_mhsa_short_wide_backward_kernel_matches_plain_version(
+        cuda, b, t, h, d, dtype, rate):
+    q, k, v = _qkv(b, t, h * d, dtype, seed=b * 1000 + t + 1)
+    g = _qkv(b, t, h * d, dtype, seed=7)[0]
+    seed = 99 if rate else None
+    variant = fa._kernel_variant(dtype, t, d)
+    before = _k1_counts(fa.mhsa_short_backward)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.mhsa_short(*leaves, seed, h, rate).backward(g)
+    torch.cuda.synchronize()
+    assert _launched_wide(fa.mhsa_short_backward, before, variant)
+    # No atomics: a second launch gives the same gradients to the bit.
+    again = fa.mhsa_short_backward(q, k, v, g, seed, h, rate)
+    for leaf, x in zip(leaves, again):
+        assert torch.equal(leaf.grad, x)
+    want = fa.mhsa_short_backward_reference(q, k, v, g, seed, h, rate)
+    for leaf, w in zip(leaves, want):
+        err = (leaf.grad.float() - w.float()).abs()
+        assert leaf.grad.dtype == dtype
+        assert err.max().item() <= (2e-2 if dtype == BF16 else 1e-5)
+        assert err.mean().item() <= (1e-3 if dtype == BF16 else 1e-6)
+    if dtype == F32:
+        again = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = fa.mhsa_short_reference(*again, seed, h, rate)
+        for leaf, w in zip(leaves, torch.autograd.grad(ref, again, g)):
+            assert (leaf.grad - w).abs().max().item() <= 1e-5
+
+
+def _shifted_eye(b, t, h, d, offset, dtype):
+    """(B, T, H*D) whose head slice holds 1 at (offset + c, c): as V, the
+    output's column c is the dropped weight of key offset + c; as the
+    output gradient, dv's column c is that of query offset + c."""
+    eye = torch.zeros(t, d, device="cuda", dtype=dtype)
+    rows = torch.arange(offset, min(offset + d, t), device="cuda")
+    eye[rows, rows - offset] = 1
+    return eye.repeat(1, h).expand(b, t, h * d).contiguous()
+
+
+def _kept_sets(run, b, t, h, d, dtype, backward=False):
+    """The kept set (B, H, T, T) read off the forward's output under
+    shifted-identity values, or off the backward's dv under a
+    shifted-identity output gradient (``backward``), in two pieces (keys,
+    or queries, from 0 and from T - D): T may be up to 2 D."""
+    kept = torch.zeros(b, h, t, t, dtype=torch.bool, device="cuda")
+    for offset in (0, max(t - d, 0)):
+        span = min(d, t - offset)
+        read = run(_shifted_eye(b, t, h, d, offset, dtype)).reshape(
+            b, t, h, d)[..., :span].permute(0, 2, 1, 3) > 0
+        if backward:
+            kept[..., offset:offset + span, :] = read.transpose(-1, -2)
+        else:
+            kept[..., offset:offset + span] = read
+    return kept
+
+
+@pytest.mark.parametrize("b,t,h,d,dtype", [
+    (8, 65, 16, 64, BF16), (3, 128, 4, 64, BF16), (2, 97, 3, 64, F32),
+    (3, 100, 2, 64, F32)])
+def test_mhsa_short_wide_kernels_draw_the_plain_versions_mask(cuda, b, t, h,
+                                                              d, dtype):
+    """The kept set of the forward and of the backward is the bit
+    function's of absolute (seed, frame, head, query, key), whatever the
+    padding and the warps of the wide instantiation; another seed draws
+    another."""
+    rate = 0.3
+    q, k = _qkv(b, t, h * d, dtype, seed=t)[:2]
+    with torch.no_grad():
+        fwd = lambda seed: lambda eye: fa.mhsa_short(  # noqa: E731
+            q, k, eye, seed, h, rate if seed else 0.0)
+        kept = _kept_sets(fwd(4242), b, t, h, d, dtype)
+        kept_bwd = _kept_sets(lambda eye: fa.mhsa_short_backward(
+            q, k, eye, eye, 4242, h, rate)[2], b, t, h, d, dtype,
+            backward=True)
+        positive = _kept_sets(fwd(None), b, t, h, d, dtype)
+        other = _kept_sets(fwd(4243), b, t, h, d, dtype)
+    bits = prng.dropout_bits(4242, b, h, t, t, device="cuda")
+    want = prng.keep_mask(bits, rate) & positive
+    assert torch.equal(kept, want)
+    assert torch.equal(kept_bwd, want)
+    assert not torch.equal(kept, other)
+
+
+@pytest.mark.parametrize("variant,dtype", [("tc", BF16), ("scalar", F32)])
+def test_mhsa_short_both_instantiations_draw_one_mask(cuda, variant, dtype):
+    """The wide entries take T <= 64 as well: there they give the T <= 64
+    kernels' kept set (the mask does not depend on the instantiation) and
+    their values within the tolerance."""
+    b, t, h, d, rate, seed = 4, 50, 4, 64, 0.3, 11
+    q, k = _qkv(b, t, h * d, dtype, seed=5)[:2]
+    eye = _shifted_eye(b, t, h, d, 0, dtype)
+    narrow, wide = fa.load_library()[variant][0], fa._entries[
+        variant + "_wide"][0]
+    outs = []
+    for entry in (narrow, wide):
+        out = torch.empty_like(q)
+        err = entry(q.data_ptr(), k.data_ptr(), eye.data_ptr(),
+                    out.data_ptr(), b, t, h, d, int(dtype == BF16), seed,
+                    rate, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0] > 0, outs[1] > 0)
+    tol = 2e-2 if dtype == BF16 else 1e-5
+    assert (outs[0].float() - outs[1].float()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("shape,target,tol", [

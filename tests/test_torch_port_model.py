@@ -151,6 +151,70 @@ def test_sequential_inference_matches_jax_step_for_step(wiring, action):
                                    rtol=0)
 
 
+ROLLOUT_CFGS = {
+    # decode loop: the views' stream in the memory
+    "multiview": (dict(num_views=2), True),
+    # decode loop: the GenCAD CAD encoder (T = 65)
+    "gencad": (dict(use_pretrained_cad_model=True, vit_patch=32), True),
+    # one pass: ResNet encoders, views, no action feedback
+    "resnet_multiview": (dict(encoder="resnet", num_views=3,
+                              enable_past_actions=False,
+                              enable_past_states=False), False),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ROLLOUT_CFGS))
+def test_sequential_inference_with_views_gencad_resnet_matches_jax(kind):
+    overrides, feedback = ROLLOUT_CFGS[kind]
+    jax_model, params, model = _pair(overrides, seed=10)
+    assert model.config.enable_past_actions == feedback
+    frames = _u8((2, 5, 32, 32, 3), seed=11)
+    cad = _u8((2, 256, 256, 3) if "gencad" in kind else (2, 32, 32, 3),
+              seed=12)
+    views = (_u8((2, model.config.num_views, 32, 32, 3), seed=13)
+             if model.config.num_views else None)
+    expected = jax_rollout(jax_model, params, jnp.asarray(frames),
+                           jnp.asarray(cad), multiview_images=None
+                           if views is None else jnp.asarray(views))
+    got = sequential_inference(model, torch.from_numpy(frames),
+                               torch.from_numpy(cad), multiview_images=None
+                               if views is None else torch.from_numpy(views))
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+
+
+def test_decision_transformer_rollout_is_its_one_pass_forward():
+    """No action feedback: the rollout is the teacher-forced forward with
+    zero actions, as in JAX, for the decision transformer too."""
+    cfg = dict(FUSED, model_family="decision_transformer", n_layer=2,
+               n_head=4, enable_past_actions=False)
+    jax_model = jax_create_model(cfg)
+    params = init_model(jax_model, jax.random.PRNGKey(14), batch=1,
+                        seq_len=2)
+    model = create_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params))
+    frames, cad = _u8((2, 4, 32, 32, 3), seed=15), _u8((2, 32, 32, 3), 16)
+    expected = jax_rollout(jax_model, params, jnp.asarray(frames),
+                           jnp.asarray(cad))
+    got = sequential_inference(model, torch.from_numpy(frames),
+                               torch.from_numpy(cad))
+    for g, e in zip(got, expected):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-5,
+                                   rtol=0)
+    with torch.no_grad():
+        actions = model({"frames": torch.from_numpy(frames),
+                         "cad_image": torch.from_numpy(cad),
+                         "actions": torch.zeros(2, 4, 7)}, continuous=True)
+    want = jax_model.apply({"params": params},
+                           {"frames": jnp.asarray(frames),
+                            "cad_image": jnp.asarray(cad),
+                            "actions": jnp.zeros((2, 4, 7))},
+                           continuous=True)
+    np.testing.assert_allclose(actions.numpy(), np.asarray(want), atol=1e-5)
+
+
 def test_rollout_refuses_unported_weight_quant():
     _, _, model = _pair()
     with pytest.raises(NotImplementedError, match="slice 7"):

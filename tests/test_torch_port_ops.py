@@ -19,6 +19,7 @@ import torch
 
 from videocad_tpu.actions import ops as jax_action_ops
 from videocad_tpu.actions import vocab as jax_vocab
+from videocad_tpu.models import create_model as jax_create_model
 from videocad_tpu.ops import dropout as jax_dropout
 from videocad_tpu.ops import fused_attention as jax_fused
 from videocad_tpu.ops import layernorm as jax_layernorm
@@ -28,7 +29,8 @@ from videocad_tpu_torch.actions import ops as port_action_ops
 from videocad_tpu_torch.actions import vocab as port_vocab
 from videocad_tpu_torch.cli import serve as port_serve
 from videocad_tpu_torch.kernels import build as port_build
-from videocad_tpu_torch.models import create_model, flagship_config
+from videocad_tpu_torch.models import (create_model, example_inputs,
+                                       flagship_config)
 from videocad_tpu_torch.ops import attention as port_flash
 from videocad_tpu_torch.ops import dropout as port_dropout
 from videocad_tpu_torch.ops import fused_attention as port_fused
@@ -445,8 +447,10 @@ def test_port_imports_no_jax():
             videocad_tpu_torch.__path__, "videocad_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # cv2 too: the GenCAD data branch imports it where it runs only.
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
-                     ("jax", "jaxlib", "flax", "optax", "videocad_tpu"))
+                     ("jax", "jaxlib", "flax", "optax", "videocad_tpu",
+                      "cv2"))
         assert not bad, bad
         print(len(names))
     """)
@@ -456,14 +460,15 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     # Every module of the package, the trainer's and the evaluation's
     # among them.
-    assert int(out.stdout.split()[-1]) >= 45
+    assert int(out.stdout.split()[-1]) >= 47
     package = Path(__file__).resolve().parents[1] / "videocad_tpu_torch"
     for module in ["ops/layernorm.py", "utils/io.py", "data/collate.py",
                    "data/dataset.py", "data/pipeline.py",
                    "train/checkpoint.py", "train/preempt.py",
                    "train/trainer.py", "experiment.py", "cli/train.py",
                    "ops/attention.py", "cli/evaluate.py", "cli/plots.py",
-                   "ops/fused_block.py"]:
+                   "ops/fused_block.py", "models/resnet.py",
+                   "models/decision_transformer.py"]:
         assert (package / module).is_file(), module
 
 
@@ -478,16 +483,58 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"num_views": 2}, "slice 11"),
     ({"remat_encoder": True}, "slice 11"),
-    ({"use_pretrained_cad_model": True}, "slice 11"),
-    ({"encoder": "resnet"}, "slice 11"),
     ({"frame_chunk": 4}, "slice 11"),
     ({"quant": "int8"}, "slice 11"),
 ])
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
         create_model(dict(TINY_CONFIG, **override))
+
+
+@pytest.mark.parametrize("override", [
+    {"num_views": 2}, {"use_pretrained_cad_model": True},
+    {"encoder": "resnet"}])
+def test_named_config_options_build_and_run(override):
+    """The options that raised until the port reached them build the
+    modules of the JAX model and run a forward: views through the CAD
+    encoder into ``embed_multiview``, the GenCAD CAD encoder at 256² and 3
+    channels, ResNet18-GN encoders of 512-wide embeddings."""
+    cfg = dict(TINY_CONFIG, **override)
+    if override.get("use_pretrained_cad_model"):
+        cfg["vit_patch"] = 32
+    model = create_model(cfg)
+    inputs = example_inputs(model.config, batch=2, seq_len=3)
+    with torch.no_grad():
+        cmd, params = model(inputs)
+    assert cmd.shape == (2, 3, 5) and params.shape == (2, 3, 6, 1000)
+    assert bool(torch.isfinite(cmd).all() and torch.isfinite(params).all())
+    sd = model.state_dict()
+    if "num_views" in override:
+        assert sd["embed_multiview.weight"].shape == (32, 2 * 16)
+        assert sd["image_projection.weight"].shape == (32, 3 * 32)
+        assert inputs["multiview_images"].shape == (2, 2, 32, 32, 1)
+    elif "encoder" in override:
+        assert sd["state_encoder.stem_conv.weight"].shape == (64, 1, 7, 7)
+        assert sd["embed_state.weight"].shape == (32, 512)
+        assert sd["embed_image.weight"].shape == (32, 512)
+    else:
+        assert inputs["cad_image"].shape == (2, 256, 256, 3)
+        # 8 x 8 patches of 32 x 32 x 3, and the cls token: T = 65.
+        assert sd["cad_encoder.patch_embed.weight"].shape == (16, 32 * 32 * 3)
+        assert sd["cad_encoder.pos_embedding"].shape == (1, 65, 16)
+
+
+def test_gencad_with_views_raises_as_jax():
+    with pytest.raises(ValueError, match="cannot be combined"):
+        create_model(dict(TINY_CONFIG, use_pretrained_cad_model=True,
+                          num_views=2))
+    with pytest.raises(ValueError, match="cannot be combined"):
+        jax_create_model(dict(TINY_CONFIG, use_pretrained_cad_model=True,
+                              num_views=2)).init(
+            jax.random.PRNGKey(0), {"actions": jnp.zeros((1, 2, 7)),
+                                    "cad_image": jnp.zeros((1, 256, 256, 3)),
+                                    "frames": jnp.zeros((1, 2, 32, 32, 1))})
 
 
 def _tiny_inputs(t=4):

@@ -179,3 +179,107 @@ def test_port_server_gives_the_jax_engine_actions(pair):
         engine.stop()
         ref.stop()
         thread.join(timeout=10)
+
+
+# ---- multiview and GenCAD lanes ----
+
+VIEW_CFGS = {
+    "multiview": dict(CFG, num_views=2),
+    "gencad": dict(CFG, use_pretrained_cad_model=True, vit_patch=32),
+}
+
+
+def _session_images(kind, seed):
+    """A session's CAD image (the 256² x 3 edge image under GenCAD) and
+    multiview images (2 views, uint8) or None."""
+    rng = np.random.default_rng(seed)
+    if kind == "gencad":
+        return rng.integers(0, 256, (256, 256, 3), dtype=np.uint8), None
+    return (rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+            rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("kind", sorted(VIEW_CFGS))
+def test_mux_lanes_with_views_or_gencad_match_jax(kind):
+    """init_mux_carry(multiview=True) sizes the CAD stream for the views;
+    open_lane takes the session's multiview images, or the GenCAD edge
+    image; the lanes' logits equal JAX's."""
+    cfg = VIEW_CFGS[kind]
+    jax_model = jax_create_model(cfg)
+    params = init_model(jax_model, jax.random.PRNGKey(12), batch=1,
+                        seq_len=2)
+    model = create_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params))
+    jp = jax_prepare(params, jnp.float32)
+    multiview = kind == "multiview"
+    jcarry = jax_mux.init_mux_carry(jax_model, params, 2, SEQ_LEN,
+                                    multiview=multiview)
+    pcarry = port_mux.init_mux_carry(model, 2, SEQ_LEN, multiview=multiview)
+    assert tuple(pcarry["cad_stream"].shape) == tuple(
+        jcarry["cad_stream"].shape) == (2, 32 * (2 if multiview else 1))
+    pp = prepare_for_decode(model)
+    for lane in range(2):
+        cad, views = _session_images(kind, seed=lane)
+        jcarry = jax_mux.open_lane(
+            jax_model, jp, jcarry, jnp.asarray(lane), jnp.asarray(cad)[None],
+            None if views is None else jnp.asarray(views)[None])
+        pcarry = port_mux.open_lane(
+            model, pcarry, lane, torch.from_numpy(cad)[None],
+            None if views is None else torch.from_numpy(views)[None])
+    np.testing.assert_allclose(pcarry["cad_stream"].numpy(),
+                               np.asarray(jcarry["cad_stream"]), atol=1e-5)
+    frames = _imgs(2 * 3, seed=5).reshape(3, 2, 32, 32, 3)
+    active = np.ones((2,), bool)
+    for f in frames:
+        jcarry, jc, jpar = jax_mux.mux_decode_step(
+            jax_model, jp, jnp.asarray(f), jnp.asarray(active), jcarry)
+        pcarry, pc, ppar = port_mux.mux_decode_step(
+            model, pp, torch.from_numpy(f), torch.from_numpy(active), pcarry)
+        np.testing.assert_allclose(pc.numpy(), np.asarray(jc), atol=1e-4)
+        np.testing.assert_allclose(ppar.numpy(), np.asarray(jpar), atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", sorted(VIEW_CFGS))
+def test_server_sessions_with_views_or_gencad(kind):
+    """The session request carries the GenCAD edge image or the multiview
+    images; the engine's actions are the JAX engine's; what the JAX server
+    refuses is refused (400)."""
+    cfg = VIEW_CFGS[kind]
+    jax_model = jax_create_model(cfg)
+    params = init_model(jax_model, jax.random.PRNGKey(13), batch=1,
+                        seq_len=2)
+    model = create_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params))
+    engine = MuxEngine(model, lanes=2, seq_len=SEQ_LEN)
+    ref = JaxMuxEngine(jax_model, params, lanes=2, seq_len=SEQ_LEN)
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{server.server_address[1]}")
+        cad, views = _session_images(kind, seed=3)
+        sid = client.open_session(cad, views)
+        ref_sid = ref.open_session(cad, views)[0]
+        for f in _imgs(3, seed=6):
+            got, want = client.step(sid, f), ref.step(ref_sid, f)
+            assert (got["cmd"], got["params"]) == (want["cmd"],
+                                                   want["params"])
+        bad = [(np.zeros((16, 16, 3), np.uint8), views)]     # wrong CAD size
+        if kind == "multiview":
+            bad += [(cad, None), (cad, views[:1]),
+                    (cad, views.astype(np.float32))]
+            # The 1-channel (grayscale) views are taken too.
+            client.close_session(client.open_session(cad, views[..., :1]))
+        else:
+            bad += [(cad, np.zeros((2, 32, 32, 3), np.uint8))]
+        for c, v in bad:
+            with pytest.raises(SessionError) as exc:
+                client.open_session(c, v)
+            assert exc.value.status == 400
+        assert engine.meta()["free_lanes"] == 1           # no lane leaked
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        ref.stop()
+        thread.join(timeout=30)

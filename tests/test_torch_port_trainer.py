@@ -523,6 +523,54 @@ def test_train_cli_runs_an_epoch_on_the_cpu_and_resumes(env):
         engine.stop()
 
 
+@pytest.mark.parametrize("kind", ["multiview", "gencad"])
+def test_train_cli_runs_multiview_and_gencad_configs(env, tmp_path, kind):
+    """cli.train.main end to end on the CPU for a config with views (their
+    PNGs under --multiview_dir, through the batch, the steps and the
+    rollout validation) and for GenCAD (the dataset's Canny edge images,
+    the CAD encoder at 256² frozen at learning rate 0)."""
+    from PIL import Image
+
+    root, store, _ = env
+    overrides = ({"num_views": 2} if kind == "multiview" else
+                 {"use_pretrained_cad_model": True, "vit_patch": 32})
+    model_config = str(tmp_path / "model.json")
+    with open(model_config, "w") as f:
+        json.dump({"tiny": dict(DROPOUT, **overrides, train_config={
+            "experiment_name": kind, "save_frequency": 1,
+            "val_frequency": 1, "seq_val_frequency": 1,
+            "sequential": True})}, f)
+    views = tmp_path / "views"
+    rng = np.random.default_rng(3)
+    splits = load_split_ids(os.path.join(store, "dataset_split.json"))
+    for file_id in sorted(i for ids in splits.values() for i in ids):
+        os.makedirs(views / file_id[:4], exist_ok=True)
+        for view in ("05", "09"):
+            Image.fromarray(rng.integers(0, 256, (32, 32, 3),
+                                         dtype=np.uint8)).save(
+                views / file_id[:4] / f"{file_id}_{view}.png")
+    results = port_cli.main([
+        "--device", "cpu", "--epochs", "1", "--dataset_path", store,
+        "--config_path", os.path.join(store, "dataset_split.json"),
+        "--model_config", model_config, "--model_name", "tiny",
+        "--batch_size", "2", "--buckets", "8", "--lr", "1e-3",
+        "--checkpoint_dir", str(tmp_path / "ckpt"),
+        "--log_dir", str(tmp_path / "logs"), "--multiview_dir", str(views),
+        "--class_weights", os.path.join(root, "none.json")])
+    assert results["total_predictions"] > 0
+    state = torch.load(tmp_path / "ckpt" / kind / "epoch_1" / "state.pt",
+                       weights_only=True)["params"]
+    fresh = create_model(dict(DROPOUT, **overrides)).state_dict()
+    cad = [k for k in state if k.startswith("cad_encoder.")]
+    assert cad and all(k in fresh for k in cad)
+    if kind == "gencad":
+        assert state["cad_encoder.pos_embedding"].shape == (1, 65, 16)
+        assert all(torch.equal(state[k], fresh[k]) for k in cad)
+    else:
+        assert state["embed_multiview.weight"].shape == (32, 2 * 16)
+        assert not all(torch.equal(state[k], fresh[k]) for k in cad)
+
+
 def test_train_cli_refuses_cuda_without_a_card(env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

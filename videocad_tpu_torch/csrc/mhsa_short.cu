@@ -96,6 +96,10 @@
 // What a later version could still do: wgmma with one warpgroup a head (64
 // rows, which is T padded exactly), TMA loads, and several heads per
 // persistent block so that one head's loads overlap the next one's math.
+//
+// Past T = 64 (the GenCAD CAD encoder: T = 65) both variants have a second,
+// wide instantiation up to T = 128, at the end of this file; the kernels
+// above are the T <= 64 ones.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -691,6 +695,648 @@ bool bad_tc(int dtype, int head_dim) {
   return dtype != 1 || head_dim % 16 != 0;
 }
 
+// ---- The wide instantiation: 64 < T <= 128, both variants ----
+//
+// The kernels above stay as they are for T <= 64 (the ViT at 224^2: T =
+// 50). The GenCAD CAD encoder (a 256^2 edge image, patch 32) gives T = 65,
+// which these take. The math, the rounding points, the mask (word j % 4 of
+// Philox4x32-10, key (seed, 0), counter (j / 4, i, h, b): absolute indices,
+// whatever the padding or the warp count) and what is written are those of
+// the T <= 64 kernels; no atomics, and padded rows are never written.
+//   - scalar: a warp per query row, each lane holding the scores of four
+//     keys (lane + 32c); the operands in dynamic shared memory sized by T.
+//     The backward keeps one (T, T) buffer, not two: a pass over the query
+//     rows writes ds and dq, a pass over the key rows dk, a second pass
+//     over the query rows recomputes the weights and writes the dropped
+//     ones into the same buffer, and a last pass over the key rows dv. At
+//     T = 128 that is 194 KB where two buffers would pass the card's 227.
+//   - tc: T padded to a multiple of 16, one warp per 16 query rows (up to
+//     8); a lane holds its two rows' scores for up to 128 keys, 16 key
+//     tiles of 8, as two halves of the T <= 64 core's 8 tiles (keys 0-63
+//     and 64-127), whose row_products and times_tile run once a half and
+//     whose softmax here spans both. The backward's dropped weights and ds
+//     live in (rows, rows + 8) bf16 tiles: 16 bytes of padding a row keep
+//     ldmatrix's row addresses on distinct banks.
+// Both opt in to their dynamic shared memory (up to 54 KB forward, 140 KB
+// backward in tc; 68 KB and 194 KB scalar) on the launching device at every
+// launch.
+
+constexpr int kWideSeq = 128;   // T padded to 128: four key columns a lane
+constexpr int kWideCols = kWideSeq / 32;
+constexpr int kWideWarps = 8;   // the scalar backward's; at most, tc's
+
+__host__ __device__ constexpr int wide_fwd_shared_floats(int seq) {
+  return seq * (kRowStride + kMaxHeadDim) + kWarps * (kMaxHeadDim + kWideSeq);
+}
+
+__host__ __device__ constexpr int wide_bwd_shared_floats(int seq) {
+  return seq * (4 * kRowStride + seq);
+}
+
+// The scaled scores of one query row against keys lane + 32c, c < 4, then
+// the row softmax. Padded key columns get weight 0.
+__device__ __forceinline__ void softmax_row_wide(
+    const float* __restrict__ q_row, const float* __restrict__ ks, int seq,
+    int head_dim, float scale, int lane, float (&w)[kWideCols]) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) {
+    const int j = lane + 32 * c;
+    w[c] = -INFINITY;
+    if (j < seq) {
+      float acc = 0.f;
+      for (int d = 0; d < head_dim; ++d)
+        acc = fmaf(q_row[d], ks[j * kRowStride + d], acc);
+      w[c] = acc * scale;
+    }
+    m = fmaxf(m, w[c]);
+  }
+  m = warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) {
+    w[c] = lane + 32 * c < seq ? expf(w[c] - m) : 0.f;
+    sum += w[c];
+  }
+  sum = warp_sum(sum);
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) w[c] /= sum;
+}
+
+// Rows [0, seq) of one head's (seq, head_dim) slice of a (B, T, H*D)
+// tensor (src at row 0, rows row_stride apart) into a (seq, stride) f32
+// tile.
+template <typename T>
+__device__ __forceinline__ void load_rows_f32(float* tile, int stride,
+                                              const T* __restrict__ src,
+                                              int seq, int head_dim,
+                                              long long row_stride) {
+  for (int idx = threadIdx.x; idx < seq * head_dim; idx += blockDim.x) {
+    const int t = idx / head_dim;
+    const int d = idx - t * head_dim;
+    tile[t * stride + d] = to_f32(src[t * row_stride + d]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+mhsa_short_fwd_scalar_wide_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k,
+                                  const T* __restrict__ v,
+                                  T* __restrict__ o, int seq, int heads,
+                                  int head_dim, float scale, uint32_t seed,
+                                  uint32_t threshold, float inv_keep) {
+  extern __shared__ float wide_shared[];
+  float* ks = wide_shared;                     // (seq, kRowStride)
+  float* vs = ks + seq * kRowStride;           // (seq, kMaxHeadDim)
+  float* qs = vs + seq * kMaxHeadDim;          // (kWarps, kMaxHeadDim)
+  float* ps = qs + kWarps * kMaxHeadDim;       // (kWarps, kWideSeq)
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * head_dim;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * head_dim;
+  load_rows_f32(ks, kRowStride, k + base, seq, head_dim, row_stride);
+  load_rows_f32(vs, kMaxHeadDim, v + base, seq, head_dim, row_stride);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* q_row = qs + warp * kMaxHeadDim;
+  float* p_row = ps + warp * kWideSeq;
+  for (int i = warp; i < seq; i += kWarps) {
+    const long long row = base + i * row_stride;
+    for (int d = lane; d < head_dim; d += 32) q_row[d] = to_f32(q[row + d]);
+    __syncwarp();
+
+    float w[kWideCols];
+    softmax_row_wide(q_row, ks, seq, head_dim, scale, lane, w);
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c) {
+      const int j = lane + 32 * c;
+      if (threshold != 0u)
+        w[c] = dropout_bits(seed, frame, head, i, j) >= threshold
+                   ? w[c] * inv_keep
+                   : 0.f;
+      // Rounded to the I/O dtype before the P V product.
+      if (j < seq) p_row[j] = round_io<T>(w[c]);
+    }
+    __syncwarp();
+
+    for (int d = lane; d < head_dim; d += 32) {
+      float acc = 0.f;
+      for (int j = 0; j < seq; ++j) acc = fmaf(p_row[j], vs[j * kMaxHeadDim + d],
+                                               acc);
+      o[row + d] = from_f32<T>(acc);
+    }
+    __syncwarp();  // q_row and p_row are rewritten by this warp's next row
+  }
+}
+
+// One pass of the wide scalar backward over the key rows: out_j = sum_i
+// buf_ij src_i, a warp per key row j, a lane per column.
+template <typename T>
+__device__ __forceinline__ void wide_key_rows(const float* __restrict__ buf,
+                                              const float* __restrict__ src,
+                                              T* __restrict__ out, int seq,
+                                              int head_dim, long long base,
+                                              long long row_stride, int warp,
+                                              int lane) {
+  for (int j = warp; j < seq; j += kWideWarps)
+    for (int d = lane; d < head_dim; d += 32) {
+      float acc = 0.f;
+      for (int i = 0; i < seq; ++i)
+        acc = fmaf(buf[i * seq + j], src[i * kRowStride + d], acc);
+      out[base + j * row_stride + d] = from_f32<T>(acc);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideWarps * 32)
+mhsa_short_bwd_scalar_wide_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k,
+                                  const T* __restrict__ v,
+                                  const T* __restrict__ g,
+                                  T* __restrict__ dq, T* __restrict__ dk,
+                                  T* __restrict__ dv, int seq, int heads,
+                                  int head_dim, float scale, uint32_t seed,
+                                  uint32_t threshold, float inv_keep) {
+  extern __shared__ float wide_shared[];
+  float* qs = wide_shared;
+  float* ks = qs + seq * kRowStride;
+  float* vs = ks + seq * kRowStride;
+  float* gs = vs + seq * kRowStride;
+  float* buf = gs + seq * kRowStride;   // (seq, seq): ds, then the dropped
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * head_dim;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * head_dim;
+  load_rows_f32(qs, kRowStride, q + base, seq, head_dim, row_stride);
+  load_rows_f32(ks, kRowStride, k + base, seq, head_dim, row_stride);
+  load_rows_f32(vs, kRowStride, v + base, seq, head_dim, row_stride);
+  load_rows_f32(gs, kRowStride, g + base, seq, head_dim, row_stride);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // Pass 1, a warp per query row: the row of ds (I/O-rounded), and dq.
+  for (int i = warp; i < seq; i += kWideWarps) {
+    float w[kWideCols];
+    softmax_row_wide(qs + i * kRowStride, ks, seq, head_dim, scale, lane, w);
+    const float* g_row = gs + i * kRowStride;
+    float dw[kWideCols];
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c) {
+      const int j = lane + 32 * c;
+      float dd = 0.f;   // d_dropped = g_i . v_j
+      if (j < seq)
+        for (int d = 0; d < head_dim; ++d)
+          dd = fmaf(g_row[d], vs[j * kRowStride + d], dd);
+      dw[c] = dd;
+      if (threshold != 0u)
+        dw[c] = dropout_bits(seed, frame, head, i, j) >= threshold
+                    ? dd * inv_keep
+                    : 0.f;
+      // Padded key columns have w = 0: they add nothing, get ds = 0.
+      dot += dw[c] * w[c];
+    }
+    dot = warp_sum(dot);
+    float* ds_row = buf + i * seq;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c) {
+      const int j = lane + 32 * c;
+      if (j < seq) ds_row[j] = round_io<T>(w[c] * (dw[c] - dot) * scale);
+    }
+    __syncwarp();
+    for (int d = lane; d < head_dim; d += 32) {   // dq_i = ds_i k
+      float acc = 0.f;
+      for (int j = 0; j < seq; ++j)
+        acc = fmaf(ds_row[j], ks[j * kRowStride + d], acc);
+      dq[base + i * row_stride + d] = from_f32<T>(acc);
+    }
+  }
+  __syncthreads();
+  // Pass 2: dk_j = sum_i ds_ij q_i.
+  wide_key_rows<T>(buf, qs, dk, seq, head_dim, base, row_stride, warp, lane);
+  __syncthreads();
+  // Pass 3, a warp per query row: the weights again, dropped and
+  // I/O-rounded, over ds.
+  for (int i = warp; i < seq; i += kWideWarps) {
+    float w[kWideCols];
+    softmax_row_wide(qs + i * kRowStride, ks, seq, head_dim, scale, lane, w);
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c) {
+      const int j = lane + 32 * c;
+      if (threshold != 0u)
+        w[c] = dropout_bits(seed, frame, head, i, j) >= threshold
+                   ? w[c] * inv_keep
+                   : 0.f;
+      if (j < seq) buf[i * seq + j] = round_io<T>(w[c]);
+    }
+  }
+  __syncthreads();
+  // Pass 4: dv_j = sum_i dropped_ij g_i.
+  wide_key_rows<T>(buf, gs, dv, seq, head_dim, base, row_stride, warp, lane);
+}
+
+bool bad_wide_shape(int batch, int seq, int heads, int head_dim) {
+  return batch < 1 || seq < 1 || seq > kWideSeq || heads < 1 ||
+         head_dim < 1 || head_dim > kMaxHeadDim ||
+         (long long)batch * heads > 0x7fffffffLL;
+}
+
+// Opt in to ``bytes`` of dynamic shared memory on the current device (the
+// attribute is the device's own), launch, and report a refusal.
+template <typename Kernel, typename... Args>
+int launch_shared(Kernel kernel, dim3 grid, dim3 block, int bytes,
+                  cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd_scalar_wide(const void* q, const void* k, const void* v,
+                           void* o, int batch, int seq, int heads,
+                           int head_dim, float scale, uint32_t seed,
+                           uint32_t threshold, float inv_keep,
+                           cudaStream_t stream) {
+  return launch_shared(
+      mhsa_short_fwd_scalar_wide_kernel<T>, dim3((unsigned)(batch * heads)),
+      dim3(kWarps * 32), wide_fwd_shared_floats(seq) * (int)sizeof(float),
+      stream, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), seq, heads, head_dim,
+      scale, seed, threshold, inv_keep);
+}
+
+template <typename T>
+int launch_bwd_scalar_wide(const void* q, const void* k, const void* v,
+                           const void* g, void* dq, void* dk, void* dv,
+                           int batch, int seq, int heads, int head_dim,
+                           float scale, uint32_t seed, uint32_t threshold,
+                           float inv_keep, cudaStream_t stream) {
+  return launch_shared(
+      mhsa_short_bwd_scalar_wide_kernel<T>, dim3((unsigned)(batch * heads)),
+      dim3(kWideWarps * 32),
+      wide_bwd_shared_floats(seq) * (int)sizeof(float), stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), seq,
+      heads, head_dim, scale, seed, threshold, inv_keep);
+}
+
+// The row softmax of the scores of keys 0-63 (lo) and 64-127 (hi), C
+// layout, unscaled, in place: softmax_rows over both halves. Key columns
+// from seq on get weight 0.
+__device__ __forceinline__ void mask_row_max(float (&s)[8][4], int c0,
+                                             int lane, int seq, float& m0,
+                                             float& m1) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c0 + 8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
+      if (e < 2)
+        m0 = fmaxf(m0, s[n][e]);
+      else
+        m1 = fmaxf(m1, s[n][e]);
+    }
+}
+
+__device__ __forceinline__ void exp_row_sum(float (&s)[8][4], float m0,
+                                            float m1, float scale_log2,
+                                            float& l0, float& l1) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * scale_log2);
+      if (e < 2)
+        l0 += s[n][e];
+      else
+        l1 += s[n][e];
+    }
+}
+
+__device__ __forceinline__ void softmax_rows_wide(float (&lo)[8][4],
+                                                  float (&hi)[8][4],
+                                                  int lane, int seq,
+                                                  float scale_log2) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+  mask_row_max(lo, 0, lane, seq, m0, m1);
+  mask_row_max(hi, 64, lane, seq, m0, m1);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+  exp_row_sum(lo, m0, m1, scale_log2, l0, l1);
+  exp_row_sum(hi, m0, m1, scale_log2, l0, l1);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo[n][e] *= e < 2 ? inv0 : inv1;
+      hi[n][e] *= e < 2 ? inv0 : inv1;
+    }
+}
+
+// The tc tiles of a wide block: q, k, v (and g) as (rows, kTcStride), rows
+// = seq rounded up to 16; in the backward also the dropped weights and ds
+// as (rows, rows + 8).
+__host__ __device__ constexpr int wide_rows(int seq) {
+  return (seq + 15) & ~15;
+}
+__host__ __device__ constexpr int wide_tc_fwd_bytes(int seq) {
+  return 3 * wide_rows(seq) * kTcStride * 2;
+}
+__host__ __device__ constexpr int wide_tc_bwd_bytes(int seq) {
+  return (4 * wide_rows(seq) * kTcStride +
+          2 * wide_rows(seq) * (wide_rows(seq) + 8)) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideWarps * 32)
+mhsa_short_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ o, int seq,
+                              int heads, float scale_log2, uint32_t seed,
+                              uint32_t threshold, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char tc_wide_shared[];
+  const int rows = wide_rows(seq);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_wide_shared);
+  __nv_bfloat16* ks = qs + rows * kTcStride;
+  __nv_bfloat16* vs = ks + rows * kTcStride;
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * D;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * D;
+  load_tile<D>(qs, q + base, seq, rows, row_stride);
+  load_tile<D>(ks, k + base, seq, rows, row_stride);
+  load_tile<D>(vs, v + base, seq, rows, row_stride);
+  wait_loads();
+  __syncthreads();
+
+  // rows / 16 warps: each owns 16 query rows, at least one of them real.
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  constexpr int kHalf = 64 * kTcStride;   // key rows 64.. of a tile
+
+  float lo[8][4] = {}, hi[8][4] = {};
+  row_products<D>(qs, ks, r0, lane, seq, lo);
+  row_products<D>(qs, ks + kHalf, r0, lane, seq - 64, hi);
+  softmax_rows_wide(lo, hi, lane, seq, scale_log2);
+  uint32_t keep_lo = 0xffffffffu, keep_hi = 0xffffffffu;
+  if (threshold != 0u) {
+    keep_lo = keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
+                           threshold);
+    keep_hi = keep_bits<8>(seed, 0u, frame, head, r0, 64, lane, seq,
+                           threshold);
+  }
+  // Dropped (inv_keep is 1 without dropout) and rounded to bf16 where the
+  // plain version rounds, as the A fragments of P V.
+  uint32_t p_lo[4][4], p_hi[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo[n][e] = (keep_lo >> (4 * n + e)) & 1u ? lo[n][e] * inv_keep : 0.f;
+      hi[n][e] = (keep_hi >> (4 * n + e)) & 1u ? hi[n][e] * inv_keep : 0.f;
+    }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    to_a_fragment(lo[2 * kk], lo[2 * kk + 1], p_lo[kk]);
+    to_a_fragment(hi[2 * kk], hi[2 * kk + 1], p_hi[kk]);
+  }
+
+  float acc[D / 8][4] = {};
+  times_tile<D>(p_lo, vs, lane, seq, acc);
+  times_tile<D>(p_hi, vs + kHalf, lane, seq - 64, acc);
+  // The warp's q rows are read by no one now: they stage its output.
+  __nv_bfloat16* staging = qs + r0 * kTcStride;
+  stage_rows<D>(acc, staging, lane);
+  store_rows<D>(staging, o + base, r0, seq, row_stride, lane);
+}
+
+// One half (keys c0.., c0 = 0 or 64) of the wide backward's pass 1: the
+// dropped weights and ds of the warp's rows into their (rows, rows + 8)
+// tiles as bf16, and ds as the A fragments of dq = ds k. Padded query rows
+// get zero weights and ds; key tiles from ``rows`` on are not stored.
+__device__ __forceinline__ void wide_p_ds(
+    const float (&w)[8][4], const float (&dw)[8][4], uint32_t keep, int c0,
+    float dot0, float dot1, bool upper, bool lower, float scale,
+    float inv_keep, __nv_bfloat16* ps, __nv_bfloat16* dss, int pstride,
+    int rows, int r0, int lane, uint32_t (&ds_frag)[4][4]) {
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float pv[4], dsv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool row_ok = e < 2 ? upper : lower;
+      const bool kept = (keep >> (4 * n + e)) & 1u;
+      pv[e] = row_ok && kept ? w[n][e] * inv_keep : 0.f;
+      dsv[e] = row_ok ? w[n][e] * (dw[n][e] - (e < 2 ? dot0 : dot1)) * scale
+                      : 0.f;
+    }
+    const uint32_t ds_upper = pack_bf16(dsv[0], dsv[1]);
+    const uint32_t ds_lower = pack_bf16(dsv[2], dsv[3]);
+    // As to_a_fragment lays out key tiles n & ~1 and n | 1.
+    ds_frag[n >> 1][(n & 1) * 2] = ds_upper;
+    ds_frag[n >> 1][(n & 1) * 2 + 1] = ds_lower;
+    if (c0 + 8 * n >= rows) continue;
+    const int at = (r0 + gr) * pstride + c0 + 8 * n + 2 * t;
+    *reinterpret_cast<uint32_t*>(ps + at) = pack_bf16(pv[0], pv[1]);
+    *reinterpret_cast<uint32_t*>(ps + at + 8 * pstride) =
+        pack_bf16(pv[2], pv[3]);
+    *reinterpret_cast<uint32_t*>(dss + at) = ds_upper;
+    *reinterpret_cast<uint32_t*>(dss + at + 8 * pstride) = ds_lower;
+  }
+}
+
+__device__ __forceinline__ void drop_and_dot(float (&dw)[8][4],
+                                             const float (&w)[8][4],
+                                             uint32_t keep, float inv_keep,
+                                             float& dot0, float& dot1) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dw[n][e] = (keep >> (4 * n + e)) & 1u ? dw[n][e] * inv_keep : 0.f;
+      if (e < 2)
+        dot0 += dw[n][e] * w[n][e];
+      else
+        dot1 += dw[n][e] * w[n][e];
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideWarps * 32)
+mhsa_short_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ g,
+                              __nv_bfloat16* __restrict__ dq,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int seq,
+                              int heads, float scale, float scale_log2,
+                              uint32_t seed, uint32_t threshold,
+                              float inv_keep) {
+  extern __shared__ __align__(16) unsigned char tc_wide_shared[];
+  const int rows = wide_rows(seq);
+  const int pstride = rows + 8;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_wide_shared);
+  __nv_bfloat16* ks = qs + rows * kTcStride;
+  __nv_bfloat16* vs = ks + rows * kTcStride;
+  __nv_bfloat16* gs = vs + rows * kTcStride;
+  __nv_bfloat16* ps = gs + rows * kTcStride;   // dropped (query, key)
+  __nv_bfloat16* dss = ps + rows * pstride;    // ds (query, key)
+
+  const int frame = blockIdx.x / heads;
+  const int head = blockIdx.x - frame * heads;
+  const long long row_stride = (long long)heads * D;
+  const long long base =
+      (long long)frame * seq * row_stride + (long long)head * D;
+  load_tile<D>(qs, q + base, seq, rows, row_stride);
+  load_tile<D>(ks, k + base, seq, rows, row_stride);
+  load_tile<D>(vs, v + base, seq, rows, row_stride);
+  load_tile<D>(gs, g + base, seq, rows, row_stride);
+  wait_loads();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  constexpr int kHalf = 64 * kTcStride;
+
+  // Pass 1, a warp per 16 query rows: the weights, the mask, dP, ds, dq.
+  {
+    float w_lo[8][4] = {}, w_hi[8][4] = {};
+    row_products<D>(qs, ks, r0, lane, seq, w_lo);
+    row_products<D>(qs, ks + kHalf, r0, lane, seq - 64, w_hi);
+    softmax_rows_wide(w_lo, w_hi, lane, seq, scale_log2);
+    uint32_t keep_lo = 0xffffffffu, keep_hi = 0xffffffffu;
+    if (threshold != 0u) {
+      keep_lo = keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
+                             threshold);
+      keep_hi = keep_bits<8>(seed, 0u, frame, head, r0, 64, lane, seq,
+                             threshold);
+    }
+    float dw_lo[8][4] = {}, dw_hi[8][4] = {};   // d_dropped = g v^T
+    row_products<D>(gs, vs, r0, lane, seq, dw_lo);
+    row_products<D>(gs, vs + kHalf, r0, lane, seq - 64, dw_hi);
+    float dot0 = 0.f, dot1 = 0.f;
+    drop_and_dot(dw_lo, w_lo, keep_lo, inv_keep, dot0, dot1);
+    drop_and_dot(dw_hi, w_hi, keep_hi, inv_keep, dot0, dot1);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, off);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, off);
+    }
+    const bool upper = r0 + gr < seq, lower = r0 + gr + 8 < seq;
+    uint32_t ds_lo[4][4], ds_hi[4][4];
+    wide_p_ds(w_lo, dw_lo, keep_lo, 0, dot0, dot1, upper, lower, scale,
+              inv_keep, ps, dss, pstride, rows, r0, lane, ds_lo);
+    wide_p_ds(w_hi, dw_hi, keep_hi, 64, dot0, dot1, upper, lower, scale,
+              inv_keep, ps, dss, pstride, rows, r0, lane, ds_hi);
+    float acc[D / 8][4] = {};
+    times_tile<D>(ds_lo, ks, lane, seq, acc);   // dq = ds k
+    times_tile<D>(ds_hi, ks + kHalf, lane, seq - 64, acc);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      __nv_bfloat16* at = dq + base + 8 * n + 2 * t;
+      if (upper)
+        *reinterpret_cast<uint32_t*>(at + (r0 + gr) * row_stride) =
+            pack_bf16(acc[n][0], acc[n][1]);
+      if (lower)
+        *reinterpret_cast<uint32_t*>(at + (r0 + gr + 8) * row_stride) =
+            pack_bf16(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+
+  // Pass 2, a warp per 16 key rows j from r0: dv = P^T g, dk = ds^T q.
+  float acc_v[D / 8][4] = {}, acc_k[D / 8][4] = {};
+  for (int kk = 0; 16 * kk < seq; ++kk) {   // query rows 16kk..16kk+15
+    // The A fragments of P^T and ds^T: P and ds read transposed.
+    const int at = (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * pstride +
+                   r0 + ((lane >> 3) & 1) * 8;
+    uint32_t a_p[4], a_ds[4];
+    ldsm_x4_trans(ps + at, a_p);
+    ldsm_x4_trans(dss + at, a_ds);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      const int bt =
+          (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kTcStride + 8 * n +
+          (lane >> 4) * 8;
+      uint32_t bf[4];
+      ldsm_x4_trans(gs + bt, bf);
+      mma_bf16(acc_v[n], a_p, bf[0], bf[1]);
+      mma_bf16(acc_v[n + 1], a_p, bf[2], bf[3]);
+      ldsm_x4_trans(qs + bt, bf);
+      mma_bf16(acc_k[n], a_ds, bf[0], bf[1]);
+      mma_bf16(acc_k[n + 1], a_ds, bf[2], bf[3]);
+    }
+  }
+  // k and v are read by no one in this pass: their rows r0.. stage dk and
+  // dv.
+  stage_rows<D>(acc_k, ks + r0 * kTcStride, lane);
+  stage_rows<D>(acc_v, vs + r0 * kTcStride, lane);
+  store_rows<D>(ks + r0 * kTcStride, dk + base, r0, seq, row_stride, lane);
+  store_rows<D>(vs + r0 * kTcStride, dv + base, r0, seq, row_stride, lane);
+}
+
+template <int D>
+int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* o,
+                       int batch, int seq, int heads, float scale,
+                       uint32_t seed, uint32_t threshold, float inv_keep,
+                       cudaStream_t stream) {
+  return launch_shared(
+      mhsa_short_fwd_tc_wide_kernel<D>, dim3((unsigned)(batch * heads)),
+      dim3(wide_rows(seq) / 16 * 32), wide_tc_fwd_bytes(seq), stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      seq, heads, scale * 1.4426950408889634f, seed, threshold, inv_keep);
+}
+
+template <int D>
+int launch_bwd_tc_wide(const void* q, const void* k, const void* v,
+                       const void* g, void* dq, void* dk, void* dv, int batch,
+                       int seq, int heads, float scale, uint32_t seed,
+                       uint32_t threshold, float inv_keep,
+                       cudaStream_t stream) {
+  return launch_shared(
+      mhsa_short_bwd_tc_wide_kernel<D>, dim3((unsigned)(batch * heads)),
+      dim3(wide_rows(seq) / 16 * 32), wide_tc_bwd_bytes(seq), stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dq),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq,
+      heads, scale, scale * 1.4426950408889634f, seed, threshold, inv_keep);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors are contiguous (batch, seq,
@@ -805,5 +1451,114 @@ extern "C" int mhsa_short_tc_bwd(const void* q, const void* k, const void* v,
     default:
       return launch_bwd_tc<64>(q, k, v, g, dq, dk, dv, batch, seq, heads,
                                scale, seed, drop.threshold, drop.inv_keep, s);
+  }
+}
+
+// The wide instantiation (1 <= seq <= 128; the wrapper takes it for
+// 64 < seq), scalar: float32 or bfloat16, any head_dim up to 64; otherwise
+// as mhsa_short_fwd.
+extern "C" int mhsa_short_wide_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int batch,
+                                   int seq, int heads, int head_dim,
+                                   int dtype, unsigned int seed, double rate,
+                                   void* stream) {
+  if (bad_wide_shape(batch, seq, heads, head_dim) || bad_rate(rate))
+    return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fwd_scalar_wide<float>(q, k, v, o, batch, seq, heads,
+                                         head_dim, scale, seed,
+                                         drop.threshold, drop.inv_keep, s);
+  if (dtype == 1)
+    return launch_fwd_scalar_wide<__nv_bfloat16>(
+        q, k, v, o, batch, seq, heads, head_dim, scale, seed, drop.threshold,
+        drop.inv_keep, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide scalar backward, under the same conditions.
+extern "C" int mhsa_short_wide_bwd(const void* q, const void* k,
+                                   const void* v, const void* g, void* dq,
+                                   void* dk, void* dv, int batch, int seq,
+                                   int heads, int head_dim, int dtype,
+                                   unsigned int seed, double rate,
+                                   void* stream) {
+  if (bad_wide_shape(batch, seq, heads, head_dim) || bad_rate(rate))
+    return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd_scalar_wide<float>(q, k, v, g, dq, dk, dv, batch, seq,
+                                         heads, head_dim, scale, seed,
+                                         drop.threshold, drop.inv_keep, s);
+  if (dtype == 1)
+    return launch_bwd_scalar_wide<__nv_bfloat16>(
+        q, k, v, g, dq, dk, dv, batch, seq, heads, head_dim, scale, seed,
+        drop.threshold, drop.inv_keep, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide instantiation of the tc variant: bf16, head_dim a multiple of 16
+// up to 64, 1 <= seq <= 128, every pointer 16-byte aligned.
+extern "C" int mhsa_short_tc_wide_fwd(const void* q, const void* k,
+                                      const void* v, void* o, int batch,
+                                      int seq, int heads, int head_dim,
+                                      int dtype, unsigned int seed,
+                                      double rate, void* stream) {
+  if (bad_wide_shape(batch, seq, heads, head_dim) ||
+      bad_tc(dtype, head_dim) || bad_rate(rate))
+    return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_fwd_tc_wide<16>(q, k, v, o, batch, seq, heads, scale,
+                                    seed, drop.threshold, drop.inv_keep, s);
+    case 32:
+      return launch_fwd_tc_wide<32>(q, k, v, o, batch, seq, heads, scale,
+                                    seed, drop.threshold, drop.inv_keep, s);
+    case 48:
+      return launch_fwd_tc_wide<48>(q, k, v, o, batch, seq, heads, scale,
+                                    seed, drop.threshold, drop.inv_keep, s);
+    default:
+      return launch_fwd_tc_wide<64>(q, k, v, o, batch, seq, heads, scale,
+                                    seed, drop.threshold, drop.inv_keep, s);
+  }
+}
+
+// The wide tc backward, under the same conditions.
+extern "C" int mhsa_short_tc_wide_bwd(const void* q, const void* k,
+                                      const void* v, const void* g, void* dq,
+                                      void* dk, void* dv, int batch, int seq,
+                                      int heads, int head_dim, int dtype,
+                                      unsigned int seed, double rate,
+                                      void* stream) {
+  if (bad_wide_shape(batch, seq, heads, head_dim) ||
+      bad_tc(dtype, head_dim) || bad_rate(rate))
+    return (int)cudaErrorInvalidValue;
+  const DropoutArgs drop = dropout_args(rate);
+  const float scale = score_scale(head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_bwd_tc_wide<16>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                                    scale, seed, drop.threshold,
+                                    drop.inv_keep, s);
+    case 32:
+      return launch_bwd_tc_wide<32>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                                    scale, seed, drop.threshold,
+                                    drop.inv_keep, s);
+    case 48:
+      return launch_bwd_tc_wide<48>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                                    scale, seed, drop.threshold,
+                                    drop.inv_keep, s);
+    default:
+      return launch_bwd_tc_wide<64>(q, k, v, g, dq, dk, dv, batch, seq, heads,
+                                    scale, seed, drop.threshold,
+                                    drop.inv_keep, s);
   }
 }

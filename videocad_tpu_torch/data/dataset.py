@@ -4,8 +4,9 @@ Port of ``videocad_tpu/data/dataset.py``. Reads the on-disk layout
 ``<root>/<id[:4]>/<id>_data.pkl`` holding ``{"frames", "actions",
 "timesteps"}`` plus CAD PNGs, and ``dataset_split.json`` naming the train,
 val and test ids. Host side, numpy only; the move to the device happens in
-``videocad_tpu_torch.data.pipeline``. The GenCAD CAD-image branch and the
-multiview branch are not ported yet (ROADMAP slice 11), as in the model.
+``videocad_tpu_torch.data.pipeline``. The GenCAD CAD-image branch
+(``gencad=True``) needs OpenCV for its Canny edges (``cv2``, imported only
+there); the multiview branch (``view_ids``) reads one PNG a view.
 """
 
 from __future__ import annotations
@@ -100,6 +101,43 @@ def resize_u8(img: np.ndarray, size_hw) -> np.ndarray:
     return np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
 
 
+def gencad_cad_image(rgb: np.ndarray) -> np.ndarray:
+    """The GenCAD CAD-image branch, host side: Canny(100, 200) ->
+    3-channel -> resize (shorter edge 256, bilinear) -> centre crop 256,
+    returning uint8 (256, 256, 3). The normalization to [-1, 1] happens on
+    the device (``ops/preprocess.py:normalize_only``).
+
+    torchvision's Resize / CenterCrop semantics, on the RGB image the
+    loader reads. Needs OpenCV (``cv2``), imported here only."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            "the GenCAD CAD-image branch (gencad=True, "
+            "use_pretrained_cad_model) needs OpenCV (cv2) for its Canny "
+            "edges, and it is not installed") from exc
+    from PIL import Image
+
+    edges = cv2.Canny(rgb, 100, 200)
+    img = np.repeat(edges[:, :, None], 3, axis=2)
+    h, w = img.shape[:2]
+    # Resize(256): the shorter edge to 256, the other scaled, bilinear.
+    if h <= w:
+        nh, nw = 256, int(256 * w / h)
+    else:
+        nh, nw = int(256 * h / w), 256
+    pil = Image.fromarray(img).resize((nw, nh), Image.BILINEAR)
+    # CenterCrop(256).
+    left = int(round((nw - 256) / 2.0))
+    top = int(round((nh - 256) / 2.0))
+    return np.asarray(pil.crop((left, top, left + 256, top + 256)))
+
+
+def _view_path(base_dir: str, file_id: str, view_id: str) -> str:
+    """``<base>/<id[:4]>/<id>_<view>.png``: views live in a store root."""
+    return os.path.join(base_dir, file_id[:4], f"{file_id}_{view_id}.png")
+
+
 class VideoCADDataset:
     """Per-sequence access: index -> {frames u8, actions, cad_image u8, id}."""
 
@@ -108,24 +146,23 @@ class VideoCADDataset:
                  view_ids: Optional[Sequence[str]] = None,
                  multiview_dir: Optional[str] = None, seed: int = 0,
                  image_size: Optional[int] = None, gencad: bool = False):
-        """``image_size``: target (square) resolution; frames and the CAD
-        image are resized at load when they differ. None resizes the CAD
-        image to the frames' resolution (a store whose PNGs differ in size
-        must still collate) and leaves the frames as stored."""
-        if gencad:
-            raise NotImplementedError(
-                "the GenCAD CAD-image branch (gencad=True) is not ported yet "
-                "(ROADMAP slice 11)")
-        if view_ids or multiview_dir:
-            raise NotImplementedError(
-                "multiview images (view_ids, multiview_dir) are not ported "
-                "yet (ROADMAP slice 11)")
+        """``image_size``: target (square) resolution; frames, the CAD
+        image and the views are resized at load when they differ. None
+        resizes the CAD image and the views to the frames' resolution (a
+        store whose PNGs differ in size must still collate) and leaves the
+        frames as stored. ``gencad``: the CAD image is the 256 x 256 x 3
+        Canny edge image (:func:`gencad_cad_image`). ``view_ids``: the
+        views each item carries as ``multiview_images`` (V, H, W, 3), read
+        from ``multiview_dir`` (a store root; default: the dataset's)."""
         self.data_files = scan_dataset(dataset_path, ids)
         if not self.data_files:
             raise ValueError(f"No *_data.pkl under {dataset_path}")
         self.image_loader = ImageLoader(image_dir or dataset_path,
                                         enable_random, seed)
+        self.view_ids = list(view_ids) if view_ids else []
+        self.multiview_dir = multiview_dir
         self.image_size = image_size
+        self.gencad = gencad
 
     def __len__(self) -> int:
         return len(self.data_files)
@@ -145,13 +182,44 @@ class VideoCADDataset:
                                for f in frames])
         target = ((self.image_size,) * 2 if self.image_size
                   else tuple(frames.shape[1:3]))
-        cad = resize_u8(self.image_loader.get_image(file_id), target)
-        return {
+        cad = self.image_loader.get_image(file_id)
+        cad = gencad_cad_image(cad) if self.gencad else resize_u8(cad,
+                                                                  target)
+        item = {
             "frames": frames,
             "actions": np.asarray(data["actions"], dtype=np.float32),
             "cad_image": cad,
             "id": file_id,
         }
+        if self.view_ids:
+            base_dir = self._views_root(idx)
+            item["multiview_images"] = np.stack([
+                resize_u8(read_image(_view_path(base_dir, file_id, view)),
+                          target) for view in self.view_ids])
+        return item
+
+    def _views_root(self, idx: int) -> str:
+        """The store root the views of item ``idx`` live under:
+        ``multiview_dir``, else the dataset root above the item's
+        ``<id[:4]>`` folder."""
+        return self.multiview_dir or os.path.dirname(
+            os.path.dirname(self.data_files[idx]))
+
+    def check_multiview_availability(self):
+        """Check that every item has every requested view PNG, up front;
+        raises listing what is missing."""
+        missing = {}
+        for idx in range(len(self)):
+            file_id = self.sequence_id(idx)
+            base_dir = self._views_root(idx)
+            for view in self.view_ids:
+                if not os.path.exists(_view_path(base_dir, file_id, view)):
+                    missing.setdefault(file_id, []).append(view)
+        if missing:
+            examples = "; ".join(
+                f"{fid}: {views}" for fid, views in list(missing.items())[:5])
+            raise ValueError(
+                f"{len(missing)} samples missing requested views ({examples})")
 
     def validate(self, indices: Optional[Sequence[int]] = None):
         """Check the stored actions' ranges, on demand; raises on the first

@@ -19,7 +19,7 @@ Use the returned carry; it is the same dict.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,14 +39,17 @@ def _require_incremental_support(cfg) -> None:
 
 
 def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
-                   device=None) -> Dict:
+                   device=None, multiview: bool = False) -> Dict:
     """Allocate an all-lanes-idle carry for ``lanes`` concurrent sessions
     on ``device`` (default: the model's):
 
       t (L,) int64          per-lane step counter
       active (L,) bool      lane occupancy (gates every state write)
       action (L, 7) f32     per-lane previous action (zero-action start)
-      cad_stream (L, W)     per-lane constant CAD features
+      cad_stream (L, W)     per-lane constant CAD features: W = hidden, or
+                            2 * hidden when ``multiview`` and the model has
+                            views (the sessions then bring their
+                            multiview images)
       self_kv / mem_kv      per-layer (L, seq_len, H, D) caches
     """
     cfg = model.config
@@ -54,6 +57,7 @@ def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
     device = torch.device(device) if device is not None else model.device
     dtype = cfg.compute_dtype
     hd = cfg.hidden_size // cfg.nhead
+    streams = 2 if multiview and cfg.num_views > 0 else 1
 
     def kv():
         shape = (lanes, seq_len, cfg.nhead, hd)
@@ -64,8 +68,8 @@ def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
         "t": torch.zeros((lanes,), dtype=torch.int64, device=device),
         "active": torch.zeros((lanes,), dtype=torch.bool, device=device),
         "action": torch.zeros((lanes, ACT_DIM), device=device),
-        "cad_stream": torch.zeros((lanes, cfg.hidden_size), dtype=dtype,
-                                  device=device),
+        "cad_stream": torch.zeros((lanes, streams * cfg.hidden_size),
+                                  dtype=dtype, device=device),
         "self_kv": [kv() for _ in range(cfg.num_decoder_layers)],
         "mem_kv": [kv() for _ in range(cfg.num_decoder_layers)],
     }
@@ -73,11 +77,14 @@ def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
 
 @torch.no_grad()
 def open_lane(model: nn.Module, carry: Dict, lane: int,
-              cad_image: torch.Tensor) -> Dict:
+              cad_image: torch.Tensor,
+              multiview_images: Optional[torch.Tensor] = None) -> Dict:
     """Claim ``lane`` for a new session: encode its CAD context (batch 1,
-    once per session) and reset the lane's counter, action and caches, in
-    place. Other lanes' state is untouched."""
-    cad_stream = model.encode_cad_stream(cad_image)            # (1, W)
+    once per session: the CAD image (1, H, W, C), and the multiview images
+    (1, V, H, W, C) of a multiview carry) and reset the lane's counter,
+    action and caches, in place. Other lanes' state is untouched."""
+    cad_stream = model.encode_cad_stream(cad_image,
+                                         multiview_images)     # (1, W)
     carry["t"][lane] = 0
     carry["active"][lane] = True
     carry["action"][lane] = 0.0

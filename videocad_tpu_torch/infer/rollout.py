@@ -253,14 +253,19 @@ def next_actions(cmd_logits: torch.Tensor,
 @torch.no_grad()
 def sequential_inference(model: nn.Module, frames: torch.Tensor,
                          cad_image: torch.Tensor, action: bool = True,
-                         weight_quant: str = "none"
+                         weight_quant: str = "none",
+                         multiview_images: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step-by-step rollout (reference API).
 
     frames: (B, T, H, W, C) ground-truth UI frames (uint8 or normalized
-    float); cad_image: (B, H, W, C). Both move to the model's device.
-    Returns ((B, T, 5) cmd logits, (B, T, 6, 1000) param logits): each
-    step's logits.
+    float); cad_image: (B, H, W, C); multiview_images: (B, V, H, W, C) for
+    a multiview model. All move to the model's device. Returns ((B, T, 5)
+    cmd logits, (B, T, 6, 1000) param logits): each step's logits.
+
+    A model without action feedback (``enable_past_actions`` off, the
+    decision transformer too) has no sequential dependency: one
+    teacher-forced pass gives every step's logits.
     """
     if weight_quant != "none":
         raise NotImplementedError(
@@ -270,16 +275,20 @@ def sequential_inference(model: nn.Module, frames: torch.Tensor,
     device = model.device
     frames = torch.as_tensor(frames, device=device)
     cad_image = torch.as_tensor(cad_image, device=device)
+    if multiview_images is not None:
+        multiview_images = torch.as_tensor(multiview_images, device=device)
     b, seq_len = frames.shape[:2]
 
     if not cfg.enable_past_actions:
-        # Without action feedback the rollout has no sequential dependency:
-        # one teacher-forced pass gives every step's logits.
-        zeros = torch.zeros((b, seq_len, ACT_DIM), device=device)
-        return model({"frames": frames, "cad_image": cad_image,
-                      "actions": zeros})
+        inputs = {"frames": frames, "cad_image": cad_image,
+                  "actions": torch.zeros((b, seq_len, ACT_DIM),
+                                         device=device)}
+        if multiview_images is not None:
+            inputs["multiview_images"] = multiview_images
+        return model(inputs)
 
-    memory, _ = model.encode_context(cad_image, frames, seq_len)
+    memory, _ = model.encode_context(cad_image, frames, multiview_images,
+                                     seq_len)
     dtype = cfg.compute_dtype
     params = param_tree(model)
     # Memory K/V with the float32 weights, then cast (JAX's dtype flow).

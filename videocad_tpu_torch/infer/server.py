@@ -6,7 +6,8 @@ protocol is identical, so ``ServingClient`` talks to either server:
   GET    /v1/meta                      model/config/capacity info
   GET    /v1/stats                     serving telemetry (ticks, steps,
                                        coalescing factor, tick latency)
-  POST   /v1/sessions                  {"cad_image": npy_b64}
+  POST   /v1/sessions                  {"cad_image": npy_b64
+                                        [, "multiview_images": npy_b64]}
                                        -> {"session_id": ..., "lane": ...}
   POST   /v1/sessions/<id>/step        {"frame": npy_b64}
                                        -> {"step": t, "cmd": c,
@@ -42,6 +43,7 @@ import torch
 from videocad_tpu_torch.infer.multiplex import (close_lane, init_mux_carry,
                                                 mux_decode_step, open_lane)
 from videocad_tpu_torch.infer.rollout import prepare_for_decode
+from videocad_tpu_torch.models.videocadformer import GENCAD_IMAGE_SHAPE
 
 
 def np_to_b64(arr: np.ndarray) -> str:
@@ -94,7 +96,8 @@ class MuxEngine:
         self.device = model.device
         self.params = prepare_for_decode(model)
         self.weight_quant = weight_quant
-        self._carry = init_mux_carry(model, lanes, seq_len)
+        self._carry = init_mux_carry(model, lanes, seq_len,
+                                     multiview=model.config.num_views > 0)
         self.lanes = lanes
         self.seq_len = seq_len
         self.session_ttl_s = session_ttl_s
@@ -143,16 +146,9 @@ class MuxEngine:
                          "--lanes")
             lane = self._free.pop()
             try:
-                cad = np.asarray(cad_image)
-                if cad.shape != self._img or cad.dtype != np.uint8:
-                    raise SessionError(
-                        400, f"cad_image must be uint8 {self._img}, "
-                             f"got {cad.dtype} {cad.shape}")
-                if multiview_images is not None:
-                    raise SessionError(400, "model takes no multiview_images")
-                self._carry = open_lane(
-                    self.model, self._carry, lane,
-                    torch.from_numpy(cad).to(self.device)[None])
+                self._carry = open_lane(self.model, self._carry, lane,
+                                        *self._session_inputs(
+                                            cad_image, multiview_images))
             except Exception:
                 self._free.append(lane)   # bad input must not leak the lane
                 raise
@@ -161,6 +157,38 @@ class MuxEngine:
                                 "last_used": time.monotonic()}
             self._stats["sessions_opened"] += 1
         return sid, lane
+
+    def _session_inputs(self, cad_image, multiview_images):
+        """A session's CAD image (1, H, W, C) and multiview images
+        (1, V, H, W, C) or None, on the device, checked as the JAX
+        server checks them: the CAD image uint8 256 x 256 x 3 under GenCAD
+        and frame-sized otherwise; multiview images uint8 (V, H, W, C)
+        for a model of V views (C 3, as the JAX server takes them, or 1:
+        the grayscale renders), refused for a model without views."""
+        cfg = self.model.config
+        want = (GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model
+                else self._img)
+        cad = np.asarray(cad_image)
+        if cad.shape != want or cad.dtype != np.uint8:
+            raise SessionError(400, f"cad_image must be uint8 {want}, "
+                                    f"got {cad.dtype} {cad.shape}")
+        mv = None
+        if cfg.num_views > 0:
+            if multiview_images is None:
+                raise SessionError(
+                    400, f"model expects {cfg.num_views} multiview_images")
+            mv = np.asarray(multiview_images)
+            size = self._img[0]
+            if (mv.ndim != 4 or mv.shape[:3] != (cfg.num_views, size, size)
+                    or mv.shape[3] not in (1, 3) or mv.dtype != np.uint8):
+                raise SessionError(
+                    400, f"multiview_images must be uint8 "
+                         f"{(cfg.num_views, size, size)} + (1 or 3 "
+                         f"channels,), got {mv.dtype} {mv.shape}")
+            mv = torch.from_numpy(mv).to(self.device)[None]
+        elif multiview_images is not None:
+            raise SessionError(400, "model takes no multiview_images")
+        return torch.from_numpy(cad).to(self.device)[None], mv
 
     def step(self, session_id: str, frame: np.ndarray) -> Dict:
         with self._lock:
@@ -431,6 +459,38 @@ class ServingClient:
         if multiview_images is not None:
             payload["multiview_images"] = np_to_b64(multiview_images)
         return self._request("POST", "/v1/sessions", payload)["session_id"]
+
+    def _session_inputs(self, cad_image, multiview_images):
+        """A session's CAD image (1, H, W, C) and multiview images
+        (1, V, H, W, C) or None, on the device, checked as the JAX
+        server checks them: the CAD image uint8 256 x 256 x 3 under GenCAD
+        and frame-sized otherwise; multiview images uint8 (V, H, W, C)
+        for a model of V views (C 3, as the JAX server takes them, or 1:
+        the grayscale renders), refused for a model without views."""
+        cfg = self.model.config
+        want = (GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model
+                else self._img)
+        cad = np.asarray(cad_image)
+        if cad.shape != want or cad.dtype != np.uint8:
+            raise SessionError(400, f"cad_image must be uint8 {want}, "
+                                    f"got {cad.dtype} {cad.shape}")
+        mv = None
+        if cfg.num_views > 0:
+            if multiview_images is None:
+                raise SessionError(
+                    400, f"model expects {cfg.num_views} multiview_images")
+            mv = np.asarray(multiview_images)
+            size = self._img[0]
+            if (mv.ndim != 4 or mv.shape[:3] != (cfg.num_views, size, size)
+                    or mv.shape[3] not in (1, 3) or mv.dtype != np.uint8):
+                raise SessionError(
+                    400, f"multiview_images must be uint8 "
+                         f"{(cfg.num_views, size, size)} + (1 or 3 "
+                         f"channels,), got {mv.dtype} {mv.shape}")
+            mv = torch.from_numpy(mv).to(self.device)[None]
+        elif multiview_images is not None:
+            raise SessionError(400, "model takes no multiview_images")
+        return torch.from_numpy(cad).to(self.device)[None], mv
 
     def step(self, session_id: str, frame: np.ndarray) -> Dict:
         return self._request("POST", f"/v1/sessions/{session_id}/step",

@@ -4,8 +4,9 @@ The port's parameter names follow the JAX parameter tree, so the map is
 mechanical: the tree's path joined by ``.`` is the state_dict key, with
 three leaf renames:
 
-  * ``kernel`` (in, out)  -> ``weight`` (out, in), transposed;
-  * ``scale`` (LayerNorm) -> ``weight``;
+  * ``kernel`` -> ``weight``: a dense (in, out) kernel transposed to
+    (out, in), a convolution's HWIO kernel to torch's OIHW;
+  * ``scale`` (LayerNorm, GroupNorm) -> ``weight``;
   * ``embedding`` (Embed) -> ``weight``.
 
 ``decoder/layers_3/cross_attn/key/kernel`` thus becomes
@@ -30,6 +31,9 @@ import numpy as np
 import torch
 
 _LEAF_RENAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+# The models' flax ``Embed`` modules (VideoCADFormer's, the decision
+# transformer's): their 2-D ``weight`` is an ``embedding``, not a kernel.
+_EMBED_MODULES = ("timestep_embedding", "embed_timestep")
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -47,10 +51,13 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.asarray(leaf, dtype=np.float32)
         name = path[-1]
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel, "
-                                 f"got shape {arr.shape}")
-            arr = arr.T
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)       # HWIO -> OIHW
+            else:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D or 4-D "
+                                 f"kernel, got shape {arr.shape}")
         key = ".".join(path[:-1] + (_LEAF_RENAMES.get(name, name),))
         if key in out:
             raise ValueError(f"two JAX leaves map to {key}")
@@ -63,18 +70,20 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]
     """The inverse of :func:`state_dict_from_jax`, to numpy: a state_dict
     (or any name -> tensor map of that layout, such as the gradients) ->
     the JAX tree of float32 arrays. A ``weight`` becomes ``kernel``
-    (transposed) when it is 2-D, ``scale`` when it is 1-D, and
-    ``embedding`` when its module's name ends in ``embedding`` (the
-    model's flax ``Embed`` modules)."""
+    when it is 2-D (transposed) or 4-D (OIHW -> HWIO), ``scale`` when it
+    is 1-D, and ``embedding`` when its module is one of the models' flax
+    ``Embed`` modules (``_EMBED_MODULES``)."""
     flat = {}
     for key, value in state_dict.items():
         arr = value.detach().to(torch.float32).cpu().numpy()
         *path, name = key.split(".")
         if name == "weight":
-            if path and path[-1].endswith("embedding"):
+            if path and path[-1] in _EMBED_MODULES:
                 name = "embedding"
             elif arr.ndim == 2:
                 name, arr = "kernel", arr.T
+            elif arr.ndim == 4:
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
             else:
                 name = "scale"
         flat["/".join(path + [name])] = np.array(arr, order="C")

@@ -2,7 +2,8 @@
 
 Port of ``videocad_tpu/models/factory.py``. Every named config builds a
 VideoCADFormer whatever its ``model_name`` (the reference factory's
-behaviour); the decision-transformer family is not ported yet.
+behaviour), except ``model_family: "decision_transformer"``, which builds
+the decision transformer (``models/decision_transformer.py``).
 """
 
 from __future__ import annotations
@@ -15,8 +16,12 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from videocad_tpu_torch.models.decision_transformer import \
+    DecisionTransformer
 from videocad_tpu_torch.models.layers import Dense
-from videocad_tpu_torch.models.videocadformer import (VideoCADFormer,
+from videocad_tpu_torch.models.resnet import Conv
+from videocad_tpu_torch.models.videocadformer import (GENCAD_IMAGE_SHAPE,
+                                                      VideoCADFormer,
                                                       VideoCADFormerConfig)
 from videocad_tpu_torch.models.vit import ViT
 
@@ -60,8 +65,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialize every parameter with flax's initializer families, drawn
     from ``generator`` (a CPU ``torch.Generator``) in module order:
 
-      * Dense kernels: lecun normal; biases: zeros;
-      * LayerNorm: ones / zeros;
+      * Dense and convolution kernels: lecun normal (a convolution's fan
+        in is in_channels * kh * kw); biases: zeros;
+      * LayerNorm, GroupNorm: ones / zeros;
       * cls token and position embedding: N(0, 0.02);
       * Embedding: N(0, 1 / features) (flax ``nn.Embed``'s default).
 
@@ -69,11 +75,12 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     the distributions are the same.
     """
     for module in model.modules():
-        if isinstance(module, Dense):
-            std = math.sqrt(1.0 / module.weight.shape[1]) / _TRUNC_STD
+        if isinstance(module, (Dense, Conv)):
+            fan_in = math.prod(module.weight.shape[1:])
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             _fill(module.weight, lambda t, g, s=std: nn.init.trunc_normal_(
                 t, 0.0, s, -2 * s, 2 * s, generator=g), generator)
-            if module.bias is not None:
+            if getattr(module, "bias", None) is not None:
                 with torch.no_grad():
                     module.bias.zero_()
         elif isinstance(module, ViT):
@@ -84,22 +91,29 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             std = math.sqrt(1.0 / module.weight.shape[1])
             _fill(module.weight, lambda t, g, s=std: nn.init.normal_(
                 t, 0.0, s, generator=g), generator)
-    # LayerNorm parameters are constructed as ones / zeros already.
+    # LayerNorm and GroupNorm parameters are constructed as ones / zeros
+    # already.
     return model
 
 
 def create_model(model_config: Dict[str, Any], device="cpu",
-                 generator: Optional[torch.Generator] = None
-                 ) -> VideoCADFormer:
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build the model on ``device`` from a config dict (the reference JSON
     schema), with parameters from :func:`init_params` (seed 0 when no
-    ``generator`` is given), in eval mode."""
-    if model_config.get("model_family") == "decision_transformer":
-        raise NotImplementedError(
-            "the decision-transformer family is not ported yet "
-            "(ROADMAP slice 11)")
+    ``generator`` is given), in eval mode: a VideoCADFormer, or with
+    ``model_family: "decision_transformer"`` a DecisionTransformer
+    (``n_layer``, ``n_head``, ``enable_image_conditioning`` from the
+    config, defaults 6, 8, true)."""
     cfg = VideoCADFormerConfig.from_json(model_config)
-    model = VideoCADFormer(cfg, device=torch.device(device))
+    device = torch.device(device)
+    if model_config.get("model_family") == "decision_transformer":
+        model = DecisionTransformer(
+            cfg, n_layer=model_config.get("n_layer", 6),
+            n_head=model_config.get("n_head", 8),
+            enable_image_conditioning=model_config.get(
+                "enable_image_conditioning", True), device=device)
+    else:
+        model = VideoCADFormer(cfg, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_params(model, generator)
@@ -108,13 +122,20 @@ def create_model(model_config: Dict[str, Any], device="cpu",
 
 def example_inputs(cfg: VideoCADFormerConfig, batch: int = 1,
                    seq_len: int = 4, device="cpu") -> Dict[str, torch.Tensor]:
-    """A zero batch with the model's input contract (NHWC frames)."""
+    """A zero batch with the model's input contract (NHWC frames; the
+    256 x 256 x 3 CAD edge image under GenCAD; ``multiview_images`` for a
+    model with views)."""
     h = w = cfg.image_size
     c = cfg.image_channels
-    return {
+    cad = GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model else (h, w, c)
+    inputs = {
         "frames": torch.zeros((batch, seq_len, h, w, c), device=device),
         "actions": torch.zeros((batch, seq_len, cfg.act_dim), device=device),
-        "cad_image": torch.zeros((batch, h, w, c), device=device),
+        "cad_image": torch.zeros((batch,) + cad, device=device),
         "timesteps": torch.arange(seq_len, device=device)[None].expand(
             batch, seq_len),
     }
+    if cfg.num_views > 0:
+        inputs["multiview_images"] = torch.zeros(
+            (batch, cfg.num_views, h, w, c), device=device)
+    return inputs

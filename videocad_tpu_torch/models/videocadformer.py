@@ -3,12 +3,14 @@
 Port of ``videocad_tpu/models/videocadformer.py``:
 
   inputs:  UI frame history (B, T, H, W, C), past actions (B, T, 7)
-           normalized, target CAD image (B, H, W, C)
+           normalized, target CAD image (B, H, W, C), optional multiview
+           images (B, V, H, W, C)
   outputs: command logits (B, T, 5) and parameter logits (B, T, 6, 1000)
 
-  * per-frame ViT encoding -> Dense(512 -> hidden) + timestep embedding
-    -> tanh;
-  * the CAD image encoded once and broadcast over T; the streams
+  * per-frame vision encoding (a ViT, or ResNet18-GN under ``encoder:
+    "resnet"``) -> Dense(embed -> hidden) + timestep embedding -> tanh;
+  * the CAD image encoded once and broadcast over T, the multiview images
+    through the same CAD encoder into one more stream; the streams
     concatenated, projected back to hidden and tanh'd;
   * action embeddings Dense(7 -> hidden) + timestep embedding -> tanh;
   * an 8-layer post-LN decoder, wired by the config's flags:
@@ -16,6 +18,11 @@ Port of ``videocad_tpu/models/videocadformer.py``:
       - past states only: tgt=frames, memory=CAD context (both banded)
       - neither:          tgt=memory=CAD context (banded)
   * float32 heads: Dense(hidden -> 5) and Dense(hidden -> 6*1000).
+
+``use_pretrained_cad_model`` (GenCAD) takes the CAD input as a 256 x 256 x 3
+Canny edge image (``data/dataset.py:gencad_cad_image``), normalized on all
+three channels, and builds the CAD encoder for that input; training freezes
+it (``train/state.py``). It cannot be combined with multiview images.
 
 The modules' parameter names follow the JAX parameter tree, so
 ``models/convert.py`` carries JAX weights in by a mechanical map. Options
@@ -40,6 +47,7 @@ from videocad_tpu_torch.actions.vocab import (ACT_DIM, NUM_BINS, NUM_COMMANDS,
                                               NUM_PARAMS)
 from videocad_tpu_torch.models.layers import (Dense, TransformerDecoder,
                                               banded_mask, causal_mask)
+from videocad_tpu_torch.models.resnet import ResNet18GN
 from videocad_tpu_torch.models.vit import ViT, ViTConfig
 from videocad_tpu_torch.ops.dropout import DropoutRng
 from videocad_tpu_torch.ops.preprocess import maybe_preprocess
@@ -101,19 +109,57 @@ class VideoCADFormerConfig:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
 
-def _check_supported(cfg: VideoCADFormerConfig) -> None:
+# The GenCAD CAD input: a 3-channel 256 x 256 Canny edge image.
+GENCAD_IMAGE_SHAPE = (256, 256, 3)
+
+
+def check_supported(cfg: VideoCADFormerConfig) -> None:
+    """Raise on what the port has not reached (``NotImplementedError``
+    naming its ROADMAP item) and on what JAX refuses too."""
+    if cfg.encoder not in ("vit", "resnet"):
+        raise ValueError(f"Model type {cfg.encoder} not supported")
+    if cfg.use_pretrained_cad_model and cfg.num_views > 0:
+        # As the JAX model: the GenCAD encoder takes 256 x 256 x 3 edge
+        # images, which frame-sized multiview renders never are.
+        raise ValueError(
+            "use_pretrained_cad_model (GenCAD) and num_views > 0 cannot be "
+            "combined: the GenCAD CAD encoder expects 256x256x3 Canny edge "
+            "images, not frame-sized multiview renders")
     unported = [
-        (cfg.encoder != "vit", f"encoder={cfg.encoder!r} (ROADMAP slice 11)"),
-        (cfg.num_views > 0, "num_views > 0 (ROADMAP slice 11)"),
-        (cfg.use_pretrained_cad_model,
-         "use_pretrained_cad_model (ROADMAP slice 11)"),
-        (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11)"),
-        (cfg.frame_chunk != 0, "frame_chunk (ROADMAP slice 11)"),
-        (cfg.remat_encoder, "remat_encoder (ROADMAP slice 11)"),
+        (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11b)"),
+        (cfg.frame_chunk != 0, "frame_chunk (ROADMAP slice 11b)"),
+        (cfg.remat_encoder, "remat_encoder (ROADMAP slice 11b)"),
     ]
     missing = [what for bad, what in unported if bad]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
+
+
+def encoder_embed_dim(cfg: VideoCADFormerConfig) -> int:
+    """Width of the vision embedding: ``vit_dim`` for the ViT, 512 for
+    ResNet18-GN whatever ``vit_dim`` is."""
+    return cfg.vit_dim if cfg.encoder == "vit" else 512
+
+
+def make_encoder(cfg: VideoCADFormerConfig, device=None,
+                 image_size: Optional[int] = None,
+                 channels: Optional[int] = None) -> nn.Module:
+    """The configured vision encoder, (B, H, W, C) -> (B, embed): a ViT
+    at ``image_size`` with ``channels`` input channels (the config's by
+    default), or ResNet18-GN (which takes any size)."""
+    channels = channels or cfg.image_channels
+    if cfg.encoder == "resnet":
+        return ResNet18GN(channels, dtype=cfg.compute_dtype, device=device)
+    vit_cfg = ViTConfig(
+        image_size=image_size or cfg.image_size, patch_size=cfg.vit_patch,
+        dim=cfg.vit_dim, depth=cfg.vit_depth, heads=cfg.vit_heads,
+        head_dim=cfg.vit_head_dim, mlp_dim=cfg.vit_mlp_dim,
+        channels=channels, dropout=cfg.dropout, emb_dropout=cfg.dropout,
+        patch_norm=cfg.vit_patch_norm, final_norm=cfg.vit_final_norm)
+    return ViT(vit_cfg, dtype=cfg.compute_dtype,
+               attention_impl=cfg.vit_attention_impl,
+               mlp_impl=cfg.vit_mlp_impl, dropout_impl=cfg.dropout_impl,
+               ln_impl=cfg.ln_impl, device=device)
 
 
 class VideoCADFormer(nn.Module):
@@ -122,21 +168,31 @@ class VideoCADFormer(nn.Module):
 
     def __init__(self, config: VideoCADFormerConfig, device=None):
         super().__init__()
-        _check_supported(config)
+        check_supported(config)
         self.config = cfg = config
         dtype = cfg.compute_dtype
         kw = dict(dtype=dtype, device=device)
+        embed = encoder_embed_dim(cfg)
         if cfg.enable_past_states:
-            self.state_encoder = self._make_encoder(device)
-            self.embed_state = Dense(cfg.vit_dim, cfg.hidden_size, **kw)
-        self.cad_encoder = self._make_encoder(device)
-        self.embed_image = Dense(cfg.vit_dim, cfg.hidden_size, **kw)
+            self.state_encoder = make_encoder(cfg, device)
+            self.embed_state = Dense(embed, cfg.hidden_size, **kw)
+        if cfg.use_pretrained_cad_model:
+            size, _, channels = GENCAD_IMAGE_SHAPE
+            self.cad_encoder = make_encoder(cfg, device, image_size=size,
+                                            channels=channels)
+        else:
+            self.cad_encoder = make_encoder(cfg, device)
+        self.embed_image = Dense(embed, cfg.hidden_size, **kw)
         if cfg.enable_past_actions:
             self.embed_action = Dense(cfg.act_dim, cfg.hidden_size, **kw)
+        if cfg.num_views > 0:
+            self.embed_multiview = Dense(cfg.num_views * embed,
+                                         cfg.hidden_size, **kw)
         # The ui stream joins the memory only when past actions are on too
         # (the reference quirk encode_context keeps); the projection
         # exists only where streams are concatenated.
-        streams = 1 + int(cfg.enable_past_states and cfg.enable_past_actions)
+        streams = (1 + int(cfg.enable_past_states and cfg.enable_past_actions)
+                   + int(cfg.num_views > 0))
         if streams > 1:
             self.image_projection = Dense(streams * cfg.hidden_size,
                                           cfg.hidden_size, **kw)
@@ -153,21 +209,6 @@ class VideoCADFormer(nn.Module):
         self.predict_params = Dense(
             cfg.hidden_size, cfg.num_params * cfg.num_params_values,
             device=device)
-
-    def _make_encoder(self, device) -> ViT:
-        cfg = self.config
-        vit_cfg = ViTConfig(
-            image_size=cfg.image_size, patch_size=cfg.vit_patch,
-            dim=cfg.vit_dim, depth=cfg.vit_depth, heads=cfg.vit_heads,
-            head_dim=cfg.vit_head_dim, mlp_dim=cfg.vit_mlp_dim,
-            channels=cfg.image_channels, dropout=cfg.dropout,
-            emb_dropout=cfg.dropout, patch_norm=cfg.vit_patch_norm,
-            final_norm=cfg.vit_final_norm)
-        return ViT(vit_cfg, dtype=cfg.compute_dtype,
-                   attention_impl=cfg.vit_attention_impl,
-                   mlp_impl=cfg.vit_mlp_impl,
-                   dropout_impl=cfg.dropout_impl, ln_impl=cfg.ln_impl,
-                   device=device)
 
     @property
     def device(self) -> torch.device:
@@ -197,10 +238,14 @@ class VideoCADFormer(nn.Module):
             frames.reshape((b * t,) + frames.shape[2:]), rng)
         return emb.reshape(b, t, -1)
 
-    def encode_context(self, cad_image, frames=None,
+    def encode_context(self, cad_image, frames=None, multiview_images=None,
                        seq_length: Optional[int] = None,
                        rng: Optional[DropoutRng] = None):
-        """(combined image memory (B, T, hidden), ui embeddings or None)."""
+        """(combined image memory (B, T, hidden), ui embeddings or None).
+
+        The streams in JAX's order: the ui stream (when past actions are
+        on too), the CAD stream, the multiview stream; one projection when
+        there are several."""
         cfg = self.config
         t = seq_length if seq_length is not None else frames.shape[1]
         ts_emb = self._timestep(torch.arange(t, device=self.device))
@@ -211,25 +256,47 @@ class VideoCADFormer(nn.Module):
             ui_emb = torch.tanh(self.embed_state(state_emb) + ts_emb[None])
             if cfg.enable_past_actions:
                 streams.append(ui_emb)
-        cad_emb = self.embed_image(self._encode_cad(cad_image, rng))
-        cad_emb = cad_emb[:, None, :]
-        streams.append(cad_emb.expand(-1, t, -1))
+        constant = self._cad_streams(cad_image, multiview_images, rng)
+        streams += [x[:, None, :].expand(-1, t, -1) for x in constant]
         combined = torch.cat(streams, dim=-1)
         if len(streams) > 1:
             combined = self.image_projection(combined)
         return torch.tanh(combined), ui_emb
 
-    def _encode_cad(self, cad_image: torch.Tensor,
-                    rng: Optional[DropoutRng] = None) -> torch.Tensor:
+    def _cad_streams(self, cad_image, multiview_images=None,
+                     rng: Optional[DropoutRng] = None):
+        """The position-independent streams, (B, hidden) each: the CAD
+        image's, and the multiview images' (all views through the CAD
+        encoder, one (B*V) batch) when the model has views and they are
+        given."""
         cfg = self.config
-        cad_image = maybe_preprocess(cad_image, impl=cfg.preprocess_impl,
+        if cfg.use_pretrained_cad_model:
+            # The edge image: all three channels normalized, no grayscale.
+            cad_image = maybe_preprocess(cad_image, impl=cfg.preprocess_impl,
+                                         mode="normalize_only")
+        else:
+            cad_image = maybe_preprocess(cad_image, impl=cfg.preprocess_impl,
+                                         target_size=(cfg.image_size,) * 2)
+        streams = [self.embed_image(self.cad_encoder(cad_image, rng))]
+        if multiview_images is not None and cfg.num_views > 0:
+            views = maybe_preprocess(multiview_images,
+                                     impl=cfg.preprocess_impl,
                                      target_size=(cfg.image_size,) * 2)
-        return self.cad_encoder(cad_image, rng)
+            b, v = views.shape[:2]
+            emb = self.cad_encoder(views.reshape((b * v,) + views.shape[2:]),
+                                   rng)
+            streams.append(self.embed_multiview(emb.reshape(b, -1)))
+        return streams
 
-    def encode_cad_stream(self, cad_image: torch.Tensor) -> torch.Tensor:
+    def encode_cad_stream(self, cad_image: torch.Tensor,
+                          multiview_images: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
         """The position-independent CAD features that ``encode_context``
-        tiles over T: (B, hidden). Computed once per serving session."""
-        return self.embed_image(self._encode_cad(cad_image))
+        tiles over T: (B, hidden), or (B, 2 * hidden) with multiview
+        images, in ``encode_context``'s stream order. Computed once per
+        serving session."""
+        return torch.cat(self._cad_streams(cad_image, multiview_images),
+                         dim=-1)
 
     def encode_memory_step(self, frame: torch.Tensor, t: torch.Tensor,
                            cad_stream: torch.Tensor) -> torch.Tensor:
@@ -247,7 +314,7 @@ class VideoCADFormer(nn.Module):
             streams.append(torch.tanh(self.embed_state(emb) + ts))
         streams.append(cad_stream)
         combined = torch.cat(streams, dim=-1)
-        if len(streams) > 1:
+        if hasattr(self, "image_projection"):
             combined = self.image_projection(combined)
         return torch.tanh(combined)
 
@@ -274,7 +341,8 @@ class VideoCADFormer(nn.Module):
         actions = inputs["actions"]
         seq_length = actions.shape[1]
         combined, ui_emb = self.encode_context(
-            inputs["cad_image"], inputs.get("frames"), seq_length, rng)
+            inputs["cad_image"], inputs.get("frames"),
+            inputs.get("multiview_images"), seq_length, rng)
         # The flash attention kernels compute both masks from indices.
         by_index = cfg.attention_impl == "pallas"
         band = banded_mask(seq_length, seq_length, cfg.window_size,

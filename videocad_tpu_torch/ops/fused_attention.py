@@ -21,7 +21,10 @@ CUDA tensor launches the kernels or raises. There is no fallback from one
 to the other. Of the kernels, :func:`_kernel_variant` picks one of two
 variants from the dtype and the shape alone: "tc" (bfloat16 on the tensor
 cores) or "scalar" (float32, and head widths the tensor-core tiles do not
-take); neither stands in for the other when a launch fails.
+take), each in two instantiations by T: the one for T <= 64 (the ViT at
+224²: T = 50), and past it the wide one, up to T = 128 (the GenCAD CAD
+encoder: T = 65), whose variant names end in ``_wide``. None stands in for
+another when a launch fails.
 """
 
 from __future__ import annotations
@@ -37,20 +40,26 @@ from videocad_tpu_torch.kernels import build
 from videocad_tpu_torch.ops.prng import dropout_bits, keep_mask, require_seed
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SEQ = 64       # the kernels pad T to 64 (csrc/mhsa_short.cu)
+_NARROW_SEQ = 64    # the first instantiation pads T to 64 (mhsa_short.cu)
+_MAX_SEQ = 128      # the wide one, to 128
 _MAX_HEAD_DIM = 64
+# The variants and the prefix of their C entries (``<prefix>fwd``,
+# ``<prefix>bwd``).
+VARIANTS = {"scalar": "mhsa_short_", "tc": "mhsa_short_tc_",
+            "scalar_wide": "mhsa_short_wide_",
+            "tc_wide": "mhsa_short_tc_wide_"}
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_variant(dtype: torch.dtype, seq: int, head_dim: int) -> str:
     """The kernel variant for a CUDA call: "tc" for bfloat16 with D a
-    multiple of 16 up to 64 and T <= 64, "scalar" for everything else the
-    kernels take (float32: the tensor cores would round it to TF32).
-    Cached per (dtype, shape)."""
-    if (dtype == torch.bfloat16 and head_dim % 16 == 0
-            and 16 <= head_dim <= _MAX_HEAD_DIM and 1 <= seq <= _MAX_SEQ):
-        return "tc"
-    return "scalar"
+    multiple of 16 up to 64, "scalar" for everything else the kernels take
+    (float32: the tensor cores would round it to TF32); with ``_wide``
+    appended past T = 64 (the wide instantiation). Cached per (dtype,
+    shape)."""
+    variant = ("tc" if dtype == torch.bfloat16 and head_dim % 16 == 0
+               and 16 <= head_dim <= _MAX_HEAD_DIM else "scalar")
+    return variant + "_wide" if seq > _NARROW_SEQ else variant
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -139,7 +148,7 @@ def _not_cpu_or_cuda(device) -> ValueError:
 
 
 def _check_kernel_inputs(tensors, num_heads) -> Tuple[int, int, int]:
-    """What the kernels take, in one pass: float32 or bfloat16, T <= 64,
+    """What the kernels take, in one pass: float32 or bfloat16, T <= 128,
     D <= 64, contiguous ``tensors`` (q first). Returns (B, T, D)."""
     first = tensors[0]
     if first.dtype not in _DTYPE_CODES:
@@ -162,12 +171,14 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(pick, tensors, device, shape, num_heads, seed,
-            dropout_rate) -> str:
+def _launch(pick, counted, tensors, device, shape, num_heads, seed,
+            dropout_rate) -> None:
     """Launch entry ``pick`` (0 forward, 1 backward) of the variant that the
     dtype and ``shape`` (B, T, D) take, on ``tensors`` (q first), through
-    ``kernels/build.py:launch``; returns the variant. The C entry derives
-    the scores' scale and the dropout's cutoff and keep scale."""
+    ``kernels/build.py:launch``; counts the launch on ``counted`` (the
+    wrapper): ``launches``, ``tc_launches`` for a tc variant,
+    ``wide_launches`` for the wide instantiation. The C entry derives the
+    scores' scale and the dropout's cutoff and keep scale."""
     b, t, head_dim = shape
     dtype = tensors[0].dtype
     variant = _kernel_variant(dtype, t, head_dim)
@@ -179,7 +190,11 @@ def _launch(pick, tensors, device, shape, num_heads, seed,
     if err != 0:
         raise RuntimeError(f"mhsa_short {variant} kernel launch failed: "
                            f"CUDA error {err}")
-    return variant
+    counted.launches += 1
+    if variant.startswith("tc"):
+        counted.tc_launches += 1
+    if variant.endswith("_wide"):
+        counted.wide_launches += 1
 
 
 def _forward(q, k, v, seed, num_heads, dropout_rate):
@@ -196,10 +211,8 @@ def _forward(q, k, v, seed, num_heads, dropout_rate):
     if out.numel() == 0:
         return out
     q, k, v = (_aligned(x) for x in (q, k, v))
-    if _launch(0, (q, k, v, out), device, shape, num_heads, seed,
-               dropout_rate) == "tc":
-        mhsa_short.tc_launches += 1
-    mhsa_short.launches += 1
+    _launch(0, mhsa_short, (q, k, v, out), device, shape, num_heads, seed,
+            dropout_rate)
     return out
 
 
@@ -209,7 +222,8 @@ def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`mhsa_short` for the output gradient ``g``, in
     one kernel launch on a CUDA tensor (``mhsa_short_backward.launches``
-    counts them, ``.tc_launches`` those of the tc variant), by
+    counts them, ``.tc_launches`` those of the tc variant,
+    ``.wide_launches`` those of the wide instantiation), by
     :func:`mhsa_short_backward_reference` on a CPU tensor. ``g`` may be
     non-contiguous, as autograd may hand it over."""
     _check(q, k, v, num_heads)
@@ -228,10 +242,8 @@ def mhsa_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     q, k, v, g = (_aligned(x) for x in (q, k, v, g))
-    if _launch(1, (q, k, v, g, dq, dk, dv), device, shape, num_heads, seed,
-               dropout_rate) == "tc":
-        mhsa_short_backward.tc_launches += 1
-    mhsa_short_backward.launches += 1
+    _launch(1, mhsa_short_backward, (q, k, v, g, dq, dk, dv), device, shape,
+            num_heads, seed, dropout_rate)
     return dq, dk, dv
 
 
@@ -261,10 +273,11 @@ def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k and v.
 
     On a CUDA tensor it launches the hand-written kernels, which take
-    float32 or bfloat16, contiguous inputs, T <= 64 and D <= 64, and raises
-    on anything else; ``mhsa_short.launches`` and
-    ``mhsa_short_backward.launches`` count those launches, and their
-    ``tc_launches`` the launches of the tensor-core variant
+    float32 or bfloat16, contiguous inputs, T <= 128 and D <= 64, and
+    raises on anything else; ``mhsa_short.launches`` and
+    ``mhsa_short_backward.launches`` count those launches, their
+    ``tc_launches`` the launches of the tensor-core variant and their
+    ``wide_launches`` those of the instantiation for 64 < T <= 128
     (:func:`_kernel_variant`). On a CPU tensor it runs the plain
     versions.
     """
@@ -280,8 +293,10 @@ def mhsa_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mhsa_short.launches = 0
 mhsa_short.tc_launches = 0
+mhsa_short.wide_launches = 0
 mhsa_short_backward.launches = 0
 mhsa_short_backward.tc_launches = 0
+mhsa_short_backward.wide_launches = 0
 _entries = None    # the C entries, once load_library has bound them
 
 
@@ -294,15 +309,16 @@ def _signatures():
     # tensors: B, T, H, D, the dtype code, the seed, the dropout rate.
     tail = [i32] * 5 + [u32, f64, ptr]
     return {prefix + name: (i32, [ptr] * tensors + tail)
-            for prefix in ("mhsa_short_", "mhsa_short_tc_")
+            for prefix in VARIANTS.values()
             for name, tensors in (("fwd", 4), ("bwd", 7))}
 
 
 def load_library():
     """Build (at first use) and load the kernels' library; returns its C
     entries by variant, ``{"scalar": (mhsa_short_fwd, mhsa_short_bwd),
-    "tc": (mhsa_short_tc_fwd, mhsa_short_tc_bwd)}``, bound once and kept
-    for every later launch."""
+    "tc": (mhsa_short_tc_fwd, mhsa_short_tc_bwd), "scalar_wide":
+    (mhsa_short_wide_fwd, ...), "tc_wide": (mhsa_short_tc_wide_fwd,
+    ...)}``, bound once and kept for every later launch."""
     global _entries
     lib = build.load("mhsa_short")
     for name, (restype, argtypes) in _signatures().items():
@@ -310,6 +326,5 @@ def load_library():
         fn.restype, fn.argtypes = restype, argtypes
     _entries = {variant: (getattr(lib, prefix + "fwd"),
                           getattr(lib, prefix + "bwd"))
-                for variant, prefix in (("scalar", "mhsa_short_"),
-                                        ("tc", "mhsa_short_tc_"))}
+                for variant, prefix in VARIANTS.items()}
     return _entries

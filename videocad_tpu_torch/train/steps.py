@@ -57,6 +57,8 @@ def prepare_model_inputs(batch: Dict[str, torch.Tensor]
         "actions": normalize_actions(batch["actions"])[:, :-1],
         "cad_image": batch["cad_image"],
     }
+    if batch.get("multiview_images") is not None:
+        model_inputs["multiview_images"] = batch["multiview_images"]
     return model_inputs, batch["actions"][:, 1:]
 
 

@@ -414,7 +414,8 @@ class Trainer:
             # sees the final frame either) and predicts steps 1..T.
             cmd_logits, param_logits = sequential_inference(
                 self.model, device_batch["frames"][:, :-1], cad,
-                action=self.model.config.enable_past_actions)
+                action=self.model.config.enable_past_actions,
+                multiview_images=device_batch.get("multiview_images"))
             _, batch_metrics = compute_loss_and_metrics(
                 cmd_logits, param_logits, device_batch["actions"][:, 1:],
                 self.loss_config)
