@@ -116,6 +116,20 @@ imports nothing of JAX. Phases, each of which must pass:
      vit_attention_impl "fused" beside vit_mlp_impl "block"; then the
      logits of G, M, R and DT at depth 2.
 
+Phase S (after 13, before 14): the serving and inference layer on the
+flagship (bf16, seed 0): sequential_inference at B=2, T=187 under
+weight_quant none / int8 / int4, each timed (median of 3), its integers
+within scale / 2 of the float32 weights, and the quantized rollout at
+float32, depth 2, on the card against the CPU (1e-5, actions equal);
+incremental_decode_step 187 times at B=2 under none and int8 (K1's
+forward counted, tc), at float32, depth 2, against sequential_inference
+(1e-5, actions equal); cad_saliency at B=8 (K1's backward) and
+attention_rollout at B=8 (float32, depth 2, card against CPU, 1e-5); the
+flagship exported by cli.export_model (8 lanes, int8), served by
+cli.serve --artifact over HTTP (3 sessions x 10 steps) with the actions of
+a live MuxEngine(weight_quant="int8"). G also runs cad_saliency (K1's
+wide backward).
+
 Phase 3 also holds K1's wide instantiation (T = 65) against its plain
 version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
 values, the kept set (read off the output under shifted identity values,
@@ -123,12 +137,11 @@ in two pieces), bit-equal gradients, beside F.scaled_dot_product_attention.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
-around phases 10, 11 and 12 and each of 13's four configs: each kernel
-must have been launched by the path that claims it (the flash attention
-kernels by train D, their forward by the evaluation as well, the fused
-sub-block kernels by train E, K1's wide instantiation by G).
-The
-second-to-last lines are a JSON object of the kernels and the card's
+around phases 10, 11 and 12, each of 13's four configs and phase S: each
+kernel must have been launched by the path that claims it (the flash
+attention kernels by train D, their forward by the evaluation as well, the
+fused sub-block kernels by train E, K1's wide instantiation by G, K1's
+forward and backward by S as well). The second-to-last lines are a JSON object of the kernels and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
 """
@@ -2698,10 +2711,11 @@ def edge_images(n, seed):
     return np.repeat(img[..., None], 3, axis=-1)
 
 
-def named_inputs(phase, batch, seed):
+def named_inputs(phase, batch, seed, channels=1):
     """What a batch of ``phase``'s config takes beyond frames, actions and
-    a frame-sized CAD image: the edge images (G), or (B, V, 224, 224, 1)
-    uint8 multiview renders (M, R)."""
+    a frame-sized CAD image: the edge images (G), or (B, V, 224, 224,
+    ``channels``) uint8 multiview renders (M, R; a session request takes
+    3 channels, as the JAX server does)."""
     import numpy as np
 
     cfg = named_config(phase)
@@ -2710,7 +2724,7 @@ def named_inputs(phase, batch, seed):
     views = cfg.get("num_views", 0)
     if views:
         return {"multiview_images": np.random.default_rng(seed).integers(
-            0, 256, (batch, views, 224, 224, 1), dtype=np.uint8)}
+            0, 256, (batch, views, 224, 224, channels), dtype=np.uint8)}
     return {}
 
 
@@ -2794,7 +2808,8 @@ def phase_named_train(phase, fa):
 def phase_named_serve(phase, model, fa, np):
     """8 sessions on 8 lanes of the model's engine behind the HTTP server,
     opened with the config's session images (G: edge images; M: three
-    views in the request), each stepped SERVE_STEPS frames from its own
+    views of 3 channels in the request), each stepped SERVE_STEPS frames
+    from its own
     thread. GenCAD: each opened session launches the CAD encoder's wide
     K1 forward 6 times."""
     from videocad_tpu_torch.infer.server import (MuxEngine, ServingClient,
@@ -2806,7 +2821,7 @@ def phase_named_serve(phase, model, fa, np):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     rng = np.random.default_rng(5)
-    extra = named_inputs(phase, LANES, seed=6)
+    extra = named_inputs(phase, LANES, seed=6, channels=3)
     cads = extra.get("cad_image", rng.integers(
         0, 256, (LANES, 224, 224, 3), dtype=np.uint8))
     views = extra.get("multiview_images")
@@ -3094,12 +3109,437 @@ def phase_named(counters, fa, np):
             phase_named_serve(phase, model, fa, np)
         if phase != "DT":
             phase_named_rollout(phase, model, fa)
+        if phase == "G":
+            # cad_saliency through the GenCAD CAD encoder: K1's wide
+            # backward.
+            _, _, wide = run_saliency(model, saliency_batch(
+                SALIENCY_BATCH, seed=27,
+                cad=edge_images(SALIENCY_BATCH, 28)), fa, "G")
+            check(wide > 0, "G saliency launched no wide K1 backward")
         launches[phase] = {name: read() for name, read in counters.items()}
         del model
         torch.cuda.empty_cache()
         print(f"{phase} phase: {time.monotonic() - start:.1f} s; launches "
               f"{ {k: v for k, v in launches[phase].items() if v} }",
               flush=True)
+    return launches
+
+
+# ---- S: the serving and inference layer: the quantized decode, the
+# incremental step, saliency and attention rollout, the port's artifacts ----
+
+QUANT_MODES = ("none", "int8", "int4")
+S_BATCH = 2        # the quantized rollout's and the incremental decode's B
+SALIENCY_BATCH = 8
+ARTIFACT_SESSIONS = 3
+
+
+def flagship(device, dtype=None, depth=None, seed=0):
+    """The flagship config's model on ``device`` with random weights from
+    ``seed``: as its JSON has it, or at ``dtype`` with the ViT and the
+    decoder cut to ``depth``."""
+    import torch
+
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+
+    cfg = flagship_config()
+    if dtype is not None:
+        cfg = dict(cfg, dtype=dtype, vit_depth=depth,
+                   num_decoder_layers=depth)
+    return create_model(cfg, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+def s_frames(batch, seq, seed, device="cuda"):
+    """Seeded uint8 (batch, seq, 224, 224, 3) frames and (batch, 224, 224,
+    3) CAD images."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randint(0, 256, (batch, seq, 224, 224, 3), generator=gen,
+                           dtype=torch.uint8)
+    cad = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen,
+                        dtype=torch.uint8)
+    return frames.to(device), cad.to(device)
+
+
+def timed(fn, n=3):
+    """(the last result, the median ms over ``n`` calls), host clock around
+    a synchronised call."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def agreement(cmd, want):
+    """The share of steps whose argmax command equals ``want``'s."""
+    return (cmd.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+
+def quant_dense_pairs(model, bits, dtype):
+    """(path, quantized dense, float32 weight (out, in)) of each dense of
+    quantize_for_decode's decoder (q/k/v fused), beside the model's own
+    weights fused the same way."""
+    from videocad_tpu_torch.infer.rollout import (fuse_self_qkv, param_tree,
+                                                  quantize_for_decode)
+
+    quant = quantize_for_decode(model, dtype, bits)["decoder"]
+    plain = fuse_self_qkv(param_tree(model)["decoder"])
+
+    def walk(q, p, path):
+        if "scale" in q:
+            yield path, q, p["weight"].float()
+        else:
+            for key in q:
+                if isinstance(q[key], dict):
+                    yield from walk(q[key], p[key], path + "/" + key)
+    return list(walk(quant, plain, "decoder"))
+
+
+def phase_s_quant(model, np):
+    """S1: sequential_inference at B=2, T=187 under none / int8 / int4, each
+    timed (median of 3); the integers against the float32 weights; the
+    quantized rollout at float32, depth 2, on the card against the CPU."""
+    import torch
+
+    from videocad_tpu_torch.infer.rollout import (dequantized_weight,
+                                                  sequential_inference)
+
+    frames, cad = s_frames(S_BATCH, SEQ_LEN, seed=21)
+    results = {}
+    for mode in QUANT_MODES:
+        (cmd, par), ms = timed(lambda: sequential_inference(
+            model, frames, cad, weight_quant=mode))
+        check(bool(torch.isfinite(cmd).all()) and bool(
+            torch.isfinite(par).all()), f"S rollout {mode}: not finite")
+        results[mode] = {"ms": ms, "actions_per_s": S_BATCH * SEQ_LEN / ms
+                         * 1e3, "cmd": cmd}
+    none_cmd = results["none"]["cmd"]
+    for mode in QUANT_MODES:
+        results[mode]["cmd_agreement"] = agreement(results[mode].pop("cmd"),
+                                                   none_cmd)
+    # The integers: the path's (scale in bf16) equal those of a float32
+    # scale, and those dequantized lie within scale / 2 of the weights (in
+    # float64; w / scale is rounded to float32 before it is rounded to an
+    # integer, which may add qmax * 2^-24 scale to the half).
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        qmax = {8: 127, 4: 7}[bits]
+        path_q = quant_dense_pairs(model, bits, None)
+        f32_q = quant_dense_pairs(model, bits, torch.float32)
+        worst = 0.0
+        for (path, q, w), (_, q32, _) in zip(path_q, f32_q):
+            ints = dequantized_weight(q)
+            check(torch.equal(ints, dequantized_weight(q32)),
+                  f"S {mode}: {path}: integers depend on the scale's dtype")
+            check(int(ints.abs().max()) <= qmax,
+                  f"S {mode}: {path}: integers out of range")
+            scale = q32["scale"].double()[:, None]
+            err = ((ints.double() * scale - w.double()).abs()
+                   / scale).max().item()
+            worst = max(worst, err)
+        limit = 0.5 + qmax * 2.0 ** -24
+        check(worst <= limit, f"S {mode}: dequantized weights off by "
+              f"{worst} scale (limit {limit})")
+        results[mode]["dequant_err_in_scales"] = worst
+    # float32, depth 2: card against CPU.
+    frames_s, cad_s = s_frames(1, 6, seed=22, device="cpu")
+    for mode in ("int8", "int4"):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            small = flagship(device, "float32", 2, seed=3)
+            outs[device] = [x.cpu() for x in sequential_inference(
+                small, frames_s.to(device), cad_s.to(device),
+                weight_quant=mode)]
+        errs = [(g - w).abs().max().item()
+                for g, w in zip(outs["cuda"], outs["cpu"])]
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(outs["cuda"], outs["cpu"]))
+        check(all(e <= 1e-5 for e in errs) and same,
+              f"S {mode}: float32 rollout card vs CPU {errs}, actions "
+              f"equal {same}")
+        results[mode]["f32_card_vs_cpu"] = errs
+    for mode in QUANT_MODES:
+        print(f"S rollout {mode}: B={S_BATCH} T={SEQ_LEN} "
+              f"{results[mode]['ms']:.1f} ms (median of 3), "
+              f"{results[mode]['actions_per_s']:.1f} actions/s; commands "
+              f"agreeing with none {results[mode]['cmd_agreement']:.4f}"
+              + (f"; dequantized within "
+                 f"{results[mode]['dequant_err_in_scales']:.4f} scale; f32 "
+                 f"depth 2 card vs CPU {results[mode]['f32_card_vs_cpu']}"
+                 if mode != "none" else ""), flush=True)
+    return results
+
+
+def drive_incremental(model, params, frames, cad):
+    """incremental_decode_step over every frame -> (cmd, par) stacked, and
+    the ms of the whole loop (host clock, synchronised at both ends)."""
+    import torch
+
+    from videocad_tpu_torch.infer.incremental import (incremental_decode_step,
+                                                      init_decode_carry)
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    carry = init_decode_carry(model, cad, frames.shape[1])
+    cmds, pars = [], []
+    for i in range(frames.shape[1]):
+        carry, cmd, par = incremental_decode_step(model, params,
+                                                  frames[:, i], carry)
+        cmds.append(cmd)
+        pars.append(par)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    check(int(carry["t"]) == frames.shape[1], "incremental: wrong step count")
+    return torch.stack(cmds, 1), torch.stack(pars, 1), ms
+
+
+def phase_s_incremental(model, fa):
+    """S2: incremental_decode_step 187 times at B=2 under none and int8 on
+    the bf16 flagship (agreement with the batch rollout printed), K1's
+    forward counted (tc variant); at float32, depth 2, the step's logits
+    against sequential_inference within 1e-5 and its actions equal."""
+    import torch
+
+    from videocad_tpu_torch.infer.rollout import (decode_params,
+                                                  sequential_inference)
+
+    frames, cad = s_frames(S_BATCH, SEQ_LEN, seed=23)
+    results = {}
+    for mode in ("none", "int8"):
+        before = (fa.mhsa_short.launches, fa.mhsa_short.tc_launches)
+        cmd, par, ms = drive_incremental(model, decode_params(model, mode),
+                                         frames, cad)
+        k1, k1_tc = (fa.mhsa_short.launches - before[0],
+                     fa.mhsa_short.tc_launches - before[1])
+        # One frame encode a step and one CAD encode: 6 blocks each.
+        check(k1_tc == k1 == 6 * (SEQ_LEN + 1),
+              f"S incremental {mode}: K1 launches {k1} (tc {k1_tc}), "
+              f"expected {6 * (SEQ_LEN + 1)} of the tc variant")
+        want = sequential_inference(model, frames, cad, weight_quant=mode)
+        results[mode] = {"ms_per_step": ms / SEQ_LEN, "k1_launches": k1,
+                         "cmd_agreement": agreement(cmd, want[0]),
+                         "param_agreement": agreement(par, want[1])}
+    frames32, cad32 = s_frames(S_BATCH, SEQ_LEN, seed=24)
+    small = flagship("cuda", "float32", 2, seed=4)
+    for mode in ("none", "int8"):
+        cmd, par, _ = drive_incremental(small, decode_params(small, mode),
+                                        frames32, cad32)
+        want = sequential_inference(small, frames32, cad32,
+                                    weight_quant=mode)
+        errs = [(g - w).abs().max().item()
+                for g, w in zip((cmd, par), want)]
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip((cmd, par), want))
+        check(all(e <= 1e-5 for e in errs) and same,
+              f"S incremental {mode}: float32 depth 2 against the rollout "
+              f"{errs}, actions equal {same}")
+        results[mode]["f32_vs_rollout"] = errs
+    for mode, r in results.items():
+        print(f"S incremental {mode}: B={S_BATCH}, {SEQ_LEN} steps, "
+              f"{r['ms_per_step']:.2f} ms a step; K1 forward launches "
+              f"{r['k1_launches']} (tc); bf16 agreement with the rollout: "
+              f"commands {r['cmd_agreement']:.4f}, parameters "
+              f"{r['param_agreement']:.4f}; float32 depth 2 against the "
+              f"rollout {r['f32_vs_rollout']} (tol 1e-5, actions equal)",
+              flush=True)
+    return results
+
+
+def saliency_batch(batch, seed, cad=None):
+    """A saliency batch: 2 frames and integer actions a row, and a CAD
+    image (frame-sized, or ``cad``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    actions = np.concatenate([rng.integers(0, 5, (batch, 2, 1)),
+                              rng.integers(-1, 1000, (batch, 2, 6))], -1)
+    return to_card({
+        "frames": rng.integers(0, 256, (batch, 2, 224, 224, 3),
+                               dtype=np.uint8),
+        "actions": actions.astype(np.float32),
+        "cad_image": (cad if cad is not None else rng.integers(
+            0, 256, (batch, 224, 224, 3), dtype=np.uint8))})
+
+
+def run_saliency(model, batch, fa, label):
+    """cad_saliency under torch.no_grad(), timed (median of 3): K1's
+    backward launches counted, the heatmaps finite and nonzero. Returns
+    (ms, K1 backward launches a call, of them wide)."""
+    import torch
+
+    from videocad_tpu_torch.infer.interpret import cad_saliency
+
+    before = (fa.mhsa_short_backward.launches,
+              fa.mhsa_short_backward.wide_launches)
+    with torch.no_grad():
+        (_, sal), ms = timed(lambda: cad_saliency(model, batch))
+    bwd, wide = (fa.mhsa_short_backward.launches - before[0],
+                 fa.mhsa_short_backward.wide_launches - before[1])
+    b, h, w = batch["cad_image"].shape[:3]
+    check(tuple(sal.shape) == (b, h, w) and bool(torch.isfinite(sal).all())
+          and sal.abs().sum().item() > 0,
+          f"{label} saliency: shape {tuple(sal.shape)}, or not finite, or "
+          "all zero")
+    check(bwd > 0 and bwd % 3 == 0,
+          f"{label} saliency: {bwd} K1 backward launches in 3 calls")
+    print(f"{label} saliency: B={b} {ms:.1f} ms (median of 3); K1 backward "
+          f"launches a call {bwd // 3} (wide {wide // 3})", flush=True)
+    return ms, bwd // 3, wide // 3
+
+
+def phase_s_interpret(model, fa):
+    """S3: cad_saliency at B=8 (K1's backward under "fused"), and
+    attention_rollout at B=8, (8, 224, 224); the rollout at float32, depth
+    2, on the card against the CPU within 1e-5."""
+    import torch
+
+    from videocad_tpu_torch.infer.interpret import attention_rollout
+
+    batch = saliency_batch(SALIENCY_BATCH, seed=25)
+    sal_ms, bwd, _ = run_saliency(model, batch, fa, "S")
+    heat, roll_ms = timed(lambda: attention_rollout(model,
+                                                    batch["cad_image"]))
+    check(tuple(heat.shape) == (SALIENCY_BATCH, 224, 224)
+          and bool(torch.isfinite(heat).all()),
+          f"S attention rollout: shape {tuple(heat.shape)} or not finite")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        small = flagship(device, "float32", 2, seed=5)
+        outs[device] = attention_rollout(
+            small, batch["cad_image"].to(device), discard_ratio=0.5).cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    check(err <= 1e-5, f"S attention rollout: float32 depth 2 card vs CPU "
+          f"{err}")
+    print(f"S attention rollout: B={SALIENCY_BATCH} {roll_ms:.1f} ms (median "
+          f"of 3), heatmaps {tuple(heat.shape)}; float32 depth 2 card vs "
+          f"CPU {err:.3g} (tol 1e-5)", flush=True)
+    return {"saliency_ms": sal_ms, "saliency_k1_bwd": bwd,
+            "attention_rollout_ms": roll_ms, "rollout_f32_err": err}
+
+
+def phase_s_artifact(model, np, root):
+    """S4: cli.export_model.main writes the flagship (seed 0) with 8 lanes
+    and int8; cli.serve --artifact serves it over HTTP (3 sessions x 10
+    steps, some concurrent) through ArtifactMuxEngine; the actions equal a
+    live MuxEngine(weight_quant="int8")'s on the same frames."""
+    from videocad_tpu_torch.cli import export_model as export_cli
+    from videocad_tpu_torch.cli.serve import build_engine, parse_args
+    from videocad_tpu_torch.infer.server import (ArtifactMuxEngine,
+                                                 MuxEngine, ServingClient,
+                                                 make_server)
+    from videocad_tpu_torch.models.factory import FLAGSHIP_NAME
+
+    path = os.path.join(root, "flagship.vcdx")
+    start = time.monotonic()
+    meta = export_cli.main([
+        "--device", "cuda", "--model_config",
+        str(REPO / "model_configs" / "transformer_experiments.json"),
+        "--model_name", FLAGSHIP_NAME, "--batch", "1", "--bucket",
+        str(SEQ_LEN), "--lanes", str(LANES), "--weight_quant", "int8",
+        "--out", path])
+    export_s = time.monotonic() - start
+    size_mb = os.path.getsize(path) / 1e6
+    start = time.monotonic()
+    engine = build_engine(parse_args(["--device", "cuda", "--artifact",
+                                      path]))
+    load_s = time.monotonic() - start
+    check(isinstance(engine, ArtifactMuxEngine)
+          and engine.meta()["weight_quant"] == "int8",
+          f"S artifact: engine {engine.meta()}")
+    rng = np.random.default_rng(26)
+    cads = rng.integers(0, 256, (ARTIFACT_SESSIONS, 224, 224, 3),
+                        dtype=np.uint8)
+    frames = rng.integers(0, 256, (ARTIFACT_SESSIONS, STEPS, 224, 224, 3),
+                          dtype=np.uint8)
+    replies = [[None] * STEPS for _ in range(ARTIFACT_SESSIONS)]
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{server.server_address[1]}")
+        sids = [client.open_session(c) for c in cads]
+
+        def run(i):
+            for s in range(STEPS):
+                replies[i][s] = client.step(sids[i], frames[i][s])
+
+        workers = [threading.Thread(target=run, args=(i,))
+                   for i in range(ARTIFACT_SESSIONS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+            check(not w.is_alive(), "S artifact: a client thread hung")
+        stats = client.stats()
+        for sid in sids:
+            client.close_session(sid)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=30)
+    del engine
+    live = MuxEngine(model, lanes=LANES, seq_len=SEQ_LEN,
+                     weight_quant="int8")
+    try:
+        live_sids = [live.open_session(c)[0] for c in cads]
+        for i in range(ARTIFACT_SESSIONS):
+            for s in range(STEPS):
+                want = live.step(live_sids[i], frames[i][s])
+                got = replies[i][s]
+                check(got is not None and valid_reply(got, s)
+                      and (got["cmd"], got["params"]) == (want["cmd"],
+                                                          want["params"]),
+                      f"S artifact: session {i} step {s}: {got} against "
+                      f"the live engine's {want}")
+    finally:
+        live.stop()
+    check(stats["steps"] == ARTIFACT_SESSIONS * STEPS, f"S artifact {stats}")
+    print(f"S artifact: {size_mb:.0f} MB written in {export_s:.1f} s, loaded "
+          f"in {load_s:.1f} s (meta {json.dumps(meta)}); "
+          f"{ARTIFACT_SESSIONS} sessions x {STEPS} steps over HTTP equal "
+          f"the live int8 engine's; ticks {stats['ticks']}, coalescing "
+          f"{stats['coalescing_factor']}, tick ms p50 {stats['p50_tick_ms']} "
+          f"p95 {stats['p95_tick_ms']} mean {stats['mean_tick_ms']}",
+          flush=True)
+    return {"tick_p50_ms": stats["p50_tick_ms"],
+            "tick_p95_ms": stats["p95_tick_ms"], "export_s": export_s,
+            "load_s": load_s}
+
+
+def phase_s(counters, fa, np):
+    """Phase S, driven with the launch counters at 0 and read just after:
+    the flagship (bf16, seed 0) through the serving and inference layer.
+    Returns (launches, the phase's numbers)."""
+    import torch
+
+    start = time.monotonic()
+    for reset in counters.values():
+        reset(0)
+    model = flagship("cuda")
+    root = tempfile.mkdtemp(prefix="videocad_smoke_s_")
+    try:
+        numbers = {"rollout": phase_s_quant(model, np),
+                   "incremental": phase_s_incremental(model, fa),
+                   "interpret": phase_s_interpret(model, fa),
+                   "artifact": phase_s_artifact(model, np, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: read() for name, read in counters.items()}
+    del model
+    torch.cuda.empty_cache()
+    for name in ("mhsa_short", "mhsa_short_bwd"):
+        check(launches[name] > 0, f"phase S launched no {name} kernel")
+    print(f"S phase: {time.monotonic() - start:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(json.dumps({"phase_s": numbers}), flush=True)
     return launches
 
 
@@ -3305,6 +3745,7 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches_named = phase_named(counters, fa, np)
+    launches_s = phase_s(counters, fa, np)
     # The path each kernel is claimed on: train E for the fused sub-block
     # kernels, train D for the flash attention kernels, train C for the
     # kernels behind ln_impl and dropout_impl, GenCAD's (G) for K1's wide
@@ -3315,7 +3756,8 @@ def main() -> None:
                       "evaluate": launches_eval[name],
                       "train_e": launches_e[name],
                       **{phase: counts[name]
-                         for phase, counts in launches_named.items()}}
+                         for phase, counts in launches_named.items()},
+                      "S": launches_s[name]}
                for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]

@@ -216,12 +216,14 @@ def test_decision_transformer_rollout_is_its_one_pass_forward():
 
 
 def test_rollout_refuses_unported_weight_quant():
+    """int8 and int4 are ported (tests/test_torch_port_quant_decode.py); a
+    mode that neither package has is refused, as JAX's export refuses it."""
     _, _, model = _pair()
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="unknown weight_quant"):
         sequential_inference(model, torch.zeros((1, 2, 32, 32, 3),
                                                 dtype=torch.uint8),
                              torch.zeros((1, 32, 32, 3), dtype=torch.uint8),
-                             weight_quant="int8")
+                             weight_quant="int2")
 
 
 def test_load_jax_params_reads_npz_and_vcdx(tmp_path):

@@ -266,10 +266,9 @@ def test_server_sessions_with_views_or_gencad(kind):
                                                    want["params"])
         bad = [(np.zeros((16, 16, 3), np.uint8), views)]     # wrong CAD size
         if kind == "multiview":
+            # 1-channel views are refused, as the JAX server refuses them.
             bad += [(cad, None), (cad, views[:1]),
-                    (cad, views.astype(np.float32))]
-            # The 1-channel (grayscale) views are taken too.
-            client.close_session(client.open_session(cad, views[..., :1]))
+                    (cad, views.astype(np.float32)), (cad, views[..., :1])]
         else:
             bad += [(cad, np.zeros((2, 32, 32, 3), np.uint8))]
         for c, v in bad:
@@ -283,3 +282,37 @@ def test_server_sessions_with_views_or_gencad(kind):
         engine.stop()
         ref.stop()
         thread.join(timeout=30)
+
+
+def test_port_and_jax_servers_refuse_views_alike():
+    """The multiview session check is JAX's: views of (V, H, W, 3) uint8
+    only. A (V, H, W, 1) request, or any other shape, gets the same status
+    from both servers, and a good one opens on both."""
+    cfg = VIEW_CFGS["multiview"]
+    jax_model = jax_create_model(cfg)
+    params = init_model(jax_model, jax.random.PRNGKey(14), batch=1,
+                        seq_len=2)
+    model = create_model(cfg)
+    model.load_state_dict(state_dict_from_jax(params))
+    cad, views = _session_images("multiview", seed=7)
+    requests = [views[..., :1], views[:, :16], views[None],
+                np.repeat(views, 2, axis=0)[:3], views]
+    statuses = []
+    for engine in (MuxEngine(model, lanes=2, seq_len=SEQ_LEN),
+                   JaxMuxEngine(jax_model, params, lanes=2,
+                                seq_len=SEQ_LEN)):
+        got = []
+        try:
+            for v in requests:
+                try:
+                    engine.close_session(engine.open_session(cad, v)[0])
+                    got.append(201)
+                except SessionError as e:
+                    got.append(e.status)
+                except Exception as e:  # noqa: BLE001
+                    got.append(getattr(e, "status", type(e).__name__))
+            assert engine.meta()["free_lanes"] == 2
+        finally:
+            engine.stop()
+        statuses.append(got)
+    assert statuses[0] == statuses[1] == [400, 400, 400, 400, 201]

@@ -1,14 +1,24 @@
-"""Serving CLI: expose a live model over HTTP on one device.
+"""Serving CLI: expose a live model, or a .vcdx artifact, over HTTP on
+one device.
 
     python -m videocad_tpu_torch.cli.serve \
         --model_config model_configs/transformer_experiments.json \
         --model_name cad_past_10_actions_and_states_timestep_embedding \
-        --device cuda --lanes 8 [--jax_params params.npz | model.vcdx]
+        --device cuda --lanes 8 [--weight_quant int8|int4] \
+        [--jax_params params.npz | model.vcdx]
         [--checkpoint_folder checkpoints/<experiment>/epoch_N]
+
+    python -m videocad_tpu_torch.cli.serve --device cuda \
+        --artifact serve/flagship.vcdx
 
 ``--checkpoint_folder`` names a checkpoint directory of the port's trainer
 (``train/checkpoint.py``). With neither, the model serves random weights
-from seed 0 (a protocol smoke). The protocol is that of
+from seed 0 (a protocol smoke). ``--artifact`` serves a ``.vcdx`` written
+by ``cli/export_model.py`` or by the JAX package's
+``tools/export_model.py`` (its weights, config and meta; its programs are
+not read): through ``ArtifactMuxEngine`` when it was exported with lanes,
+else one session at a time through ``ArtifactEngine``; its own
+``weight_quant`` and shapes hold. The protocol is that of
 ``videocad_tpu.cli.serve``; the stdlib client is
 ``videocad_tpu_torch.infer.server.ServingClient``. The port never moves
 to another device than the one asked for: ``--device cuda`` without a card
@@ -26,19 +36,23 @@ def build_engine(args):
     import torch
 
     from videocad_tpu_torch.experiment import load_warm_start
-    from videocad_tpu_torch.infer.server import MuxEngine
+    from videocad_tpu_torch.infer.export import artifact_lanes, read_meta
+    from videocad_tpu_torch.infer.server import (ArtifactEngine,
+                                                 ArtifactMuxEngine,
+                                                 MuxEngine)
     from videocad_tpu_torch.models.convert import (load_jax_params,
                                                    state_dict_from_jax)
     from videocad_tpu_torch.models.factory import create_model
 
-    if args.artifact:
-        raise NotImplementedError(
-            "serving a .vcdx artifact's programs is not ported yet (ROADMAP "
-            "slice 10); pass its weights with --jax_params model.vcdx")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (the port does not fall back to CPU)")
+    if args.artifact:
+        if artifact_lanes(read_meta(args.artifact)):
+            return ArtifactMuxEngine(args.artifact, device,
+                                     session_ttl_s=args.session_ttl)
+        return ArtifactEngine(args.artifact, device)
     with open(args.model_config) as f:
         model_params = json.load(f)[args.model_name]
     model = create_model(model_params, device=device,
@@ -64,7 +78,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "or a .vcdx artifact; omit to serve seeded "
                              "random weights (protocol smoke)")
     parser.add_argument("--artifact", default=None,
-                        help=".vcdx programs (not ported yet)")
+                        help="a .vcdx artifact (the port's or the JAX "
+                             "package's): serves its weights at its shapes, "
+                             "lanes and weight_quant")
     parser.add_argument("--model_config",
                         default="model_configs/transformer_experiments.json")
     parser.add_argument("--model_name",
@@ -80,8 +96,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "186-action episodes + zero-action start)")
     parser.add_argument("--weight_quant", default="none",
                         choices=["none", "int8", "int4"],
-                        help="decoder weight quantization (only 'none' is "
-                             "ported yet)")
+                        help="int8 / int4: the decoder's dense weights "
+                             "streamed as integers with a per-channel scale "
+                             "(w8a16 / w4a16), quantized once at start")
     parser.add_argument("--session_ttl", type=float, default=None,
                         help="evict sessions idle this many seconds when "
                              "lanes are requested; omit to never evict")
@@ -99,7 +116,8 @@ def main(argv=None):
     meta = engine.meta()
     print(f"serving {meta['engine']} engine on {meta['device']} at "
           f"http://{args.host}:{server.server_address[1]} "
-          f"(lanes={meta['lanes']}, seq_len={meta['seq_len']})")
+          f"(lanes={meta['lanes']}, seq_len={meta['seq_len']}, "
+          f"weight_quant={meta.get('weight_quant')})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

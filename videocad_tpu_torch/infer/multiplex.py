@@ -25,17 +25,9 @@ import torch
 from torch import nn
 
 from videocad_tpu_torch.actions.vocab import ACT_DIM
-from videocad_tpu_torch.infer.rollout import (_dense, _kv_write,
-                                              cast_decode_tree, decode_step,
-                                              next_actions)
-
-
-def _require_incremental_support(cfg) -> None:
-    if not cfg.enable_past_actions:
-        raise ValueError(
-            "incremental decode needs enable_past_actions=True: without "
-            "action feedback the model has no sequential dependency; use "
-            "the one-pass forward (infer/rollout.py handles this mode)")
+from videocad_tpu_torch.infer.incremental import (
+    _require_incremental_support, advance)
+from videocad_tpu_torch.infer.rollout import kv_caches
 
 
 def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
@@ -55,23 +47,15 @@ def init_mux_carry(model: nn.Module, lanes: int, seq_len: int,
     cfg = model.config
     _require_incremental_support(cfg)
     device = torch.device(device) if device is not None else model.device
-    dtype = cfg.compute_dtype
-    hd = cfg.hidden_size // cfg.nhead
     streams = 2 if multiview and cfg.num_views > 0 else 1
-
-    def kv():
-        shape = (lanes, seq_len, cfg.nhead, hd)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
-
     return {
         "t": torch.zeros((lanes,), dtype=torch.int64, device=device),
         "active": torch.zeros((lanes,), dtype=torch.bool, device=device),
         "action": torch.zeros((lanes, ACT_DIM), device=device),
         "cad_stream": torch.zeros((lanes, streams * cfg.hidden_size),
-                                  dtype=dtype, device=device),
-        "self_kv": [kv() for _ in range(cfg.num_decoder_layers)],
-        "mem_kv": [kv() for _ in range(cfg.num_decoder_layers)],
+                                  dtype=cfg.compute_dtype, device=device),
+        "self_kv": kv_caches(cfg, lanes, seq_len, device),
+        "mem_kv": kv_caches(cfg, lanes, seq_len, device),
     }
 
 
@@ -108,46 +92,20 @@ def mux_decode_step(model: nn.Module, params: Dict, frames: torch.Tensor,
                     ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
     """One multiplexed step: each lane in ``active`` observes its row of
     ``frames`` (L, H, W, C uint8) and advances one step; inactive lanes are
-    bit-frozen. ``params`` comes from ``rollout.prepare_for_decode``.
+    bit-frozen. ``params`` comes from ``rollout.prepare_for_decode`` or
+    ``rollout.quantize_for_decode``; the step is ``incremental.advance``
+    with each lane's own position.
 
     Returns (carry, cmd_logits (L, 5), param_logits (L, 6, 1000)); logits
     rows of inactive lanes are garbage by contract.
     """
-    cfg = model.config
-    _require_incremental_support(cfg)
-    dtype = cfg.compute_dtype
+    _require_incremental_support(model.config)
     t = carry["t"]
     seq_len = carry["self_kv"][0][0].shape[1]
-    lanes = frames.shape[0]
     # Horizon guard: a lane stepped at t >= seq_len stays bit-frozen.
     active = active & carry["active"] & (t < seq_len)
-
-    # 1. The new frame's memory slot at each lane's own position, projected
-    #    with the float32 cross-attention weights, then cast.
-    mem_t = model.encode_memory_step(frames, t, carry["cad_stream"]).to(dtype)
-    for i in range(cfg.num_decoder_layers):
-        ca = params["decoder"][f"layers_{i}"]["cross_attn"]
-        k_cache, v_cache = carry["mem_kv"][i]
-        _kv_write(k_cache, _dense(ca["key"], mem_t).to(dtype).reshape(
-            lanes, cfg.nhead, -1), t, active)
-        _kv_write(v_cache, _dense(ca["value"], mem_t).to(dtype).reshape(
-            lanes, cfg.nhead, -1), t, active)
-
-    # 2. One decoder step on each lane's previous action (the shared
-    #    rollout decode_step with a per-lane t).
-    x = torch.tanh(_dense(cast_decode_tree(params["embed_action"], dtype),
-                          carry["action"].to(dtype)) + model._timestep(t))
-    hidden, _ = decode_step(params, cfg, x, t, carry["self_kv"],
-                            carry["mem_kv"], cfg.window_size, seq_len,
-                            write_valid=active)
-    hidden = hidden.to(torch.float32)
-    cmd_logits = _dense(params["predict_cmd"], hidden)
-    param_logits = _dense(params["predict_params"], hidden).reshape(
-        lanes, cfg.num_params, cfg.num_params_values)
-
-    # 3. The reference decode rule, gated per lane.
-    carry["action"] = torch.where(active[:, None],
-                                  next_actions(cmd_logits, param_logits),
-                                  carry["action"])
+    action, cmd_logits, param_logits = advance(model, params, frames, t,
+                                               active, carry)
+    carry["action"] = torch.where(active[:, None], action, carry["action"])
     carry["t"] = torch.where(active, t + 1, t)
     return carry, cmd_logits, param_logits

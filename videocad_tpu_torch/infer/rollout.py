@@ -16,6 +16,15 @@ position ``t`` (all rows at one position) or a per-row (B,) ``t``.
 JAX's decode step returns new caches; this one writes the step's K and V
 into the caches IN PLACE (the JAX programs donate the carry for the same
 effect), gated by ``write_valid``.
+
+``weight_quant`` ("int8" / "int4") streams the decoder's dense weights as
+integers with a per-output-channel scale (:func:`quantize_decode_weights`),
+dequantized at the read in JAX's order, ``(x @ q^T) * scale + bias``. An
+int8 dense is ``{"weight_q": int8 (out, in), "scale", "bias"}``; an int4
+dense packs two's-complement nibbles two to a byte along the input axis,
+``{"weight_q4": uint8 (out, ceil(in / 2)), "in_features": in, "scale",
+"bias"}`` (torch has no int4 dtype). The encoders, embeddings and heads
+stay full precision.
 """
 
 from __future__ import annotations
@@ -46,9 +55,39 @@ def param_tree(module: nn.Module) -> Dict:
     return tree
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 (out, in) values in [-8, 7] -> uint8 (out, ceil(in / 2)): two's
+    complement nibbles, column 2j in the low nibble of byte j and column
+    2j + 1 in the high one; an odd width is padded with a zero."""
+    if q.shape[1] % 2:
+        q = F.pad(q, (0, 1))
+    nibbles = q.to(torch.int16) & 0xF
+    return (nibbles[:, 0::2] | (nibbles[:, 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor, in_features: int) -> torch.Tensor:
+    """The inverse of :func:`pack_int4`: int8 (out, in_features)."""
+    b = packed.to(torch.int16)
+    nibbles = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(
+        packed.shape[0], -1)[:, :in_features]
+    return (nibbles - ((nibbles & 0x8) << 1)).to(torch.int8)
+
+
+def dequantized_weight(p: Dict) -> torch.Tensor:
+    """A quantized dense's integers as int8 (out, in), before the scale."""
+    if "weight_q4" in p:
+        return unpack_int4(p["weight_q4"], p["in_features"])
+    return p["weight_q"]
+
+
 def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """``x @ W + b`` with JAX's type promotion: a bfloat16 x against
-    float32 weights computes in float32."""
+    float32 weights computes in float32. A quantized dense (w8a16 / w4a16)
+    multiplies by its integers cast to x's dtype, then scales each output
+    channel and adds the bias, as JAX's ``_dense`` does."""
+    if "scale" in p:
+        y = F.linear(x, dequantized_weight(p).to(x.dtype))
+        return y * p["scale"] + p["bias"]
     w = p["weight"]
     dt = torch.promote_types(x.dtype, w.dtype)
     y = F.linear(x.to(dt), w.to(dt))
@@ -56,24 +95,74 @@ def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_decode_tree(tree, dtype: torch.dtype):
-    """Cast every floating leaf of a decode tree to ``dtype``."""
+    """Cast every floating leaf of a decode tree to ``dtype``; integer
+    weights (and an int4 dense's recorded width) pass through, so a tree
+    quantized by :func:`quantize_decode_weights` survives the dtype flow."""
     if isinstance(tree, dict):
         return {k: cast_decode_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype) if tree.is_floating_point() else tree
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+# The decoder's dense layers that weight-only quantization streams as
+# integers (JAX's ``_DENSE_KEYS``).
+_DENSE_KEYS = ("query", "key", "value", "out", "linear1", "linear2")
+QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def quantize_dense(p: Dict, dtype: torch.dtype, bits: int) -> Dict:
+    """Per-output-channel symmetric quantization of one dense, in the
+    arithmetic of JAX's compiled ``quantize_decode_weights`` on the CPU:
+    XLA turns ``max / qmax`` into a product with the float32 reciprocal of
+    qmax, and the integers are ``round(w / scale)`` (half to even),
+    clipped to +-qmax. The scale is then stored in ``dtype``."""
+    qmax = {8: 127.0, 4: 7.0}[bits]
+    w = p["weight"].to(torch.float32)                       # (out, in)
+    inv = torch.tensor(1.0, device=w.device) / qmax
+    scale = w.abs().amax(dim=1).clamp_min(1e-12) * inv
+    q = torch.round(w / scale[:, None]).clamp(-qmax, qmax).to(torch.int8)
+    out = {"scale": scale.to(dtype), "bias": p["bias"].to(dtype)}
+    if bits == 4:
+        out.update(weight_q4=pack_int4(q), in_features=w.shape[1])
+    else:
+        out["weight_q"] = q
+    return out
+
+
+def quantize_decode_weights(decoder_tree: Dict, dtype: torch.dtype,
+                            bits: int = 8) -> Dict:
+    """The decoder subtree with every dense of ``_DENSE_KEYS`` quantized
+    (:func:`quantize_dense`) and every other leaf (LayerNorm affines) cast
+    to ``dtype``. Nothing outside the decoder is read or copied."""
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            if name in _DENSE_KEYS and "weight" in node:
+                return quantize_dense(node, dtype, bits)
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(dtype)
+    return walk(decoder_tree)
+
+
+def _cat_rows(leaves):
+    """Concatenate one key of q, k and v along the output axis; an int4
+    dense's width (the model's, for all three) is kept once."""
+    return torch.cat(leaves, dim=0) if torch.is_tensor(leaves[0]) else leaves[0]
 
 
 def fuse_self_qkv(decoder_tree: Dict) -> Dict:
     """Concatenate each layer's self-attention query/key/value into one
     ``qkv`` dense (rows of the torch-layout weight), so the latency-bound
-    decode loop runs one product instead of three per layer."""
+    decode loop runs one product instead of three per layer. Quantized
+    denses fuse the same way: integers, packed int4 bytes (packed along the
+    input axis) and per-channel scales are all rows."""
     out = dict(decoder_tree)
     for name, layer in decoder_tree.items():
         if not name.startswith("layers_") or "qkv" in layer["self_attn"]:
             continue
         sa = dict(layer["self_attn"])
         parts = [sa.pop("query"), sa.pop("key"), sa.pop("value")]
-        sa["qkv"] = {k: torch.cat([p[k] for p in parts], dim=0)
-                     for k in parts[0]}
+        sa["qkv"] = {k: _cat_rows([p[k] for p in parts]) for k in parts[0]}
         out[name] = dict(layer, self_attn=sa)
     return out
 
@@ -99,6 +188,43 @@ def prepare_for_decode(model: nn.Module,
         ca["value"] = layer["cross_attn"]["value"]
         dec[name] = dict(dec[name], cross_attn=ca)
     return dict(tree, decoder=dec)
+
+
+def quantize_for_decode(model: nn.Module,
+                        dtype: Optional[torch.dtype] = None,
+                        bits: int = 8) -> Dict:
+    """:func:`prepare_for_decode`'s quantized counterpart: the parameter
+    tree with its decoder quantized to ``bits`` (8 or 4) and its
+    self-attention q/k/v fused; run once per serving session. The memory
+    K/V are projected with the quantized cross-attention key/value, as the
+    quantized batch rollout projects them."""
+    dtype = dtype or model.config.compute_dtype
+    tree = param_tree(model)
+    return dict(tree, decoder=fuse_self_qkv(
+        quantize_decode_weights(tree["decoder"], dtype, bits)))
+
+
+def decode_params(model: nn.Module, weight_quant: str = "none") -> Dict:
+    """The session's decode tree for ``weight_quant`` ("none", "int8",
+    "int4"): :func:`prepare_for_decode` or :func:`quantize_for_decode`."""
+    check_weight_quant(model.config, weight_quant)
+    if weight_quant == "none":
+        return prepare_for_decode(model)
+    return quantize_for_decode(model, bits=QUANT_BITS[weight_quant])
+
+
+def check_weight_quant(cfg, weight_quant: str) -> None:
+    """Refuse what JAX refuses: an unknown mode, and a quantized mode for a
+    config without action feedback, which has no decode loop to quantize."""
+    if weight_quant not in ("none",) + tuple(QUANT_BITS):
+        raise ValueError(f"unknown weight_quant {weight_quant!r} (expected "
+                         "'none', 'int8' or 'int4')")
+    if weight_quant != "none" and not cfg.enable_past_actions:
+        raise ValueError(
+            f"weight_quant='{weight_quant}' requires action feedback "
+            "(enable_past_actions): without it the rollout is a single "
+            "full-precision forward and the quantized decode loop never "
+            "runs")
 
 
 def _layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -160,6 +286,15 @@ def _window_read(mem: torch.Tensor, start: Position, w: int) -> torch.Tensor:
     idx = start[:, None] + torch.arange(w, device=mem.device)[None, :]
     rows = torch.arange(mem.shape[0], device=mem.device)[:, None]
     return mem[rows, idx]
+
+
+def kv_caches(cfg, rows: int, seq_len: int, device) -> KV:
+    """Zeroed per-layer (k, v) caches, (rows, seq_len, heads, head width)
+    each, in the compute dtype."""
+    shape = (rows, seq_len, cfg.nhead, cfg.hidden_size // cfg.nhead)
+    return [tuple(torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                  for _ in range(2))
+            for _ in range(cfg.num_decoder_layers)]
 
 
 def precompute_memory_kv(params: Dict, memory: torch.Tensor, num_layers: int,
@@ -266,12 +401,13 @@ def sequential_inference(model: nn.Module, frames: torch.Tensor,
     A model without action feedback (``enable_past_actions`` off, the
     decision transformer too) has no sequential dependency: one
     teacher-forced pass gives every step's logits.
+
+    ``weight_quant`` "int8" / "int4" streams the decoder's dense weights as
+    integers (:func:`quantize_decode_weights`), and projects the memory K/V
+    with the quantized cross-attention key/value, as JAX does.
     """
-    if weight_quant != "none":
-        raise NotImplementedError(
-            f"weight_quant={weight_quant!r} is not ported yet "
-            "(ROADMAP slice 7)")
     cfg = model.config
+    check_weight_quant(cfg, weight_quant)
     device = model.device
     frames = torch.as_tensor(frames, device=device)
     cad_image = torch.as_tensor(cad_image, device=device)
@@ -291,17 +427,17 @@ def sequential_inference(model: nn.Module, frames: torch.Tensor,
                                      seq_len)
     dtype = cfg.compute_dtype
     params = param_tree(model)
-    # Memory K/V with the float32 weights, then cast (JAX's dtype flow).
+    if weight_quant == "none":
+        decoder = cast_decode_tree(params["decoder"], dtype)
+        mem_src = params      # the float32 weights, then cast (JAX's flow)
+    else:
+        decoder = quantize_decode_weights(params["decoder"], dtype,
+                                          QUANT_BITS[weight_quant])
+        mem_src = {"decoder": decoder}
     mem_kv = [(k.to(dtype), v.to(dtype)) for k, v in precompute_memory_kv(
-        params, memory.to(dtype), cfg.num_decoder_layers, cfg.nhead)]
-    decode = {"decoder": fuse_self_qkv(
-        cast_decode_tree(params["decoder"], dtype))}
-    hd = cfg.hidden_size // cfg.nhead
-    self_kv = [(torch.zeros((b, seq_len, cfg.nhead, hd), dtype=dtype,
-                            device=device),
-                torch.zeros((b, seq_len, cfg.nhead, hd), dtype=dtype,
-                            device=device))
-               for _ in range(cfg.num_decoder_layers)]
+        mem_src, memory.to(dtype), cfg.num_decoder_layers, cfg.nhead)]
+    decode = {"decoder": fuse_self_qkv(decoder)}
+    self_kv = kv_caches(cfg, b, seq_len, device)
     ts_emb = model._timestep(torch.arange(seq_len, device=device))
     embed_action = cast_decode_tree(params["embed_action"], dtype)
     # One (hidden, 5 + 6*1000) head product per step, in float32.

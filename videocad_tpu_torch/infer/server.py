@@ -1,7 +1,7 @@
 """Serving runtime: an HTTP decode server with continuous lane batching.
 
-Port of ``videocad_tpu/infer/server.py``'s live-model engine. The wire
-protocol is identical, so ``ServingClient`` talks to either server:
+Port of ``videocad_tpu/infer/server.py``. The wire protocol is identical,
+so ``ServingClient`` talks to either server:
 
   GET    /v1/meta                      model/config/capacity info
   GET    /v1/stats                     serving telemetry (ticks, steps,
@@ -20,8 +20,10 @@ up to ``lanes`` concurrent sessions share one decode step, and a batcher
 thread coalesces whatever step requests are queued when the device frees up
 into ONE device call (continuous batching), so the per-step decoder weight
 stream is paid once per tick, not once per client. Images are base64
-``.npy`` payloads. The ``.vcdx`` artifact engines wait for ROADMAP slice
-10.
+``.npy`` payloads. :class:`ArtifactMuxEngine` serves the same lanes from a
+``.vcdx`` artifact (``infer/export.py``, the port's or the JAX package's),
+:class:`ArtifactEngine` one session at a time from an artifact without
+lanes.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from videocad_tpu_torch.infer.export import load_exported
 from videocad_tpu_torch.infer.multiplex import (close_lane, init_mux_carry,
                                                 mux_decode_step, open_lane)
-from videocad_tpu_torch.infer.rollout import prepare_for_decode
+from videocad_tpu_torch.infer.rollout import decode_params
 from videocad_tpu_torch.models.videocadformer import GENCAD_IMAGE_SHAPE
 
 
@@ -75,9 +78,11 @@ def _action_report(t: int, action_row: np.ndarray) -> Dict:
             "action": [float(v) for v in action_row]}
 
 
-class MuxEngine:
-    """Live-model engine: lane-multiplexed sessions + continuous batching
-    on the model's device (the KV caches are updated in place).
+class _LaneEngine:
+    """Shared lane-session machinery: session bookkeeping and the
+    continuous batcher. Subclasses set ``self._carry`` and provide the two
+    device calls, ``_device_open(carry, lane, cad, mv)`` and
+    ``_device_step(frames, active, carry)`` (numpy frames and mask).
 
     All device work happens on the caller threads under ``_lock`` except
     steps, which are queued and coalesced by a batcher thread: every tick
@@ -85,24 +90,12 @@ class MuxEngine:
     step call and distributes the per-lane results.
     """
 
-    def __init__(self, model, lanes: int = 4, seq_len: int = 187,
-                 weight_quant: str = "none",
+    def __init__(self, lanes: int, seq_len: int, image_size: int,
                  session_ttl_s: Optional[float] = None):
-        if weight_quant != "none":
-            raise NotImplementedError(
-                f"weight_quant={weight_quant!r} is not ported yet "
-                "(ROADMAP slice 7)")
-        self.model = model
-        self.device = model.device
-        self.params = prepare_for_decode(model)
-        self.weight_quant = weight_quant
-        self._carry = init_mux_carry(model, lanes, seq_len,
-                                     multiview=model.config.num_views > 0)
         self.lanes = lanes
         self.seq_len = seq_len
         self.session_ttl_s = session_ttl_s
-        size = model.config.image_size
-        self._img = (size, size, 3)
+        self._img = (image_size, image_size, 3)
         self._lock = threading.Lock()          # device calls + carry
         self._smeta: Dict[str, Dict] = {}      # session id -> {lane, t}
         self._free = list(range(lanes))
@@ -146,9 +139,8 @@ class MuxEngine:
                          "--lanes")
             lane = self._free.pop()
             try:
-                self._carry = open_lane(self.model, self._carry, lane,
-                                        *self._session_inputs(
-                                            cad_image, multiview_images))
+                self._carry = self._device_open(self._carry, lane,
+                                                cad_image, multiview_images)
             except Exception:
                 self._free.append(lane)   # bad input must not leak the lane
                 raise
@@ -157,38 +149,6 @@ class MuxEngine:
                                 "last_used": time.monotonic()}
             self._stats["sessions_opened"] += 1
         return sid, lane
-
-    def _session_inputs(self, cad_image, multiview_images):
-        """A session's CAD image (1, H, W, C) and multiview images
-        (1, V, H, W, C) or None, on the device, checked as the JAX
-        server checks them: the CAD image uint8 256 x 256 x 3 under GenCAD
-        and frame-sized otherwise; multiview images uint8 (V, H, W, C)
-        for a model of V views (C 3, as the JAX server takes them, or 1:
-        the grayscale renders), refused for a model without views."""
-        cfg = self.model.config
-        want = (GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model
-                else self._img)
-        cad = np.asarray(cad_image)
-        if cad.shape != want or cad.dtype != np.uint8:
-            raise SessionError(400, f"cad_image must be uint8 {want}, "
-                                    f"got {cad.dtype} {cad.shape}")
-        mv = None
-        if cfg.num_views > 0:
-            if multiview_images is None:
-                raise SessionError(
-                    400, f"model expects {cfg.num_views} multiview_images")
-            mv = np.asarray(multiview_images)
-            size = self._img[0]
-            if (mv.ndim != 4 or mv.shape[:3] != (cfg.num_views, size, size)
-                    or mv.shape[3] not in (1, 3) or mv.dtype != np.uint8):
-                raise SessionError(
-                    400, f"multiview_images must be uint8 "
-                         f"{(cfg.num_views, size, size)} + (1 or 3 "
-                         f"channels,), got {mv.dtype} {mv.shape}")
-            mv = torch.from_numpy(mv).to(self.device)[None]
-        elif multiview_images is not None:
-            raise SessionError(400, "model takes no multiview_images")
-        return torch.from_numpy(cad).to(self.device)[None], mv
 
     def step(self, session_id: str, frame: np.ndarray) -> Dict:
         with self._lock:
@@ -313,11 +273,8 @@ class MuxEngine:
                     active[lane] = True
                 if live:
                     t0 = time.monotonic()
-                    carry, cmd_logits, param_logits = mux_decode_step(
-                        self.model, self.params,
-                        torch.from_numpy(frames).to(self.device),
-                        torch.from_numpy(active).to(self.device),
-                        self._carry)
+                    carry, cmd_logits, param_logits = self._device_step(
+                        frames, active, self._carry)
                     self._carry = carry
                     actions = carry["action"].cpu().numpy()  # device sync
                     ts = carry["t"].cpu().numpy()
@@ -348,6 +305,62 @@ class MuxEngine:
                     box["event"].set()
 
 
+class MuxEngine(_LaneEngine):
+    """Live-model engine: lane-multiplexed sessions and continuous batching
+    on the model's device (the KV caches are updated in place).
+    ``weight_quant`` "int8" / "int4" quantizes the decoder once, here."""
+
+    def __init__(self, model, lanes: int = 4, seq_len: int = 187,
+                 weight_quant: str = "none",
+                 session_ttl_s: Optional[float] = None):
+        self.model = model
+        self.device = model.device
+        self.params = decode_params(model, weight_quant)
+        self.weight_quant = weight_quant
+        self._carry = init_mux_carry(model, lanes, seq_len,
+                                     multiview=model.config.num_views > 0)
+        super().__init__(lanes, seq_len, model.config.image_size,
+                         session_ttl_s)
+
+    def _session_inputs(self, cad_image, multiview_images):
+        """A session's CAD image (1, H, W, C) and multiview images
+        (1, V, H, W, C) or None, on the device, checked as the JAX
+        server checks them: the CAD image uint8 256 x 256 x 3 under GenCAD
+        and frame-sized otherwise; multiview images uint8 (V, H, W, C)
+        for a model of V views, refused for a model without views."""
+        cfg = self.model.config
+        want = (GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model
+                else self._img)
+        cad = np.asarray(cad_image)
+        if cad.shape != want or cad.dtype != np.uint8:
+            raise SessionError(400, f"cad_image must be uint8 {want}, "
+                                    f"got {cad.dtype} {cad.shape}")
+        mv = None
+        if cfg.num_views > 0:
+            if multiview_images is None:
+                raise SessionError(
+                    400, f"model expects {cfg.num_views} multiview_images")
+            mv = np.asarray(multiview_images)
+            mv_want = (cfg.num_views,) + self._img
+            if mv.shape != mv_want or mv.dtype != np.uint8:
+                raise SessionError(
+                    400, f"multiview_images must be uint8 {mv_want}, "
+                         f"got {mv.dtype} {mv.shape}")
+            mv = torch.from_numpy(mv).to(self.device)[None]
+        elif multiview_images is not None:
+            raise SessionError(400, "model takes no multiview_images")
+        return torch.from_numpy(cad).to(self.device)[None], mv
+
+    def _device_open(self, carry, lane, cad_image, multiview_images):
+        return open_lane(self.model, carry, lane,
+                         *self._session_inputs(cad_image, multiview_images))
+
+    def _device_step(self, frames, active, carry):
+        return mux_decode_step(self.model, self.params,
+                               torch.from_numpy(frames).to(self.device),
+                               torch.from_numpy(active).to(self.device),
+                               carry)
+
     def meta(self) -> Dict:
         return {"engine": "mux", "lanes": self.lanes,
                 "free_lanes": len(self._free), "seq_len": self.seq_len,
@@ -355,6 +368,169 @@ class MuxEngine:
                 "weight_quant": self.weight_quant,
                 "device": str(self.device),
                 "config": dataclasses.asdict(self.model.config)}
+
+
+class ArtifactMuxEngine(_LaneEngine):
+    """Multi-session serving from a ``.vcdx`` artifact exported with
+    ``lanes`` (``infer/export.py``): the continuous batching of
+    :class:`MuxEngine` over the artifact's :class:`ExportedModel`, with its
+    ``weight_quant``. Artifacts without lanes serve through
+    :class:`ArtifactEngine`."""
+
+    def __init__(self, path: str, device="cuda",
+                 session_ttl_s: Optional[float] = None):
+        self.exported = load_exported(path, device)
+        if not self.exported.lanes:
+            raise ValueError(
+                f"{path} has no mux serving lanes; re-export with --lanes N "
+                "(cli/export_model.py) or serve it through ArtifactEngine")
+        self.device = self.exported.device
+        self._carry = self.exported.mux_init()
+        super().__init__(self.exported.lanes, self.exported.bucket_len,
+                         self.exported.img[0], session_ttl_s)
+
+    def _device_open(self, carry, lane, cad_image, multiview_images):
+        want = self.exported.cad_hw
+        cad = np.asarray(cad_image)
+        if cad.shape != want or cad.dtype != np.uint8:
+            raise SessionError(400, f"cad_image must be uint8 {want}, "
+                                    f"got {cad.dtype} {cad.shape}")
+        if self.exported.multiview:
+            if multiview_images is None:
+                raise SessionError(400, "this artifact was exported for a "
+                                        "multiview model; multiview_images "
+                                        "is required")
+            return self.exported.mux_open(carry, lane, cad[None],
+                                          np.asarray(multiview_images)[None])
+        if multiview_images is not None:
+            raise SessionError(400, "artifact was exported without "
+                                    "multiview inputs")
+        return self.exported.mux_open(carry, lane, cad[None])
+
+    def _device_step(self, frames, active, carry):
+        return self.exported.mux_step(frames, active, carry)
+
+    def meta(self) -> Dict:
+        return {"engine": "artifact-mux", "lanes": self.lanes,
+                "free_lanes": len(self._free), "seq_len": self.seq_len,
+                "image_size": self._img[0],
+                "weight_quant": self.exported.weight_quant,
+                "device": str(self.device),
+                "config": self.exported.config}
+
+
+class ArtifactEngine:
+    """A ``.vcdx`` artifact without lanes: the decode pair shares one step
+    counter across the artifact's batch rows, so this engine serves ONE
+    session at a time (as the JAX ArtifactEngine)."""
+
+    def __init__(self, path: str, device="cuda"):
+        self.exported = load_exported(path, device)
+        if not self.exported.meta.get("has_decode"):
+            raise ValueError(
+                f"{path} has no incremental decode (exported from a model "
+                "without action feedback)")
+        self.device = self.exported.device
+        self.batch = self.exported.batch
+        self.seq_len = self.exported.bucket_len
+        self._img = self.exported.img
+        self._cad_hw = self.exported.cad_hw
+        self._lock = threading.Lock()
+        self._session = None   # {id, carry, t}
+        self._started = time.monotonic()
+        self._stats = {"steps": 0, "sessions_opened": 0, "step_ms_sum": 0.0}
+
+    def meta(self) -> Dict:
+        return {"engine": "artifact", "lanes": 1,
+                "free_lanes": 0 if self._session else 1,
+                "seq_len": self.seq_len, "batch_size": self.batch,
+                "image_size": self._img[0],
+                "weight_quant": self.exported.weight_quant,
+                "device": str(self.device),
+                "config": self.exported.config}
+
+    def open_session(self, cad_image: np.ndarray,
+                     multiview_images=None) -> Tuple[str, int]:
+        cad = np.asarray(cad_image)
+        if cad.shape == self._cad_hw:    # one image -> the artifact's batch
+            cad = np.broadcast_to(cad, (self.batch,) + self._cad_hw)
+        if cad.shape != (self.batch,) + self._cad_hw:
+            raise SessionError(400, f"cad_image must be {self._cad_hw} or "
+                                    f"{(self.batch,) + self._cad_hw}")
+        mv = None
+        if self.exported.multiview:
+            mv_hw = (self.exported.meta["num_views"],) + self._img
+            if multiview_images is None:
+                raise SessionError(
+                    400, f"this artifact serves a multiview model: "
+                         f"multiview_images (uint8 {mv_hw}) is required")
+            mv = np.asarray(multiview_images)
+            if mv.shape == mv_hw:
+                mv = np.broadcast_to(mv, (self.batch,) + mv_hw)
+            if mv.shape != (self.batch,) + mv_hw or mv.dtype != np.uint8:
+                raise SessionError(
+                    400, f"multiview_images must be uint8 {mv_hw} or "
+                         f"{(self.batch,) + mv_hw}, got {mv.dtype} "
+                         f"{mv.shape}")
+            mv = np.array(mv)
+        elif multiview_images is not None:
+            raise SessionError(400, "artifact was exported without "
+                                    "multiview inputs")
+        with self._lock:
+            if self._session is not None:
+                raise SessionError(
+                    503, "artifact engine serves one session at a time "
+                         "(batch-lockstep decode); close the active "
+                         "session or serve an artifact with lanes")
+            carry = self.exported.decode_init(cad.astype(np.uint8), mv)
+            sid = uuid.uuid4().hex[:12]
+            self._session = {"id": sid, "carry": carry, "t": 0}
+            self._stats["sessions_opened"] += 1
+        return sid, 0
+
+    def step(self, session_id: str, frame: np.ndarray) -> Dict:
+        with self._lock:
+            s = self._session
+            if s is None or s["id"] != session_id:
+                raise SessionError(404, f"unknown session {session_id}")
+            if s["t"] >= self.seq_len:
+                raise SessionError(409, "session exhausted its horizon")
+            f = np.asarray(frame)
+            if f.shape == self._img:
+                f = np.broadcast_to(f, (self.batch,) + self._img)
+            if f.shape != (self.batch,) + self._img or f.dtype != np.uint8:
+                raise SessionError(400, f"frame must be uint8 {self._img} "
+                                        f"or {(self.batch,) + self._img}")
+            t0 = time.monotonic()
+            carry, _, _ = self.exported.decode_step(np.array(f), s["carry"])
+            s["carry"] = carry
+            s["t"] += 1
+            action = carry["action"][0].cpu().numpy()   # device sync
+            self._stats["steps"] += 1
+            self._stats["step_ms_sum"] += (time.monotonic() - t0) * 1000.0
+            return _action_report(s["t"] - 1, action)
+
+    def close_session(self, session_id: str) -> None:
+        with self._lock:
+            if self._session is None or self._session["id"] != session_id:
+                raise SessionError(404, f"unknown session {session_id}")
+            self._session = None
+
+    def stats(self) -> Dict:
+        with self._lock:
+            s = dict(self._stats)
+            active = 1 if self._session else 0
+        return {
+            "uptime_s": round(time.monotonic() - self._started, 1),
+            "active_sessions": active,
+            "sessions_opened": s["sessions_opened"],
+            "steps": s["steps"],
+            "mean_step_ms": (round(s["step_ms_sum"] / s["steps"], 3)
+                             if s["steps"] else None),
+        }
+
+    def stop(self) -> None:
+        pass
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -459,38 +635,6 @@ class ServingClient:
         if multiview_images is not None:
             payload["multiview_images"] = np_to_b64(multiview_images)
         return self._request("POST", "/v1/sessions", payload)["session_id"]
-
-    def _session_inputs(self, cad_image, multiview_images):
-        """A session's CAD image (1, H, W, C) and multiview images
-        (1, V, H, W, C) or None, on the device, checked as the JAX
-        server checks them: the CAD image uint8 256 x 256 x 3 under GenCAD
-        and frame-sized otherwise; multiview images uint8 (V, H, W, C)
-        for a model of V views (C 3, as the JAX server takes them, or 1:
-        the grayscale renders), refused for a model without views."""
-        cfg = self.model.config
-        want = (GENCAD_IMAGE_SHAPE if cfg.use_pretrained_cad_model
-                else self._img)
-        cad = np.asarray(cad_image)
-        if cad.shape != want or cad.dtype != np.uint8:
-            raise SessionError(400, f"cad_image must be uint8 {want}, "
-                                    f"got {cad.dtype} {cad.shape}")
-        mv = None
-        if cfg.num_views > 0:
-            if multiview_images is None:
-                raise SessionError(
-                    400, f"model expects {cfg.num_views} multiview_images")
-            mv = np.asarray(multiview_images)
-            size = self._img[0]
-            if (mv.ndim != 4 or mv.shape[:3] != (cfg.num_views, size, size)
-                    or mv.shape[3] not in (1, 3) or mv.dtype != np.uint8):
-                raise SessionError(
-                    400, f"multiview_images must be uint8 "
-                         f"{(cfg.num_views, size, size)} + (1 or 3 "
-                         f"channels,), got {mv.dtype} {mv.shape}")
-            mv = torch.from_numpy(mv).to(self.device)[None]
-        elif multiview_images is not None:
-            raise SessionError(400, "model takes no multiview_images")
-        return torch.from_numpy(cad).to(self.device)[None], mv
 
     def step(self, session_id: str, frame: np.ndarray) -> Dict:
         return self._request("POST", f"/v1/sessions/{session_id}/step",

@@ -73,6 +73,13 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]
     when it is 2-D (transposed) or 4-D (OIHW -> HWIO), ``scale`` when it
     is 1-D, and ``embedding`` when its module is one of the models' flax
     ``Embed`` modules (``_EMBED_MODULES``)."""
+    return unflatten(flat_jax_params(state_dict))
+
+
+def flat_jax_params(state_dict: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, np.ndarray]:
+    """:func:`jax_tree_from_state_dict` flattened by ``/``-joined tree
+    paths: the keys of a JAX ``params.npz``."""
     flat = {}
     for key, value in state_dict.items():
         arr = value.detach().to(torch.float32).cpu().numpy()
@@ -87,7 +94,7 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]
             else:
                 name = "scale"
         flat["/".join(path + [name])] = np.array(arr, order="C")
-    return unflatten(flat)
+    return flat
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:

@@ -114,20 +114,22 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0,
                   rng: Optional[DropoutRng] = None,
-                  dropout_impl: str = "xla") -> torch.Tensor:
+                  dropout_impl: str = "xla", return_weights: bool = False):
     """softmax(q k^T / sqrt(d) + mask) v with an f32 softmax, and dropout
     on the weights when ``dropout_rate`` > 0.
 
     q: (B, T, H, D); k, v: (B, S, H, D); mask broadcastable to (B, H, T, S)
-    bool (True = attend). Returns (B, T, H, D).
+    bool (True = attend). Returns (B, T, H, D), and with
+    ``return_weights`` the float32 softmax weights (B, H, T, S) beside it.
     """
     dtype = q.dtype
     scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(q.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-    weights = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
-    weights = dropout(weights, rng, dropout_rate, dropout_impl)
-    return torch.einsum("bhts,bshd->bthd", weights, v)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1)
+    weights = dropout(probs.to(dtype), rng, dropout_rate, dropout_impl)
+    out = torch.einsum("bhts,bshd->bthd", weights, v)
+    return (out, probs) if return_weights else out
 
 
 class MultiHeadAttention(nn.Module):
@@ -180,9 +182,18 @@ class MultiHeadAttention(nn.Module):
         return self._split(self.key(kv_in)), self._split(self.value(kv_in))
 
     def attend(self, q, k, v, mask=None,
-               rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        """Core attention over projected heads; returns the merged output."""
+               rng: Optional[DropoutRng] = None,
+               return_weights: bool = False):
+        """Core attention over projected heads; returns the merged output.
+
+        ``return_weights``: run the plain score path whatever the
+        ``attention_impl`` (JAX's ``sow_weights``), without dropout, and
+        return (output, float32 softmax weights (B, H, T, S)).
+        """
         b, t = q.shape[:2]
+        if return_weights:
+            out, weights = xla_attention(q, k, v, mask, return_weights=True)
+            return self.out(out.reshape(b, t, -1)), weights
         rate = active_rate(self, self.dropout_rate, rng)
         if self.attention_impl == "fused" and mask is None:
             # Unlike the JAX module off the TPU, the fused path is kept
@@ -202,10 +213,11 @@ class MultiHeadAttention(nn.Module):
         return self.out(out.reshape(b, t, self.num_heads * self.head_dim))
 
     def forward(self, q_in, kv_in, mask=None,
-                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+                rng: Optional[DropoutRng] = None,
+                return_weights: bool = False):
         q = self.project_q(q_in)
         k, v = self.project_kv(kv_in)
-        return self.attend(q, k, v, mask, rng)
+        return self.attend(q, k, v, mask, rng, return_weights)
 
 
 class TransformerDecoderLayer(nn.Module):

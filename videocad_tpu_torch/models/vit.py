@@ -25,6 +25,9 @@ In ``train()`` mode dropout runs on the embedding, on each block's attention
 output and two MLP sites, and on the attention weights (inside the fused
 kernels); the ``rng`` argument of ``forward`` feeds them
 (``models/layers.py``).
+``forward(..., return_attention=True)`` also returns every block's
+softmax weights through the plain attention core (JAX's ``sow_attention``;
+``infer/interpret.py:attention_rollout`` reads them).
 ``dropout_impl="pallas"`` sends the elementwise sites through the
 standalone dropout kernel, and ``ln_impl="pallas"`` makes every LayerNorm
 of the encoder a :class:`FusedLayerNorm` on the hand-written LayerNorm
@@ -123,13 +126,21 @@ class ViTBlock(nn.Module):
         self.mlp_in = Dense(cfg.dim, cfg.mlp_dim, **kw)
         self.mlp_out = Dense(cfg.mlp_dim, cfg.dim, **kw)
 
-    def forward(self, x: torch.Tensor,
-                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None,
+                return_attention: bool = False):
+        """The block's output; with ``return_attention``, (output, the
+        attention's float32 softmax weights (B, H, T, T)) from the plain
+        core (dropout off there), whatever ``attention_impl`` is."""
         rate = active_rate(self, self.dropout_rate, rng)
         drop = lambda y: dropout(y, rng, rate, self.dropout_impl)  # noqa: E731
         # One seed per fused sub-block call, drawn on the host.
         seed = lambda: derive_seed(rng.seeds) if rate > 0.0 else None  # noqa: E731
-        if self.attention_block:
+        weights = None
+        if return_attention:
+            h = self.attn_norm(x)
+            h, weights = self.attn(h, h, return_weights=True)
+            x = x + drop(h)
+        elif self.attention_block:
             attn = self.attn
             x = attn_block(
                 x, attn.query.weight.t(), attn.key.weight.t(),
@@ -140,15 +151,17 @@ class ViTBlock(nn.Module):
             h = self.attn_norm(x)
             x = x + drop(self.attn(h, h, rng=rng))
         if self.mlp_block:
-            return mlp_block(
+            x = mlp_block(
                 x, self.mlp_in.weight.t(), self.mlp_in.bias,
                 self.mlp_out.weight.t(), self.mlp_out.bias,
                 self.mlp_norm.weight, self.mlp_norm.bias, seed(), rate,
                 self.mlp_norm.eps)
-        h = self.mlp_in(self.mlp_norm(x))
-        # exact erf GELU (torch nn.GELU default, as the reference)
-        h = self.mlp_out(drop(F.gelu(h)))
-        return x + drop(h)
+        else:
+            h = self.mlp_in(self.mlp_norm(x))
+            # exact erf GELU (torch nn.GELU default, as the reference)
+            h = self.mlp_out(drop(F.gelu(h)))
+            x = x + drop(h)
+        return (x, weights) if return_attention else x
 
 
 class ViT(nn.Module):
@@ -186,7 +199,14 @@ class ViT(nn.Module):
             self.final_norm = ln(cfg.dim, **kw)
 
     def forward(self, images: torch.Tensor,
-                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+                rng: Optional[DropoutRng] = None,
+                return_attention: bool = False):
+        """(B, dim) CLS embeddings; with ``return_attention``, (embeddings,
+        every block's float32 attention weights (depth, B, H, N, N)), the
+        counterpart of JAX's ``sow_attention``: each block's attention core
+        then runs the plain score path whatever ``attention_impl`` is (the
+        MLP half keeps its setting), as the JAX ViT takes its XLA path when
+        it sows."""
         cfg = self.cfg
         b, h, w, c = images.shape
         p = cfg.patch_size
@@ -203,8 +223,12 @@ class ViT(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(self.dtype)
         rate = active_rate(self, cfg.emb_dropout, rng)
         x = dropout(x, rng, rate, self.dropout_impl)
+        weights = []
         for i in range(cfg.depth):
-            x = getattr(self, f"block_{i}")(x, rng)
+            x = getattr(self, f"block_{i}")(x, rng, return_attention)
+            if return_attention:
+                x, w = x
+                weights.append(w)
         if cfg.final_norm:
             x = self.final_norm(x)
-        return x[:, 0]
+        return (x[:, 0], torch.stack(weights)) if return_attention else x[:, 0]
