@@ -130,6 +130,29 @@ cli.serve --artifact over HTTP (3 sessions x 10 steps) with the actions of
 a live MuxEngine(weight_quant="int8"). G also runs cad_saliency (K1's
 wide backward).
 
+Phases N, Q, RM and W (after S, before 14): the training entry point's
+last single-card options. N: train C's store converted to .vcb shards
+(timed), an epoch of the C++ loader (data/native.py, built into
+build/native/, native/ left byte for byte as it was) against DataPipeline
+at B=8, bucket 192, byte for byte, both timed per batch on the host
+clock; then cli.train.main --native_loader --quant int8 with ln_impl and
+dropout_impl "pallas", one epoch of 2 steps with validation and a
+checkpoint, no host sync in the epoch loop. Q: the flagship at full width
+under quant "int8" and "int8_bwd", 1 + 3 train steps beside train A's
+(torch._int_mm counted by ops/quant.py); the int8 path's integers on the
+card equal the CPU's; at float32, depth 2, every quantized dense layer of
+a step on the card against the CPU's on the same x and dy (1e-5), and the
+whole step and rollout card vs CPU printed beside the card against itself
+with every parameter moved one ulp (a quantized model is discontinuous).
+RM: remat_encoder at full width with dropout, 1 + 3 steps: K1 18 + 12
+launches a step, losses, gradients and parameters bit-equal to the steps
+without it, a peak below train A's; an eval forward with frame_chunk 191
+(8 chunks) against the unchunked one (2e-2 / 1e-3 of the largest logit,
+max / mean). W: a reference-named .pt of the flagship from seed 0 in both
+ViT generations warm-starts Experiment, which builds the generation the
+checkpoint implies, with the source's weights and the logits of the
+directly converted model.
+
 Phase 3 also holds K1's wide instantiation (T = 65) against its plain
 version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
 values, the kept set (read off the output under shifted identity values,
@@ -137,12 +160,13 @@ in two pieces), bit-equal gradients, beside F.scaled_dot_product_attention.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
-around phases 10, 11 and 12, each of 13's four configs and phase S: each
-kernel must have been launched by the path that claims it (the flash
+around phases 10, 11 and 12, each of 13's four configs, S, N, Q and RM:
+each kernel must have been launched by the path that claims it (the flash
 attention kernels by train D, their forward by the evaluation as well, the
 fused sub-block kernels by train E, K1's wide instantiation by G, K1's
-forward and backward by S as well). The second-to-last lines are a JSON object of the kernels and the card's
-nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
+forward and backward by S as well; N checks K1, K4 and K5 a step, RM K1's
+18 + 12). The second-to-last lines are a JSON object of the kernels and
+the card's nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
 """
 
@@ -1954,6 +1978,8 @@ def phase_train_a(fa):
           flush=True)
     check(eval_after < eval_before,
           f"the eval loss did not fall: {eval_before} -> {eval_after}")
+    return {"batch": batch_size, "step_ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def phase_train_b(pp):
@@ -3543,6 +3569,610 @@ def phase_s(counters, fa, np):
     return launches
 
 
+# ---- The training entry point's last single-card options: the C++ .vcb
+# loader (N), int8 dense layers (Q), remat_encoder and frame_chunk (RM), the
+# warm start from a reference torch checkpoint (W) ----
+
+def native_snapshot():
+    """(name -> (mtime_ns, bytes)) of every file under the repository's
+    native/, which the port must never write."""
+    root = REPO / "native"
+    return {p.name: (p.stat().st_mtime_ns, p.read_bytes())
+            for p in sorted(root.iterdir())}
+
+
+def train_once(model, batch, steps, seed=0, marks=None):
+    """``steps`` train steps of ``model`` on ``batch`` (Adam at 1e-5):
+    (losses, host ms of each step around a device sync, the final
+    state); ``marks`` () -> a tuple of counts read before and after each
+    step, whose differences are returned too."""
+    import torch
+
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state, make_train_step)
+
+    state = create_train_state(dict(model.named_parameters()), {"lr": 1e-5})
+    train_step = make_train_step(model, LossConfig(REFERENCE_CMD_WEIGHTS))
+    losses, step_ms, counted = [], [], []
+    for _ in range(steps):
+        before = marks() if marks else ()
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        state, loss, _ = train_step(state, batch, seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - start) * 1e3)
+        losses.append(loss.item())
+        if marks:
+            counted.append(tuple(b - a for a, b in zip(before, marks())))
+    return losses, step_ms, state, counted
+
+
+def phase_n(counters, card, root, dataset_argv):
+    """Phase N: train C's store converted to .vcb shards, the C++ loader's
+    epoch against the thread pipeline's byte for byte and both timed, then
+    cli.train.main --native_loader --quant int8 (ln_impl and dropout_impl
+    "pallas"), one epoch of 2 steps at B=8 with validation and a
+    checkpoint, no host sync in the epoch loop. Returns (launches of the
+    CLI run, the phase's numbers)."""
+    import torch
+
+    from videocad_tpu_torch.cli import train as cli_train
+    from videocad_tpu_torch.data import native
+    from videocad_tpu_torch.data.dataset import VideoCADDataset, load_split_ids
+    from videocad_tpu_torch.data.pipeline import DataPipeline
+    from videocad_tpu_torch.models.factory import (FLAGSHIP_NAME,
+                                                   flagship_config)
+    from videocad_tpu_torch.ops import quant
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+    from videocad_tpu_torch.train.trainer import Trainer
+
+    before = native_snapshot()
+    data_dir, split_path = dataset_argv[1], dataset_argv[3]
+    splits = load_split_ids(split_path)
+    start = time.monotonic()
+    library = native.build_library()
+    build_s = time.monotonic() - start
+    check(Path(library).parent == REPO / "build" / "native",
+          f"the native loader was built at {library}")
+    vcb_dir = os.path.join(root, "vcb")
+    start = time.monotonic()
+    converted = {split: native.convert_store_to_vcb(
+        data_dir, os.path.join(vcb_dir, split), ids=splits[split])
+        for split in ("train", "val", "test")}
+    convert_s = time.monotonic() - start
+    paths = native.scan_vcb(os.path.join(vcb_dir, "train"))
+    store_mb = sum(os.path.getsize(p) for split in converted
+                   for p in native.scan_vcb(os.path.join(vcb_dir, split))
+                   ) / 1e6
+    shape, views, cad_shape = cli_train._probe_shape(paths[0])
+    check(shape == cad_shape == (224, 224, 3) and views == 0,
+          f"converted shards of {shape}, {views} views, CAD {cad_shape}")
+
+    def epochs(pipe, n=3):
+        """The first epoch's batches, and the ms between batches (from
+        the epoch's start for the first) over ``n`` epochs."""
+        kept, gaps = None, []
+        for epoch in range(n):
+            batches, mark = [], time.monotonic()
+            for batch in pipe.epoch(epoch):
+                now = time.monotonic()
+                gaps.append((now - mark) * 1e3)
+                mark = now
+                batches.append(batch)
+            kept = kept or batches
+        return kept, gaps
+
+    ours, native_gaps = epochs(native.NativePipeline(
+        paths, batch_size=TRAIN_BATCH, bucket_len=TRAIN_SEQ,
+        image_shape=shape, shuffle=False))
+    theirs, thread_gaps = epochs(DataPipeline(
+        VideoCADDataset(data_dir, ids=splits["train"]),
+        batch_size=TRAIN_BATCH, buckets=(TRAIN_SEQ,), shuffle=False))
+    check(len(ours) == len(theirs) == 2,
+          f"{len(ours)} native and {len(theirs)} thread batches an epoch")
+    for got, want in zip(ours, theirs):
+        check(got["ids"] == want["ids"],
+              f"ids {got['ids']} against {want['ids']}")
+        for key in ("frames", "actions", "cad_image", "timesteps"):
+            check(got[key].dtype == want[key].dtype
+                  and got[key].shape == want[key].shape
+                  and got[key].tobytes() == want[key].tobytes(),
+                  f"the native loader's {key} differs from DataPipeline's")
+    del ours, theirs
+
+    name = FLAGSHIP_NAME + "_native_int8"
+    params = dict(flagship_config(), ln_impl="pallas", dropout_impl="pallas")
+    params["train_config"] = {"experiment_name": "phase_n",
+                              "save_frequency": 1, "val_frequency": 1,
+                              "log_frequency": 2}
+    config_path = os.path.join(root, "model_config_n.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    argv = dataset_argv + [
+        "--model_config", config_path, "--model_name", name,
+        "--device", "cuda", "--batch_size", str(TRAIN_BATCH), "--lr", "1e-5",
+        "--no_enable_random", "--epochs", "1",
+        "--checkpoint_dir", os.path.join(root, "checkpoints_n"),
+        "--log_dir", os.path.join(root, "logs_n"),
+        "--class_weights", os.path.join(root, "no_class_weights"),
+        "--native_loader", "--vcb_dir", vcb_dir, "--quant", "int8"]
+    for reset in counters.values():
+        reset(0)                      # phase N's path starts here
+    q8_mark = quant._q8_dot.launches
+    start = time.monotonic()
+    with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+        results = cli_train.main(argv)
+    run_s = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    q8 = quant._q8_dot.launches - q8_mark
+    check(not watch.syncs, "phase N's epoch loop synchronised the host "
+          "outside its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+    check(len(watch.epochs) == 1 and watch.epochs[0]["steps"] == 2,
+          f"phase N ran {watch.epochs}")
+    check(results["total_predictions"] > 0
+          and math.isfinite(results["overall_accuracy"]),
+          f"phase N's test results {results}")
+    with open(os.path.join(root, "logs_n", "phase_n", "params.json")) as f:
+        check(json.load(f)["quant"] == "int8", "params.json lacks quant")
+    check(CheckpointHandler("phase_n", os.path.join(root, "checkpoints_n")
+                            ).latest_epoch() == "epoch_1",
+          "phase N saved no checkpoint")
+    per_step = {k: v / 2 for k, v in watch.epochs[0]["launches"].items()}
+    for kernel in ("layer_norm_fwd", "layer_norm_bwd", "hw_dropout",
+                   "mhsa_short", "mhsa_short_bwd"):
+        check(per_step[kernel] > 0, f"phase N's steps launched no {kernel}")
+    check(q8 > 0, "phase N ran no int8 product")
+    check(native_snapshot() == before, "native/ changed in phase N")
+    numbers = {
+        "card": card, "build_s": build_s, "convert_s": convert_s,
+        "sequences": converted, "store_mb": store_mb,
+        "native_ms_per_batch": statistics.median(native_gaps),
+        "thread_ms_per_batch": statistics.median(thread_gaps),
+        "native_ms_per_batch_mean": statistics.mean(native_gaps),
+        "thread_ms_per_batch_mean": statistics.mean(thread_gaps),
+        "native_gaps_ms": native_gaps, "thread_gaps_ms": thread_gaps,
+        "cli_s": run_s, "step_ms": watch.epochs[0]["seconds"] / 2 * 1e3,
+        "launches_per_step": {k: v for k, v in per_step.items() if v},
+        "q8_products": q8}
+    print(f"N phase: .vcb conversion of {sum(converted.values())} "
+          f"sequences ({store_mb:.0f} MB) in {convert_s:.1f} s; a batch of "
+          f"B={TRAIN_BATCH}, bucket {TRAIN_SEQ} assembled in "
+          f"{numbers['native_ms_per_batch']:.1f} ms (C++ loader) against "
+          f"{numbers['thread_ms_per_batch']:.1f} ms (DataPipeline), host "
+          f"clock, median over 3 epochs (means "
+          f"{numbers['native_ms_per_batch_mean']:.1f} and "
+          f"{numbers['thread_ms_per_batch_mean']:.1f}), byte-equal; "
+          f"cli.train.main "
+          f"--native_loader --quant int8 in {run_s:.1f} s, "
+          f"{numbers['step_ms']:.1f} ms a step (host clock around the "
+          f"epoch), launches a step {numbers['launches_per_step']}, {q8} "
+          f"int8 products; native/ untouched", flush=True)
+    print(json.dumps({"phase_n": numbers}), flush=True)
+    return launches
+
+
+def q8_integers_on_card():
+    """The int8 path's integers on the card equal the CPU's on the same
+    inputs: the scales and int8 values of an activation and a weight at
+    the flagship's patch embedding (1,024 -> 512), and the int32 products
+    at that shape and at ones torch._int_mm does not take unpadded."""
+    import torch
+
+    from videocad_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(7)
+    for m, k, n in ((350, 1024, 512), (7, 1024, 512), (50, 20, 13),
+                    (16, 64, 1)):
+        x = torch.randn(m, k, generator=gen) * torch.rand(m, 1, generator=gen)
+        w = torch.randn(k, n, generator=gen) * 0.05
+        on = {}
+        for device in ("cuda", "cpu"):
+            xs = quant._rowwise_scale(x.to(device), -1)
+            ws = quant._rowwise_scale(w.to(device), 0)
+            xq, wq = quant._to_int8(x.to(device), xs), quant._to_int8(
+                w.to(device), ws)
+            on[device] = [t.cpu() for t in (xs, ws, xq, wq,
+                                            quant._int_matmul(xq, wq))]
+        check(all(torch.equal(a, b) for a, b in zip(on["cuda"], on["cpu"])),
+              f"the int8 path's integers differ card vs CPU at "
+              f"{(m, k, n)}")
+
+
+def quant_reference(mode):
+    """Float32, depth 2 + 2, TF32 off, dropout 0, under ``quant`` mode, on
+    the card and on the CPU.
+
+    A quantized model is a discontinuous function: an ulp of difference
+    upstream moves an int8 value across its rounding boundary now and
+    then, and what follows moves by a quantization step. So exactness is
+    held layer by layer: every quantized dense of one forward and backward
+    on the card (its output, dx and dW) against the same layer on the CPU
+    fed the card's own x and dy, within 1e-5 of each tensor's largest
+    entry (their integer products are exact: q8_integers_on_card). The
+    whole step's loss and gradients and the rollout's logits, card against
+    CPU, are printed beside the same differences of the card against
+    itself with every parameter moved by one ulp, which shows the same
+    discontinuity; those are held to be finite only."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.infer.rollout import sequential_inference
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+    from videocad_tpu_torch.models.layers import Dense
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          compute_loss_and_metrics,
+                                          prepare_model_inputs)
+
+    cfg = dict(flagship_config(), dtype="float32", vit_depth=2,
+               num_decoder_layers=2, dropout=0.0, quant=mode)
+    data = synthetic_batch_feed(1, 7, image_size=224, seed=3)
+    frames, cad = s_frames(1, 6, seed=2, device="cpu")
+    loss_config = LossConfig(REFERENCE_CMD_WEIGHTS)
+
+    def step(device, nudge=False, record=None):
+        """(loss, gradients, rollout logits) of the model from seed 3;
+        ``nudge`` moves every parameter by one ulp; ``record`` keeps each
+        quantized dense's (x, y, dy, dx) of the step."""
+        model = create_model(cfg, device=device,
+                             generator=torch.Generator().manual_seed(3))
+        if nudge:
+            gen = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in model.parameters():
+                    sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                    p.mul_((1 + sign * 2.0 ** -23).to(device))
+        logits = [x.cpu() for x in sequential_inference(
+            model, frames.to(device), cad.to(device))]
+        hooks = []
+        if record is not None:
+            for name, m in model.named_modules():
+                if isinstance(m, Dense) and m.quant != "none":
+                    record[name] = [m]
+                    hooks.append(m.register_forward_hook(
+                        lambda m, args, out, n=name: record[n].extend(
+                            [args[0].detach().cpu(), out.detach().cpu()])))
+                    hooks.append(m.register_full_backward_hook(
+                        lambda m, gin, gout, n=name: record[n].extend(
+                            [gout[0].cpu(), None if gin[0] is None
+                             else gin[0].cpu()])))
+        inputs, targets = prepare_model_inputs(
+            {k: torch.from_numpy(v).to(device) for k, v in data.items()})
+        model.train()
+        loss = compute_loss_and_metrics(*model(inputs), targets,
+                                        loss_config)[0]
+        loss.backward()
+        for hook in hooks:
+            hook.remove()
+        return loss.item(), {n: p.grad.cpu() for n, p in
+                             model.named_parameters()}, logits
+
+    def differences(a, b):
+        worst = max((g - a[1][n]).abs().max().item()
+                    / max(a[1][n].abs().max().item(), 1e-30)
+                    for n, g in b[1].items() if not n.endswith(".key.bias"))
+        return {"loss": abs(a[0] - b[0]), "grad": worst,
+                "logits": [(x - y).abs().max().item()
+                           for x, y in zip(a[2], b[2])],
+                "actions_equal": all(torch.equal(x.argmax(-1), y.argmax(-1))
+                                     for x, y in zip(a[2], b[2]))}
+
+    record = {}
+    card = step("cuda", record=record)
+    cpu = step("cpu")
+    nudged = step("cuda", nudge=True)
+    check(all(math.isfinite(x[0]) for x in (card, cpu, nudged))
+          and all(bool(torch.isfinite(g).all()) for g in card[1].values()),
+          f"quant {mode}: a loss or a gradient is not finite")
+    # Layer by layer: the CPU's dense on the card's x and dy.
+    layer_err = {}
+    for name, (module, x, y, dy, dx) in record.items():
+        twin = Dense(module.weight.shape[1], module.weight.shape[0],
+                     use_bias=module.bias is not None, quant=mode)
+        twin.load_state_dict({k: v.cpu() for k, v in
+                              module.state_dict().items()})
+        xin = x.clone().requires_grad_(dx is not None)
+        out = twin(xin)
+        out.backward(dy)
+        pairs = [(out.detach(), y), (twin.weight.grad, card[1][name +
+                                                               ".weight"])]
+        if dx is not None:
+            pairs.append((xin.grad, dx))
+        layer_err[name] = max((got - want).abs().max().item()
+                              / max(want.abs().max().item(), 1e-30)
+                              for got, want in pairs)
+    worst_layer = max(layer_err, key=layer_err.get)
+    across, itself = differences(cpu, card), differences(card, nudged)
+    print(f"Q reference: quant {mode}, float32 (depth 2+2, dropout 0): "
+          f"{len(layer_err)} quantized dense layers, card vs CPU on the "
+          f"card's x and dy: output, dx, dW within "
+          f"{layer_err[worst_layer]:.3g} of their largest entry (worst "
+          f"{worst_layer}; tol 1e-5); the whole step card vs CPU {across}; "
+          f"the card against itself with every parameter moved one ulp "
+          f"{itself}", flush=True)
+    check(len(layer_err) > 0 and layer_err[worst_layer] <= 1e-5,
+          f"quant {mode}: the card's {worst_layer} differs from the CPU's "
+          f"by {layer_err[worst_layer]} of its largest entry")
+    return {"layers": len(layer_err), "layer_err": layer_err[worst_layer],
+            "card_vs_cpu": across, "card_vs_card_one_ulp": itself}
+
+
+def phase_q(counters, train_a):
+    """Phase Q: the flagship at full width (bf16, dropout 0.1, B=8, T=192)
+    under quant "int8" and "int8_bwd": 1 warm-up and 3 timed train steps,
+    finite losses and gradients, the int8 products counted; then the
+    integers and the float32 model card against CPU. Returns the launches
+    of the full-width steps."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+    from videocad_tpu_torch.ops import quant
+
+    batch = to_card(synthetic_batch_feed(TRAIN_BATCH, TRAIN_SEQ,
+                                         image_size=224, seed=0))
+    numbers = {"train_a_step_ms": train_a["step_ms"],
+               "train_a_peak_gb": train_a["peak_gb"]}
+    for reset in counters.values():
+        reset(0)                      # phase Q's path starts here
+    for mode in ("int8", "int8_bwd"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(dict(flagship_config(), quant=mode),
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        losses, step_ms, _, counted = train_once(
+            model, batch, 4, marks=lambda: (quant._q8_dot.launches,))
+        check(all(math.isfinite(x) for x in losses),
+              f"quant {mode}: losses {losses}")
+        grads = [p.grad for p in model.parameters()]
+        check(all(g is not None and bool(torch.isfinite(g).all())
+                  for g in grads),
+              f"quant {mode}: a gradient is missing or not finite")
+        per_step = [c[0] for c in counted]
+        check(min(per_step) > 0, f"quant {mode}: no int8 product launched")
+        numbers[mode] = {"step_ms": statistics.mean(step_ms[1:]),
+                         "step_ms_all": step_ms, "losses": losses,
+                         "q8_products_per_step": per_step[-1],
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"Q phase: quant {mode}, flagship bf16 dropout {RATE}, "
+              f"B={TRAIN_BATCH} T={TRAIN_SEQ}: step ms {step_ms[1:]} (mean "
+              f"{numbers[mode]['step_ms']:.1f}; train A "
+              f"{train_a['step_ms']:.1f} at B={train_a['batch']}); losses "
+              f"{[round(x, 4) for x in losses]}; {per_step[-1]} int8 "
+              f"products a step; peak {numbers[mode]['peak_gb']:.2f} GB",
+              flush=True)
+        del model
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    torch.cuda.empty_cache()
+    q8_integers_on_card()
+    for mode in ("int8", "int8_bwd"):
+        numbers[mode]["reference"] = quant_reference(mode)
+    print(json.dumps({"phase_q": numbers}), flush=True)
+    return launches
+
+
+def phase_rm(counters, fa, train_a):
+    """Phase RM: the flagship at full width (bf16, dropout 0.1, B=8,
+    T=192), 1 + 3 train steps with remat_encoder and the same steps
+    without it from the same weights and seed: K1 18 + 12 launches a step
+    with remat (the state encoder's forward twice), all of its tensor-core
+    variant; losses, gradients and parameters bit-equal; the peak memory
+    below train A's. Then an eval forward with frame_chunk 191 (8 chunks
+    of the 1,528 frames) against the unchunked one. Returns the launches
+    of the remat steps."""
+    import torch
+
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+    from videocad_tpu_torch.train import prepare_model_inputs
+
+    batch = to_card(synthetic_batch_feed(TRAIN_BATCH, TRAIN_SEQ,
+                                         image_size=224, seed=0))
+    k1 = lambda: (fa.mhsa_short.launches, fa.mhsa_short_backward.launches,  # noqa: E731
+                  fa.mhsa_short.tc_launches,
+                  fa.mhsa_short_backward.tc_launches)
+    runs = {}
+    launches = None
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(dict(flagship_config(), remat_encoder=remat),
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        if remat:
+            for reset in counters.values():
+                reset(0)              # phase RM's path starts here
+        losses, step_ms, _, counted = train_once(model, batch, 4, marks=k1)
+        if remat:
+            launches = {k: read() for k, read in counters.items()}
+        runs[remat] = {
+            "losses": losses, "step_ms": statistics.mean(step_ms[1:]),
+            "step_ms_all": step_ms, "k1": counted[-1],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}}
+        want = (18, 12, 18, 12) if remat else (12, 12, 12, 12)
+        check(all(c == want for c in counted),
+              f"remat_encoder {remat}: K1 launches a step (forward, "
+              f"backward, their tensor-core variant) {counted}, expected "
+              f"{want}")
+        del model
+    plain, remat = runs[False], runs[True]
+    grad_diff = max((remat["grads"][n].float() - g.float()).abs().max()
+                    .item() for n, g in plain["grads"].items())
+    param_diff = max((remat["params"][n] - p).abs().max().item()
+                     for n, p in plain["params"].items())
+    bit_equal = (plain["losses"] == remat["losses"] and grad_diff == 0
+                 and param_diff == 0)
+    print(f"RM phase: remat_encoder, flagship bf16 dropout {RATE}, "
+          f"B={TRAIN_BATCH} T={TRAIN_SEQ}: step ms {remat['step_ms']:.1f} "
+          f"(without remat {plain['step_ms']:.1f}; train A "
+          f"{train_a['step_ms']:.1f}); peak {remat['peak_gb']:.2f} GB "
+          f"(without {plain['peak_gb']:.2f}; train A "
+          f"{train_a['peak_gb']:.2f}); K1 a step {remat['k1']}; losses "
+          f"{remat['losses']} vs {plain['losses']}; bit-equal: {bit_equal} "
+          f"(largest gradient difference {grad_diff:.3g}, parameter "
+          f"{param_diff:.3g})", flush=True)
+    check(bit_equal, f"remat_encoder changed the steps: losses "
+          f"{remat['losses']} vs {plain['losses']}, gradients by "
+          f"{grad_diff}, parameters by {param_diff}")
+    check(remat["peak_gb"] < train_a["peak_gb"]
+          and remat["peak_gb"] < plain["peak_gb"],
+          f"remat_encoder's peak {remat['peak_gb']:.2f} GB is not below "
+          f"train A's {train_a['peak_gb']:.2f} GB and the step's without "
+          f"remat {plain['peak_gb']:.2f} GB")
+
+    # frame_chunk: the eval forward in 8 chunks of 191 frames.
+    torch.cuda.empty_cache()
+    chunked = create_model(dict(flagship_config(), frame_chunk=TRAIN_SEQ - 1),
+                           device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    whole = create_model(flagship_config(), device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    inputs, _ = prepare_model_inputs(batch)
+    check(inputs["frames"].shape[:2] == (TRAIN_BATCH, TRAIN_SEQ - 1),
+          f"frames {tuple(inputs['frames'].shape)}")
+    outs, peaks, k1_fwd = {}, {}, {}
+    for label, model in (("whole", whole), ("chunked", chunked)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mark = fa.mhsa_short.launches
+        with torch.no_grad():
+            outs[label] = [x.float() for x in model(inputs)]
+        torch.cuda.synchronize()
+        k1_fwd[label] = fa.mhsa_short.launches - mark
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(k1_fwd == {"whole": 12, "chunked": 6 * TRAIN_BATCH + 6},
+          f"K1 forward launches of the eval forward {k1_fwd}")
+    errs = []
+    for got, want in zip(outs["chunked"], outs["whole"]):
+        scale = want.abs().max().item()
+        diff = (got - want).abs()
+        errs.append((diff.max().item() / scale, diff.mean().item() / scale))
+    same_cmd = (outs["chunked"][0].argmax(-1) == outs["whole"][0].argmax(-1)
+                ).float().mean().item()
+    print(f"RM phase: frame_chunk {TRAIN_SEQ - 1}, eval forward of "
+          f"{TRAIN_BATCH * (TRAIN_SEQ - 1)} frames in {TRAIN_BATCH} chunks: "
+          f"logits within {errs} (max, mean) of their largest entry of the "
+          f"unchunked forward's (tol 2e-2, 1e-3); argmax commands equal on "
+          f"{same_cmd:.4f}; activation peak {peaks['chunked']:.2f} GB "
+          f"(unchunked {peaks['whole']:.2f} GB); K1 forward launches "
+          f"{k1_fwd}", flush=True)
+    check(all(m <= 2e-2 and a <= 1e-3 for m, a in errs),
+          f"frame_chunk's logits differ from the unchunked ones: {errs}")
+    print(json.dumps({"phase_rm": {
+        "step_ms": remat["step_ms"], "step_ms_plain": plain["step_ms"],
+        "peak_gb": remat["peak_gb"], "peak_gb_plain": plain["peak_gb"],
+        "train_a": train_a, "k1_per_step": remat["k1"],
+        "bit_equal": bit_equal, "chunk_errs": errs,
+        "chunk_peak_gb": peaks, "chunk_cmd_agreement": same_cmd}}),
+          flush=True)
+    del chunked, whole
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_w(root):
+    """Phase W: a reference-named state dict at the flagship's widths from
+    seed 0, in both vit_pytorch generations, saved as .pt; Experiment with
+    a state_dict naming it builds the generation detect_config_overrides
+    names, with the source's weights bit for bit and the logits of a model
+    given state_dict_from_jax(convert_state_dict(sd)) directly."""
+    import torch
+
+    from videocad_tpu_torch import experiment
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+    from videocad_tpu_torch.models.convert import (jax_tree_from_state_dict,
+                                                   state_dict_from_jax)
+    from videocad_tpu_torch.models.factory import create_model, flagship_config
+    from videocad_tpu_torch.models.torch_checkpoint import (
+        convert_state_dict, detect_config_overrides, reference_state_dict)
+    from videocad_tpu_torch.train import prepare_model_inputs
+
+    built = []
+
+    class Recorder:
+        """Keeps the model the experiment built; trains nothing."""
+
+        def __init__(self, model, *args, **kwargs):
+            built.append(model)
+
+        def train(self, epochs):
+            pass
+
+        def evaluate(self, mode="test"):
+            return {}
+
+    inputs, _ = prepare_model_inputs(to_card(synthetic_batch_feed(
+        2, 8, image_size=224, seed=4)))
+    numbers = {}
+    for generation, overrides in (
+            ("modern", {}),
+            ("legacy", {"vit_patch_norm": False, "vit_final_norm": False})):
+        cfg = dict(flagship_config(), **overrides)
+        source = create_model(cfg, generator=torch.Generator().manual_seed(0))
+        sd = {"module." + k: torch.from_numpy(v) for k, v in
+              reference_state_dict(jax_tree_from_state_dict(
+                  source.state_dict())).items()}
+        path = os.path.join(root, f"reference_{generation}.pt")
+        start = time.monotonic()
+        torch.save({"model_state_dict": sd, "epoch": 0}, path)
+        save_s = time.monotonic() - start
+        check(detect_config_overrides(sd) == overrides,
+              f"{generation}: detected {detect_config_overrides(sd)}")
+        log_dir = os.path.join(root, f"logs_w_{generation}")
+        built.clear()
+        saved, experiment.Trainer = experiment.Trainer, Recorder
+        start = time.monotonic()
+        try:
+            experiment.Experiment(
+                None, None, None, {"epochs": 0}, device="cuda",
+                log_dir=log_dir).run_with_params(
+                dict(flagship_config(), state_dict=path), "w")
+        finally:
+            experiment.Trainer = saved
+        load_s = time.monotonic() - start
+        (model,) = built
+        for key, value in overrides.items():
+            check(getattr(model.config, key) is value,
+                  f"{generation}: the experiment built {key}="
+                  f"{getattr(model.config, key)}")
+        (run,) = os.listdir(log_dir)
+        with open(os.path.join(log_dir, run, "params.json")) as f:
+            written = json.load(f)
+        check(all(written.get(k) is v for k, v in overrides.items()),
+              f"{generation}: params.json lacks the overrides")
+        mine = model.state_dict()
+        check(sorted(mine) == sorted(source.state_dict())
+              and all(torch.equal(mine[k].cpu(), v)
+                      for k, v in source.state_dict().items()),
+              f"{generation}: the warm-started weights are not the source's")
+        direct = create_model(cfg, device="cuda")
+        direct.load_state_dict(state_dict_from_jax(
+            convert_state_dict(sd, cfg)))
+        with torch.no_grad():
+            got = model.eval()(inputs)
+            want = direct.eval()(inputs)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{generation}: the experiment's logits differ from the "
+              "directly converted model's")
+        numbers[generation] = {"save_s": save_s, "experiment_s": load_s,
+                               "pt_mb": os.path.getsize(path) / 1e6}
+        print(f"W phase: {generation} reference checkpoint "
+              f"({numbers[generation]['pt_mb']:.0f} MB, saved in "
+              f"{save_s:.1f} s): Experiment built "
+              f"{overrides or 'the modern ViT'} in {load_s:.1f} s, weights "
+              f"bit-equal to the source, logits equal to the direct "
+              f"conversion's", flush=True)
+        del model, direct, source
+        built.clear()
+        os.remove(path)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_w": numbers}), flush=True)
+
+
 def kernel_entry(name, replaces, launches, rows, pick, extra):
     """One entry of the kernels line: the times at the train step's shape,
     the largest error over all checks."""
@@ -3723,7 +4353,7 @@ def main() -> None:
     phase_rollout(fa, engine)
     del engine
     torch.cuda.empty_cache()
-    phase_train_a(fa)
+    train_a = phase_train_a(fa)
     torch.cuda.empty_cache()
     phase_train_b(pp)
     launches = {name: read() for name, read in counters.items()}
@@ -3742,10 +4372,25 @@ def main() -> None:
         launches_e = phase_train_e(counters, card, root, dataset_argv,
                                    peak_d_gb)
         torch.cuda.empty_cache()
+        launches_named = phase_named(counters, fa, np)
+        launches_s = phase_s(counters, fa, np)
+        # The last single-card options of the training entry point; N
+        # reads train C's dataset.
+        start = time.monotonic()
+        launches_n = phase_n(counters, card, root, dataset_argv)
+        torch.cuda.empty_cache()
+        print(f"N phase: {time.monotonic() - start:.1f} s", flush=True)
+        start = time.monotonic()
+        launches_q = phase_q(counters, train_a)
+        print(f"Q phase: {time.monotonic() - start:.1f} s", flush=True)
+        start = time.monotonic()
+        launches_rm = phase_rm(counters, fa, train_a)
+        print(f"RM phase: {time.monotonic() - start:.1f} s", flush=True)
+        start = time.monotonic()
+        phase_w(root)
+        print(f"W phase: {time.monotonic() - start:.1f} s", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches_named = phase_named(counters, fa, np)
-    launches_s = phase_s(counters, fa, np)
     # The path each kernel is claimed on: train E for the fused sub-block
     # kernels, train D for the flash attention kernels, train C for the
     # kernels behind ln_impl and dropout_impl, GenCAD's (G) for K1's wide
@@ -3757,7 +4402,8 @@ def main() -> None:
                       "train_e": launches_e[name],
                       **{phase: counts[name]
                          for phase, counts in launches_named.items()},
-                      "S": launches_s[name]}
+                      "S": launches_s[name], "N": launches_n[name],
+                      "Q": launches_q[name], "RM": launches_rm[name]}
                for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]

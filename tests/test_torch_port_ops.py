@@ -6,6 +6,7 @@ tests/test_fused_attention.py runs it on the CPU.
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 import textwrap
@@ -439,6 +440,23 @@ def test_vocab_constants_equal_the_jax_package():
         assert getattr(port_vocab, name) == getattr(jax_vocab, name), name
 
 
+def test_shard_path_equals_the_jax_package(tmp_path):
+    """``data/native.py:shard_path`` is a copy of the JAX package's ETL
+    helper, which the card's machine cannot import."""
+    from videocad_tpu.etl.dataset_gen import shard_path as jax_shard_path
+    from videocad_tpu_torch.data.native import shard_path
+    for file_id, ext, kind in [("abcd1234", "vcb", "data"),
+                               ("ab", "png", "frames"), ("0001xyz", "pkl", ""),
+                               ("abcd1234", "png", "05")]:
+        ours = shard_path(str(tmp_path / "port"), file_id, ext, kind)
+        theirs = jax_shard_path(str(tmp_path / "jax"), file_id, ext, kind)
+        assert (os.path.relpath(ours, tmp_path / "port")
+                == os.path.relpath(theirs, tmp_path / "jax"))
+        assert os.path.isdir(os.path.dirname(ours) if kind else ours)
+    assert shard_path(str(tmp_path), "x1", "vcb") == jax_shard_path(
+        str(tmp_path), "x1", "vcb")
+
+
 def test_port_imports_no_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -460,7 +478,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     # Every module of the package, the trainer's and the evaluation's
     # among them.
-    assert int(out.stdout.split()[-1]) >= 51
+    assert int(out.stdout.split()[-1]) >= 59
     package = Path(__file__).resolve().parents[1] / "videocad_tpu_torch"
     for module in ["ops/layernorm.py", "utils/io.py", "data/collate.py",
                    "data/dataset.py", "data/pipeline.py",
@@ -470,7 +488,8 @@ def test_port_imports_no_jax():
                    "ops/fused_block.py", "models/resnet.py",
                    "models/decision_transformer.py", "infer/incremental.py",
                    "infer/interpret.py", "infer/export.py",
-                   "cli/export_model.py"]:
+                   "cli/export_model.py", "data/native.py", "ops/quant.py",
+                   "models/torch_checkpoint.py"]:
         assert (package / module).is_file(), module
 
 
@@ -489,13 +508,23 @@ def test_serve_cli_refuses_cuda_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"remat_encoder": True}, "slice 11"),
-    ({"frame_chunk": 4}, "slice 11"),
-    ({"quant": "int8"}, "slice 11"),
+    ({"remat_encoder": True}, "remat_encoder"),
+    ({"frame_chunk": 4}, "frame_chunk"),
+    ({"quant": "int8"}, "quant"),
 ])
 def test_unported_options_raise(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        create_model(dict(TINY_CONFIG, **override))
+    """Options that raised before they were ported now build and run a
+    forward and a backward (their parity: test_torch_port_remat.py,
+    test_torch_port_quant.py)."""
+    model = create_model(dict(TINY_CONFIG, **override))
+    assert getattr(model.config, item) == override[item]
+    inputs = {"frames": torch.zeros((2, 4, 32, 32, 3), dtype=torch.uint8),
+              "cad_image": torch.zeros((2, 32, 32, 3), dtype=torch.uint8),
+              "actions": torch.zeros((2, 4, 7))}
+    model.train()
+    cmd, params = model(inputs)
+    (cmd.sum() + params.sum()).backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize("override", [

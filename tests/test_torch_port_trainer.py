@@ -582,12 +582,21 @@ def test_train_cli_refuses_cuda_without_a_card(env, monkeypatch):
     (["--data_parallel", "2"], "slice 9"),
     (["--model_parallel", "2"], "slice 9"),
     (["--dcn_slices", "2"], "slice 9"),
-    (["--native_loader"], "slice 8"),
-    (["--quant", "int8"], "slice 11"),
+    # Ported since: accepted (their runs: test_torch_port_native.py,
+    # test_torch_port_quant.py).
+    (["--native_loader", "--vcb_dir", "v"], None),
+    (["--quant", "int8"], None),
 ])
 def test_train_cli_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(["--device", "cpu", *flags])
+    """The parallel options raise, naming their ROADMAP item; the native
+    loader and int8 dense layers pass the check."""
+    if item is None:
+        args = port_cli.parse_args(["--device", "cpu", *flags])
+        port_cli._check_ported(args)
+        assert args.native_loader or args.quant == "int8"
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            port_cli.main(["--device", "cpu", *flags])
     with pytest.raises(SystemExit):          # no counterpart in the port
         port_cli.parse_args(["--dropout_rng_impl", "rbg"])
 
@@ -621,8 +630,8 @@ def test_experiment_grid_expands_list_params(env):
 
 
 def test_experiment_warm_starts(env, tmp_path):
-    """From a checkpoint directory of the port and from JAX weights in a
-    params.npz; a reference .pt is refused."""
+    """From a checkpoint directory of the port, from JAX weights in a
+    params.npz, and from a reference torch checkpoint (.pt)."""
     trained = _trainer(env, "warm_source")
     trained.train(1)
     ckpt = os.path.join(trained.checkpoints.base, "epoch_1")
@@ -642,8 +651,21 @@ def test_experiment_warm_starts(env, tmp_path):
     for name, value in model.state_dict().items():
         assert torch.equal(value, want[name]), name
 
-    with pytest.raises(NotImplementedError, match="slice 0"):
-        load_warm_start(model, "reference.pt")
+    # A small checkpoint under the reference model's names, as the
+    # reference trainer saves it (DDP prefix, model_state_dict).
+    from videocad_tpu_torch.models.torch_checkpoint import \
+        reference_state_dict
+    source = create_model(CONFIG, generator=torch.Generator().manual_seed(6))
+    reference = reference_state_dict(
+        jax_tree_from_state_dict(source.state_dict()))
+    assert "transformer_decoder.layers.0.self_attn.in_proj_weight" in \
+        reference
+    pt = str(tmp_path / "reference.pt")
+    torch.save({"model_state_dict": {"module." + k: torch.from_numpy(v)
+                                     for k, v in reference.items()}}, pt)
+    load_warm_start(model, pt)
+    for name, value in source.state_dict().items():
+        assert torch.equal(model.state_dict()[name], value), name
     with pytest.raises(FileNotFoundError):
         load_warm_start(model, str(tmp_path / "exp" / "epoch_9"))
     results = _experiment(env, "warm").run_with_config(

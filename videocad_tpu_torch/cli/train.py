@@ -9,8 +9,11 @@
 
 The arguments of ``videocad_tpu.cli.train``, plus ``--device``. The port
 never moves to another device than the one asked for: ``--device cuda``
-without a card is an error. Parallel meshes, the native ``.vcb`` loader and
-int8 dense layers are not ported yet and raise, naming their ROADMAP item;
+without a card is an error. ``--native_loader`` reads batches through the
+C++ ``.vcb`` loader (``data/native.py``), converting the store into
+``--vcb_dir`` on first use; ``--quant`` puts the dense layers on int8
+products. Parallel meshes (``--data_parallel``, ``--model_parallel``,
+``--dcn_slices``) are not ported yet and raise, naming their ROADMAP item;
 ``--dropout_rng_impl`` (a choice between JAX generators) has no
 counterpart.
 """
@@ -33,6 +36,9 @@ def build_pipelines(args, view_ids, model_params=None):
     gencad = bool(model_params.get("use_pretrained_cad_model", False))
     image_size = model_params.get("image_size")
     splits = load_split_ids(args.config_path)
+    if getattr(args, "native_loader", False):
+        return _build_native_pipelines(args, splits, view_ids,
+                                       gencad=gencad, image_size=image_size)
     pipes = {}
     for split in ("train", "val", "test"):
         ds = VideoCADDataset(
@@ -45,6 +51,83 @@ def build_pipelines(args, view_ids, model_params=None):
             ds, batch_size=args.batch_size, shuffle=split == "train",
             buckets=tuple(args.buckets or DEFAULT_BUCKETS))
     return pipes
+
+
+def _build_native_pipelines(args, splits, view_ids=(), gencad=False,
+                            image_size=None):
+    """The C++ loader over ``.vcb`` shards, converted from the store on
+    first use.
+
+    A multiview config needs version-2 shards that carry its views, a
+    GenCAD config version-3 shards that carry the 256 x 256 x 3 edge image;
+    a store converted for another config is refused here, with what to do,
+    rather than as a shape error inside the model.
+    """
+    import os
+
+    from videocad_tpu_torch.data.native import (NativePipeline,
+                                                convert_store_to_vcb,
+                                                scan_vcb)
+    from videocad_tpu_torch.models.videocadformer import GENCAD_IMAGE_SHAPE
+
+    num_views = len(view_ids)
+    vcb_root = args.vcb_dir or os.path.join(args.dataset_path, "..",
+                                            "vcb_store")
+    bucket = max(args.buckets or DEFAULT_BUCKETS)
+    pipes = {}
+    for split in ("train", "val", "test"):
+        split_dir = os.path.join(vcb_root, split)
+        paths = scan_vcb(split_dir)
+        if not paths:
+            convert_store_to_vcb(args.dataset_path, split_dir,
+                                 ids=splits.get(split, []),
+                                 view_ids=view_ids or None,
+                                 multiview_dir=args.multiview_dir,
+                                 gencad=gencad, image_size=image_size)
+            paths = scan_vcb(split_dir)
+        shape, stored_views, cad_shape = _probe_shape(paths[0])
+        if stored_views != num_views:
+            raise ValueError(
+                f"{split_dir} holds .vcb shards with {stored_views} views "
+                f"but the model config needs {num_views}; re-convert the "
+                f"store (delete {vcb_root} or pass a fresh --vcb_dir) so "
+                f"the requested views are packed in")
+        if gencad and cad_shape != GENCAD_IMAGE_SHAPE:
+            # Frame-shaped CAD images would train the frozen encoder on
+            # raw renders instead of edges.
+            raise ValueError(
+                f"{split_dir} holds .vcb shards whose CAD image is "
+                f"{cad_shape}, not the preprocessed GenCAD edge image "
+                f"{GENCAD_IMAGE_SHAPE}; re-convert the store (delete "
+                f"{vcb_root} or pass a fresh --vcb_dir) so conversion runs "
+                f"the Canny preprocessing")
+        if not gencad and cad_shape != shape:
+            raise ValueError(
+                f"{split_dir} holds GenCAD-converted .vcb shards (CAD "
+                f"image {cad_shape}) but the model config does not set "
+                f"use_pretrained_cad_model; re-convert the store (delete "
+                f"{vcb_root} or pass a fresh --vcb_dir)")
+        # One process on one card: the whole shuffled order (slice 9 of
+        # the ROADMAP brings host shards).
+        pipes[split] = NativePipeline(
+            paths, batch_size=args.batch_size, bucket_len=bucket,
+            image_shape=shape, num_views=num_views, cad_shape=cad_shape,
+            shuffle=split == "train", host_id=0, num_hosts=1)
+    return pipes
+
+
+def _probe_shape(path):
+    """((H, W, C), num_views, cad_shape) from a ``.vcb`` header (versions
+    1-3)."""
+    import struct
+
+    with open(path, "rb") as f:
+        header = struct.unpack("<7I", f.read(28))
+        views = struct.unpack("<I", f.read(4))[0] if header[1] >= 2 else 0
+        shape = (header[3], header[4], header[5])
+        cad_shape = (struct.unpack("<3I", f.read(12)) if header[1] >= 3
+                     else shape)
+    return shape, views, tuple(cad_shape)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -81,8 +164,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--log_dir", default="logs")
     parser.add_argument("--buckets", type=int, nargs="*", default=None)
     parser.add_argument("--native_loader", action="store_true",
-                        help="the C++ .vcb loader: not ported yet (ROADMAP "
-                             "slice 8, data/native.py)")
+                        help="use the C++ .vcb loader (converts the store "
+                             "on first use)")
     parser.add_argument("--vcb_dir", default=None)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--enable_profiling", action="store_true")
@@ -90,9 +173,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="periodic rollout validation")
     parser.add_argument("--quant", default=None,
                         choices=["none", "int8", "int8_bwd"],
-                        help="int8 dense layers: not ported yet (ROADMAP "
-                             "slice 11); overrides the model config's "
-                             "'quant' key")
+                        help="int8 dense layers: 'int8' quantizes the "
+                             "forwards with straight-through gradients; "
+                             "'int8_bwd' also quantizes the backward "
+                             "matmuls. Overrides the model config's "
+                             "'quant' key.")
     return parser.parse_args(argv)
 
 
@@ -101,10 +186,6 @@ def _check_ported(args) -> None:
         (args.data_parallel > 1, "--data_parallel (ROADMAP slice 9)"),
         (args.model_parallel > 1, "--model_parallel (ROADMAP slice 9)"),
         (args.dcn_slices > 1, "--dcn_slices (ROADMAP slice 9)"),
-        (args.native_loader,
-         "--native_loader (ROADMAP slice 8, data/native.py)"),
-        (args.quant not in (None, "none"),
-         f"--quant {args.quant} (ROADMAP slice 11)"),
     ]
     missing = [what for bad, what in unported if bad]
     if missing:

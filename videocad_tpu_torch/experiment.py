@@ -8,15 +8,18 @@ the model from the named JSON config, trains, evaluates on the test split
 ``train_config`` block inside a model config overrides the training config
 (``experiment_name`` among it, which is how a second run finds the
 checkpoints of the first to resume from); the experiment's directory is the
-one the trainer logs to.
+one the trainer logs to. A ``state_dict`` key warm-starts the model from a
+port checkpoint, JAX weights or a reference torch checkpoint (``.pt``), whose
+ViT generation is folded into the model config before the model is built.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import itertools
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -45,15 +48,36 @@ def default_loss_config(training_config: Dict,
         use_mse=training_config.get("use_mse", True))
 
 
+def read_torch_checkpoint(path: str, model_params: Dict
+                          ) -> Tuple[Dict, Dict]:
+    """A reference torch checkpoint (``.pt`` / ``.pth``) as (the model
+    params with the overrides its vit_pytorch generation implies merged
+    in, its weights as the JAX parameter tree)."""
+    from videocad_tpu_torch.models.torch_checkpoint import (
+        convert_state_dict, detect_config_overrides)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model_state_dict", ckpt)
+    model_params = dict(model_params, **detect_config_overrides(sd))
+    return model_params, convert_state_dict(sd, model_params)
+
+
 def load_warm_start(model, path: str) -> None:
     """Load the weights at ``path`` into ``model``: a port checkpoint
-    directory (``<dir>/<experiment>/<name>``), or JAX weights (a
-    ``params.npz`` or a ``.vcdx`` artifact)."""
+    directory (``<dir>/<experiment>/<name>``), JAX weights (a
+    ``params.npz`` or a ``.vcdx`` artifact), or a reference torch
+    checkpoint (``.pt`` / ``.pth``, whose vit_pytorch generation must be
+    the one the model was built for: :class:`Experiment` builds it so)."""
     if path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            "a warm start from a reference torch checkpoint (.pt) needs the "
-            "port of tools/convert_torch_checkpoint.py:convert_state_dict, "
-            "not ported yet (ROADMAP slice 0, open item)")
+        from videocad_tpu_torch.models.convert import state_dict_from_jax
+        params = dataclasses.asdict(model.config)
+        detected, tree = read_torch_checkpoint(path, params)
+        changed = {k: v for k, v in detected.items() if params.get(k) != v}
+        if changed:
+            raise ValueError(
+                f"{path} is a checkpoint of another ViT generation than "
+                f"the model's: build the model with {changed}")
+        model.load_state_dict(state_dict_from_jax(tree))
+        return
     if path.endswith((".npz", ".vcdx")):
         from videocad_tpu_torch.models.convert import (load_jax_params,
                                                        state_dict_from_jax)
@@ -100,6 +124,15 @@ class Experiment:
         exp_dir = os.path.join(self.log_dir,
                                training_config["experiment_name"])
 
+        state_dict_path = experiment_params.get("state_dict")
+        torch_tree = None
+        if state_dict_path and state_dict_path.endswith((".pt", ".pth")):
+            # The checkpoint's vit_pytorch generation can flip
+            # vit_patch_norm / vit_final_norm: merged in before the model
+            # is built and params.json written, which must describe the
+            # model that is trained.
+            experiment_params, torch_tree = read_torch_checkpoint(
+                state_dict_path, experiment_params)
         model = create_model(
             experiment_params, device=self.device,
             generator=torch.Generator().manual_seed(
@@ -108,8 +141,11 @@ class Experiment:
         save_json(experiment_params, os.path.join(exp_dir, "params.json"))
         save_json(training_config,
                   os.path.join(exp_dir, "training_config.json"))
-        if experiment_params.get("state_dict"):
-            load_warm_start(model, experiment_params["state_dict"])
+        if torch_tree is not None:
+            from videocad_tpu_torch.models.convert import state_dict_from_jax
+            model.load_state_dict(state_dict_from_jax(torch_tree))
+        elif state_dict_path:
+            load_warm_start(model, state_dict_path)
 
         loss_config = default_loss_config(training_config,
                                           self.class_weights_path)

@@ -20,8 +20,10 @@ Two things follow the JAX module rather than the rest of the port:
   * the frames and the CAD image are preprocessed at ``maybe_preprocess``'s
     defaults (the plain path, no resize), whatever ``preprocess_impl``
     says, and the blocks' attention and dropout are the plain ones
-    whatever ``attention_impl`` and ``dropout_impl`` say. The vision
-    encoders follow the config, as in JAX.
+    whatever ``attention_impl`` and ``dropout_impl`` say, in full precision
+    whatever ``quant`` says. The vision encoders follow the config, as in
+    JAX (``quant`` reaches a ViT encoder), and ``remat_encoder``
+    recomputes the state encoder in the backward.
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ class DecisionTransformer(nn.Module):
         self.enable_image_conditioning = enable_image_conditioning
         kw = dict(dtype=cfg.compute_dtype, device=device)
         embed = encoder_embed_dim(cfg)
-        self.state_encoder = make_encoder(cfg, device)
+        self.state_encoder = make_encoder(cfg, device,
+                                          remat=cfg.remat_encoder)
         self.cad_encoder = make_encoder(cfg, device)
         self.embed_state = Dense(embed, cfg.hidden_size, **kw)
         self.embed_image = Dense(embed, cfg.hidden_size, **kw)

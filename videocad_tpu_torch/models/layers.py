@@ -19,6 +19,12 @@ JAX dtype flow:
 Decoder blocks follow torch.nn.TransformerDecoderLayer semantics (post-LN,
 ReLU feed-forward, dropout on attention weights and residual branches).
 
+``quant`` ("none", "int8", "int8_bwd") sends a :class:`Dense` through the
+int8 product of ``ops/quant.py`` (``"int8"``: a straight-through backward;
+``"int8_bwd"``: the backward's products in int8 too); the parameters'
+names and shapes do not change with it, so a checkpoint moves between
+settings.
+
 Dropout is active only in ``train()`` mode and draws from the
 :class:`~videocad_tpu_torch.ops.dropout.DropoutRng` handed down as the
 ``rng`` argument of each ``forward``: elementwise sites from its device
@@ -36,26 +42,36 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videocad_tpu_torch.ops.attention import BandMask, flash_attention
 from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_attention import mhsa_short
 from videocad_tpu_torch.ops.prng import derive_seed
+from videocad_tpu_torch.ops.quant import check_quant, quantized_dense
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` in torch layout: weight (out, in), bias (out,)."""
+    """flax ``nn.Dense`` in torch layout: weight (out, in), bias (out,);
+    under ``quant`` the int8 product (``ops/quant.py``)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 quant: str = "none"):
         super().__init__()
+        check_quant(quant)
         self.dtype = dtype
+        self.quant = quant
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                device=device))
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant != "none":
+            return quantized_dense(
+                x, self.weight, self.bias, self.dtype,
+                backward="int8" if self.quant == "int8_bwd" else "bf16")
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
@@ -110,6 +126,56 @@ def active_rate(module: nn.Module, rate: float,
     return rate
 
 
+def remat(module: nn.Module, *args, method=None):
+    """``(method or module)(*args)`` under ``torch.utils.checkpoint``: the
+    activations inside are not kept, and the backward recomputes them
+    (JAX's ``nn.remat``). Without grad it is a plain call. The encoders
+    call it once per block (``remat_encoder``), so the backward holds one
+    block's activations at a time.
+
+    The recompute must repeat the forward exactly, and two things it
+    depends on have moved by the backward: the generators of any
+    :class:`~videocad_tpu_torch.ops.dropout.DropoutRng` among ``args``
+    have drawn past the forward (``checkpoint`` restores only the default
+    ones), and the train step puts the model back in ``eval()`` mode after
+    its forward, which would turn the recompute's dropout off. So those
+    generators' states and ``module``'s modes are saved on entry and set
+    for the recompute, and what is current at the recompute is put back
+    after it: the masks are the forward's, and the draws after the step
+    are those of a run without remat. Nothing in the encoders draws from
+    the default generators, so ``checkpoint`` is not asked to save them.
+    """
+    fn = method or module
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    gens = [g for a in args if isinstance(a, DropoutRng)
+            for g in (a.seeds, a.bits)]
+    modules = list(module.modules())
+    entry = ([g.get_state() for g in gens], [m.training for m in modules])
+    calls = []
+
+    def restore(states, modes):
+        for gen, state in zip(gens, states):
+            gen.set_state(state)
+        for sub, mode in zip(modules, modes):
+            sub.training = mode
+
+    def run(*inputs):
+        if not calls:
+            calls.append(True)
+            return fn(*inputs)
+        current = ([g.get_state() for g in gens],
+                   [m.training for m in modules])
+        restore(*entry)
+        try:
+            return fn(*inputs)
+        finally:
+            restore(*current)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0,
@@ -154,7 +220,7 @@ class MultiHeadAttention(nn.Module):
                  qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", dropout_impl: str = "xla",
-                 device=None):
+                 device=None, quant: str = "none"):
         super().__init__()
         if attention_impl not in ("xla", "fused", "pallas", "block"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
@@ -164,7 +230,7 @@ class MultiHeadAttention(nn.Module):
         self.dropout_impl = dropout_impl
         self.dropout_rate = dropout_rate
         inner = num_heads * self.head_dim
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, quant=quant)
         self.query = Dense(model_dim, inner, use_bias=qkv_bias, **kw)
         self.key = Dense(model_dim, inner, use_bias=qkv_bias, **kw)
         self.value = Dense(model_dim, inner, use_bias=qkv_bias, **kw)
@@ -227,18 +293,18 @@ class TransformerDecoderLayer(nn.Module):
                  dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", dropout_impl: str = "xla",
-                 device=None):
+                 device=None, quant: str = "none"):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.dropout_rate = dropout_rate
         self.dropout_impl = dropout_impl
         attn_kw = dict(dropout_rate=dropout_rate,
                        attention_impl=attention_impl,
-                       dropout_impl=dropout_impl, **kw)
+                       dropout_impl=dropout_impl, quant=quant, **kw)
         self.self_attn = MultiHeadAttention(model_dim, num_heads, **attn_kw)
         self.cross_attn = MultiHeadAttention(model_dim, num_heads, **attn_kw)
-        self.linear1 = Dense(model_dim, ffn_dim, **kw)
-        self.linear2 = Dense(ffn_dim, model_dim, **kw)
+        self.linear1 = Dense(model_dim, ffn_dim, quant=quant, **kw)
+        self.linear2 = Dense(ffn_dim, model_dim, quant=quant, **kw)
         self.norm1 = LayerNorm(model_dim, **kw)
         self.norm2 = LayerNorm(model_dim, **kw)
         self.norm3 = LayerNorm(model_dim, **kw)
@@ -261,14 +327,14 @@ class TransformerDecoder(nn.Module):
                  ffn_dim: int, dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", dropout_impl: str = "xla",
-                 device=None):
+                 device=None, quant: str = "none"):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 model_dim, num_heads, ffn_dim, dropout_rate=dropout_rate,
                 dtype=dtype, attention_impl=attention_impl,
-                dropout_impl=dropout_impl, device=device))
+                dropout_impl=dropout_impl, device=device, quant=quant))
 
     def forward(self, x, memory, tgt_mask=None, memory_mask=None,
                 rng: Optional[DropoutRng] = None):

@@ -21,7 +21,9 @@ image). Convolutions run in the compute dtype through ``F.conv2d``;
 GroupNorm takes its statistics in float32 through ``F.group_norm`` and
 returns the compute dtype, as flax's GroupNorm does. The JAX package
 computes both through XLA, outside any Pallas kernel, so they are library
-calls here too.
+calls here too. ``remat=True`` (the state encoder under ``remat_encoder``)
+recomputes the stem and each block in the backward instead of keeping
+their activations.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from videocad_tpu_torch.models.layers import remat
 
 GN_EPS = 1e-5
 
@@ -110,9 +114,11 @@ class ResNet18GN(nn.Module):
     widths = (64, 128, 256, 512)
 
     def __init__(self, in_channels: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         self.stem_conv = Conv(in_channels, 64, 7, 2, 3, **kw)
         self.stem_gn = GroupNorm(64, 32, **kw)
@@ -129,11 +135,18 @@ class ResNet18GN(nn.Module):
                 ) -> torch.Tensor:
         """``rng`` is accepted for the encoders' common call and unused:
         the ResNet has no dropout."""
+        # With remat, the stem and each block are recomputed in the
+        # backward, one at a time (models/layers.py:remat).
+        x = (remat(self, images, method=self._stem) if self.remat
+             else self._stem(images))
+        for stage, blocks in enumerate(self.stage_sizes):
+            for block in range(blocks):
+                module = getattr(self, f"stage{stage}_block{block}")
+                x = remat(module, x) if self.remat else module(x)
+        return x.mean(dim=(2, 3))
+
+    def _stem(self, images: torch.Tensor) -> torch.Tensor:
         # NHWC -> an NCHW view whose memory is channels_last.
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.stem_gn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for stage, blocks in enumerate(self.stage_sizes):
-            for block in range(blocks):
-                x = getattr(self, f"stage{stage}_block{block}")(x)
-        return x.mean(dim=(2, 3))
+        return F.max_pool2d(x, 3, stride=2, padding=1)

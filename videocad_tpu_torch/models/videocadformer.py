@@ -25,9 +25,18 @@ three channels, and builds the CAD encoder for that input; training freezes
 it (``train/state.py``). It cannot be combined with multiview images.
 
 The modules' parameter names follow the JAX parameter tree, so
-``models/convert.py`` carries JAX weights in by a mechanical map. Options
-the port has not reached yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``models/convert.py`` carries JAX weights in by a mechanical map.
+
+``quant`` puts the ViT encoders' and the decoder's dense layers on the int8
+product (``ops/quant.py``); the embeddings, the heads and ResNet18-GN stay
+in full precision, as in JAX. ``remat_encoder`` recomputes the state
+encoder in the backward instead of keeping its activations, block by
+block (``models/layers.py:remat``, which also redraws the forward's
+dropout masks); JAX rematerializes the encoder as one region, with the
+same gradients. ``frame_chunk`` encodes the frames in chunks of that many in
+``eval()`` mode, where it divides B*T and is smaller, to bound the
+activations of a long inference batch; JAX's condition, so training and
+other sizes take the whole batch.
 
 Dropout is active in ``train()`` mode only, at every site the JAX modules
 have, and draws from the ``rng`` argument of ``forward`` (a
@@ -114,8 +123,7 @@ GENCAD_IMAGE_SHAPE = (256, 256, 3)
 
 
 def check_supported(cfg: VideoCADFormerConfig) -> None:
-    """Raise on what the port has not reached (``NotImplementedError``
-    naming its ROADMAP item) and on what JAX refuses too."""
+    """Raise on what JAX refuses."""
     if cfg.encoder not in ("vit", "resnet"):
         raise ValueError(f"Model type {cfg.encoder} not supported")
     if cfg.use_pretrained_cad_model and cfg.num_views > 0:
@@ -125,14 +133,6 @@ def check_supported(cfg: VideoCADFormerConfig) -> None:
             "use_pretrained_cad_model (GenCAD) and num_views > 0 cannot be "
             "combined: the GenCAD CAD encoder expects 256x256x3 Canny edge "
             "images, not frame-sized multiview renders")
-    unported = [
-        (cfg.quant != "none", f"quant={cfg.quant!r} (ROADMAP slice 11b)"),
-        (cfg.frame_chunk != 0, "frame_chunk (ROADMAP slice 11b)"),
-        (cfg.remat_encoder, "remat_encoder (ROADMAP slice 11b)"),
-    ]
-    missing = [what for bad, what in unported if bad]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
 def encoder_embed_dim(cfg: VideoCADFormerConfig) -> int:
@@ -143,13 +143,16 @@ def encoder_embed_dim(cfg: VideoCADFormerConfig) -> int:
 
 def make_encoder(cfg: VideoCADFormerConfig, device=None,
                  image_size: Optional[int] = None,
-                 channels: Optional[int] = None) -> nn.Module:
+                 channels: Optional[int] = None,
+                 remat: bool = False) -> nn.Module:
     """The configured vision encoder, (B, H, W, C) -> (B, embed): a ViT
     at ``image_size`` with ``channels`` input channels (the config's by
-    default), or ResNet18-GN (which takes any size)."""
+    default), or ResNet18-GN (which takes any size); ``remat``: recomputed
+    in the backward, block by block."""
     channels = channels or cfg.image_channels
     if cfg.encoder == "resnet":
-        return ResNet18GN(channels, dtype=cfg.compute_dtype, device=device)
+        return ResNet18GN(channels, dtype=cfg.compute_dtype, device=device,
+                          remat=remat)
     vit_cfg = ViTConfig(
         image_size=image_size or cfg.image_size, patch_size=cfg.vit_patch,
         dim=cfg.vit_dim, depth=cfg.vit_depth, heads=cfg.vit_heads,
@@ -159,7 +162,8 @@ def make_encoder(cfg: VideoCADFormerConfig, device=None,
     return ViT(vit_cfg, dtype=cfg.compute_dtype,
                attention_impl=cfg.vit_attention_impl,
                mlp_impl=cfg.vit_mlp_impl, dropout_impl=cfg.dropout_impl,
-               ln_impl=cfg.ln_impl, device=device)
+               ln_impl=cfg.ln_impl, device=device, quant=cfg.quant,
+               remat=remat)
 
 
 class VideoCADFormer(nn.Module):
@@ -174,7 +178,8 @@ class VideoCADFormer(nn.Module):
         kw = dict(dtype=dtype, device=device)
         embed = encoder_embed_dim(cfg)
         if cfg.enable_past_states:
-            self.state_encoder = make_encoder(cfg, device)
+            self.state_encoder = make_encoder(cfg, device,
+                                              remat=cfg.remat_encoder)
             self.embed_state = Dense(embed, cfg.hidden_size, **kw)
         if cfg.use_pretrained_cad_model:
             size, _, channels = GENCAD_IMAGE_SHAPE
@@ -203,7 +208,7 @@ class VideoCADFormer(nn.Module):
             cfg.hidden_size, cfg.num_decoder_layers, cfg.nhead,
             cfg.dim_feedforward, dropout_rate=cfg.dropout,
             attention_impl=cfg.attention_impl,
-            dropout_impl=cfg.dropout_impl, **kw)
+            dropout_impl=cfg.dropout_impl, quant=cfg.quant, **kw)
         self.predict_cmd = Dense(cfg.hidden_size, cfg.num_classes,
                                  device=device)
         self.predict_params = Dense(
@@ -228,14 +233,21 @@ class VideoCADFormer(nn.Module):
     def encode_frames(self, frames: torch.Tensor,
                       rng: Optional[DropoutRng] = None) -> torch.Tensor:
         """(B, T, H, W, C) -> (B, T, vit_dim) via the state encoder; the
-        frames fold into one (B*T) batch."""
+        frames fold into one (B*T) batch, encoded in ``frame_chunk``
+        pieces in ``eval()`` mode where that divides it."""
         cfg = self.config
         frames = maybe_preprocess(frames, bgr_as_rgb=cfg.bgr_frames_as_rgb,
                                   impl=cfg.preprocess_impl,
                                   target_size=(cfg.image_size,) * 2)
         b, t = frames.shape[:2]
-        emb = self.state_encoder(
-            frames.reshape((b * t,) + frames.shape[2:]), rng)
+        flat = frames.reshape((b * t,) + frames.shape[2:])
+        chunk = cfg.frame_chunk
+        if (chunk and not self.training and (b * t) % chunk == 0
+                and b * t > chunk):
+            emb = torch.cat([self.state_encoder(piece, rng)
+                             for piece in flat.split(chunk)])
+        else:
+            emb = self.state_encoder(flat, rng)
         return emb.reshape(b, t, -1)
 
     def encode_context(self, cad_image, frames=None, multiview_images=None,

@@ -32,6 +32,16 @@ softmax weights through the plain attention core (JAX's ``sow_attention``;
 standalone dropout kernel, and ``ln_impl="pallas"`` makes every LayerNorm
 of the encoder a :class:`FusedLayerNorm` on the hand-written LayerNorm
 kernels, with the same parameter names either way.
+``remat=True`` (the state encoder under ``remat_encoder``) recomputes the
+stem and each block in the backward, one at a time, instead of keeping
+their activations; the gradients are those without it, bit for bit.
+``quant`` ("int8", "int8_bwd") puts the patch embedding, the attention's
+projections and the MLP on the int8 product (``ops/quant.py``), as in JAX:
+under ``"fused"`` only the attention core is the kernel, so the
+projections around it are quantized; under ``"block"`` the fused
+sub-block kernels read the raw float weights, so only the patch embedding
+is quantized there (and, under ``mlp_impl="block"`` alone, the attention's
+projections).
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from videocad_tpu_torch.models.layers import (Dense, LayerNorm,
-                                              MultiHeadAttention, active_rate)
+                                              MultiHeadAttention, active_rate,
+                                              remat)
 from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_block import attn_block, mlp_block
 from videocad_tpu_torch.ops.layernorm import layer_norm
@@ -105,7 +116,7 @@ class ViTBlock(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype,
                  attention_impl: str = "xla", mlp_impl: str = "xla",
                  dropout_impl: str = "xla", ln_impl: str = "xla",
-                 device=None):
+                 device=None, quant: str = "none"):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         # Under "block" a norm module only holds the parameters that the
@@ -122,9 +133,10 @@ class ViTBlock(nn.Module):
                                        dropout_rate=cfg.dropout,
                                        qkv_bias=False,
                                        attention_impl=attention_impl,
-                                       dropout_impl=dropout_impl, **kw)
-        self.mlp_in = Dense(cfg.dim, cfg.mlp_dim, **kw)
-        self.mlp_out = Dense(cfg.mlp_dim, cfg.dim, **kw)
+                                       dropout_impl=dropout_impl,
+                                       quant=quant, **kw)
+        self.mlp_in = Dense(cfg.dim, cfg.mlp_dim, quant=quant, **kw)
+        self.mlp_out = Dense(cfg.mlp_dim, cfg.dim, quant=quant, **kw)
 
     def forward(self, x: torch.Tensor, rng: Optional[DropoutRng] = None,
                 return_attention: bool = False):
@@ -170,10 +182,11 @@ class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32,
                  attention_impl: str = "xla", mlp_impl: str = "xla",
                  dropout_impl: str = "xla", ln_impl: str = "xla",
-                 device=None):
+                 device=None, quant: str = "none", remat: bool = False):
         super().__init__()
         _check_impls(attention_impl, mlp_impl, ln_impl)
         self.cfg = cfg
+        self.remat = remat
         self.dtype = dtype
         self.dropout_impl = dropout_impl
         ln = _ln_ctor(ln_impl)
@@ -183,7 +196,7 @@ class ViT(nn.Module):
         patch_dim = p * p * cfg.channels
         if cfg.patch_norm:
             self.patch_norm_in = ln(patch_dim, **kw)
-        self.patch_embed = Dense(patch_dim, cfg.dim, **kw)
+        self.patch_embed = Dense(patch_dim, cfg.dim, quant=quant, **kw)
         if cfg.patch_norm:
             self.patch_norm_out = ln(cfg.dim, **kw)
         self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.dim,
@@ -194,7 +207,7 @@ class ViT(nn.Module):
             self.add_module(f"block_{i}", ViTBlock(
                 cfg, dtype, attention_impl=attention_impl,
                 mlp_impl=mlp_impl, dropout_impl=dropout_impl,
-                ln_impl=ln_impl, device=device))
+                ln_impl=ln_impl, device=device, quant=quant))
         if cfg.final_norm:
             self.final_norm = ln(cfg.dim, **kw)
 
@@ -207,6 +220,30 @@ class ViT(nn.Module):
         then runs the plain score path whatever ``attention_impl`` is (the
         MLP half keeps its setting), as the JAX ViT takes its XLA path when
         it sows."""
+        cfg = self.cfg
+        # With remat, the stem and each block are recomputed in the
+        # backward, one at a time (models/layers.py:remat).
+        segment = self.remat and not return_attention
+        x = (remat(self, images, rng, method=self._stem) if segment
+             else self._stem(images, rng))
+        weights = []
+        for i in range(cfg.depth):
+            block = getattr(self, f"block_{i}")
+            if segment:
+                x = remat(block, x, rng)
+                continue
+            x = block(x, rng, return_attention)
+            if return_attention:
+                x, w = x
+                weights.append(w)
+        if cfg.final_norm:
+            x = self.final_norm(x)
+        return (x[:, 0], torch.stack(weights)) if return_attention else x[:, 0]
+
+    def _stem(self, images: torch.Tensor,
+              rng: Optional[DropoutRng]) -> torch.Tensor:
+        """Patches, their embedding, the cls token and the positions, and
+        the embedding's dropout: (B, H, W, C) -> (B, N + 1, dim)."""
         cfg = self.cfg
         b, h, w, c = images.shape
         p = cfg.patch_size
@@ -222,13 +259,4 @@ class ViT(nn.Module):
         cls = self.cls_token.to(self.dtype).expand(b, 1, cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(self.dtype)
         rate = active_rate(self, cfg.emb_dropout, rng)
-        x = dropout(x, rng, rate, self.dropout_impl)
-        weights = []
-        for i in range(cfg.depth):
-            x = getattr(self, f"block_{i}")(x, rng, return_attention)
-            if return_attention:
-                x, w = x
-                weights.append(w)
-        if cfg.final_norm:
-            x = self.final_norm(x)
-        return (x[:, 0], torch.stack(weights)) if return_attention else x[:, 0]
+        return dropout(x, rng, rate, self.dropout_impl)
