@@ -153,6 +153,27 @@ ViT generations warm-starts Experiment, which builds the generation the
 checkpoint implies, with the source's weights and the logits of the
 directly converted model.
 
+Phase X (after W, before 14): raw captures to a trained and scored
+flagship. 34 mouse logs made from seed 0 in the reference's line format
+(150-186 finished entries over the seven action kinds, a few unfinished
+ones; 32 end in the sentinel, 2 do not) and a 224² CAD PNG each;
+``python -m videocad_tpu_torch.cli.generate_dataset --stage logs_to_json``,
+then ``--stage json_to_vectors`` (the two without a sentinel skipped, each
+vector pickle equal to etl.logs_to_actions truncated at its sentinel); the
+store at 224² through the ``generate`` stage where OpenCV imports (an MJPG
+video a capture, .vcb shards beside it), else, once the stage has refused
+with exit code 2, from the vectors by assemble_sequence and shard_path
+(frame i a function of int(timestamp)); the route taken is printed;
+cli.compute_class_weights on the store (the sums, a weight for every
+command seen, the loss config carries the file's numbers); cli.train.main
+with --class_weights at that file, the flagship at full width under the
+three "pallas" settings of train D, 1 epoch of 2 steps at B = 8 on 16
+train sequences (K1 12 + 12, K3 16 x 3, K4 30 + 30, K5 140 a step, on their
+tensor-core and exact-width variants); cli.evaluate.main, teacher-forced,
+on 8 val and 8 test sequences (80 flash forwards); 12 QA items through
+cli.eval_qa (mock twice, the second asking nothing; random at seed 5) and
+cli.qa_analysis. The seconds of each step are printed.
+
 Phase 3 also holds K1's wide instantiation (T = 65) against its plain
 version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
 values, the kept set (read off the output under shifted identity values,
@@ -160,12 +181,12 @@ in two pieces), bit-equal gradients, beside F.scaled_dot_product_attention.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
-around phases 10, 11 and 12, each of 13's four configs, S, N, Q and RM:
+around phases 10, 11 and 12, each of 13's four configs, S, N, Q, RM and X:
 each kernel must have been launched by the path that claims it (the flash
 attention kernels by train D, their forward by the evaluation as well, the
 fused sub-block kernels by train E, K1's wide instantiation by G, K1's
 forward and backward by S as well; N checks K1, K4 and K5 a step, RM K1's
-18 + 12). The second-to-last lines are a JSON object of the kernels and
+18 + 12, X the launches of train D's settings a step). The second-to-last lines are a JSON object of the kernels and
 the card's nvidia-smi line; the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without that line.
 """
@@ -2105,7 +2126,7 @@ class EpochWatch:
                             for w in caught if SYNC_WARNING in str(w.message)]
             watch.epochs.append({
                 "seconds": time.monotonic() - start,
-                "steps": len(trainer.train_pipe),
+                "steps": len(trainer.train_pipe), "loss": out[0],
                 "launches": {k: read() - marks[k]
                              for k, read in watch.counters.items()}})
             return out
@@ -4173,6 +4194,469 @@ def phase_w(root):
     print(json.dumps({"phase_w": numbers}), flush=True)
 
 
+# Phase X: raw captures to a trained and scored flagship. 32 captures end in
+# the sentinel (16 train, 8 val, 8 test: the pipeline drops a partial batch,
+# so val and test need 8 each at B = 8); two more have none and must be
+# skipped by json_to_vectors.
+X_CAPTURES, X_UNENDED = 32, 2
+X_SPLIT = {"train": 16, "val": 8, "test": 8}
+X_KEYS = ("a", "l", "c", "y", "tab", "space", "enter", "up", "down", "left",
+          "right", "esc")
+X_CHORDS = ("s", "e", "y", "h", "p")
+X_QA_ITEMS = 12
+
+
+def x_capture(rng, sentinel):
+    """One capture's mouse log in the reference's line format: a scale
+    header, 150-186 finished entries over all seven action kinds (shift
+    chords, repeat counts, scroll runs, typed values past the 999 bin),
+    a few entries that never finished, and the sentinel last."""
+    entries = int(rng.integers(150, 187)) - int(sentinel)
+    lines = [f"Scale: {rng.choice([1.0, 1.5, 2.0])}"]
+    ts = 0
+
+    def line(action, args, status="finished"):
+        x, y = rng.integers(0, 2000, 2)
+        # The reference's +15 on x puts a relative x from 0.985 on past bin
+        # 999, where both packages' class-weight tools fail (ROADMAP queue
+        # 3): the captures keep clear of the screen's right edge.
+        rx, ry = (rng.random(2) * [0.98, 1.0]).round(4)
+        quoted = "".join(f", '{a}'" for a in args)
+        return (f"{ts} - INFO - {status} {action}. Absolute (Point(x={x}, "
+                f"y={y})) Relative (({rx}, {ry})) Args (<pyautogui at "
+                f"0x{ts:x}>{quoted})")
+
+    kinds = rng.choice(["move to", "click", "press keys", "write text",
+                        "scroll", "key down", "key up"], entries,
+                       p=[0.4, 0.2, 0.12, 0.08, 0.1, 0.05, 0.05])
+    for kind in kinds:
+        ts += int(rng.integers(1, 4))
+        if rng.random() < 0.03:
+            lines.append(line(kind, [], status="started"))
+        if kind == "press keys":
+            pick = rng.integers(0, 3)
+            args = ([str(rng.choice(X_KEYS))] if pick == 0 else
+                    ["shift", str(rng.choice(X_CHORDS))] if pick == 1 else
+                    ["enter", str(rng.integers(2, 6)), "enter"])
+        elif kind == "write text":
+            args = [str(round(float(rng.uniform(-4.0, 4.0)), 3))]
+        elif kind == "scroll":
+            args = [str(rng.choice([-3, -1, 1, 3]))]
+        elif kind in ("key down", "key up"):
+            args = ["shift"]
+        else:
+            args = []
+        lines.append(line(kind, args))
+    if sentinel:
+        ts += 1
+        lines.append(line("press keys", ["shift", "7"]))
+    return "\n".join(lines) + "\n"
+
+
+def x_frames(stamps):
+    """224 x 224 x 3 uint8 frames, each a function of int(timestamp)."""
+    import numpy as np
+
+    grid = np.add.outer(np.arange(224), np.arange(224)).astype(np.uint8)
+    shift = (7 * np.asarray(stamps).astype(np.int64) % 256).astype(np.uint8)
+    # uint8 sums wrap at 256.
+    return np.repeat(grid[..., None], 3, -1)[None] + shift[:, None, None,
+                                                           None]
+
+
+def x_run(module, *args):
+    """``python -m module args`` from the checkout; its exit code, output
+    and seconds."""
+    start = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    return proc, time.monotonic() - start
+
+
+def x_store(raw, vec_dir, store, split_path, ids):
+    """The pickle store at 224 x 224 from the captures: through the
+    ``generate`` stage where OpenCV imports (an MJPG video a capture, and
+    the .vcb shards beside it), else from the vector pickles with the
+    port's assemble_sequence and shard_path after the stage's refusal.
+    Returns the route's name."""
+    import pickle
+
+    from videocad_tpu_torch.etl.dataset_gen import (HAVE_CV2,
+                                                    assemble_sequence,
+                                                    shard_path)
+
+    if HAVE_CV2:
+        import cv2
+
+        start = time.monotonic()
+        os.makedirs(os.path.join(raw, "videos"))
+        for file_id in ids:
+            with open(os.path.join(vec_dir, f"{file_id}.pkl"), "rb") as f:
+                _, stamps = pickle.load(f)
+            writer = cv2.VideoWriter(
+                os.path.join(raw, "videos", f"{file_id}.avi"),
+                cv2.VideoWriter_fourcc(*"MJPG"), 30, (224, 224))
+            check(writer.isOpened(), "cv2.VideoWriter did not open")
+            for frame in x_frames(range(int(max(stamps)) + 1)):
+                writer.write(frame)
+            writer.release()
+        videos_s = time.monotonic() - start
+        proc, seconds = x_run("videocad_tpu_torch.cli.generate_dataset",
+                        "--raw_dir", raw, "--out_dir", store,
+                        "--resize", "224", "224", "--vcb_dir",
+                        os.path.join(os.path.dirname(store), "vcb"),
+                        "--split_json", split_path)
+        check(proc.returncode == 0, f"the generate stage failed:\n"
+              f"{proc.stdout}\n{proc.stderr}")
+        from videocad_tpu_torch.data.native import scan_vcb
+        for split, count in X_SPLIT.items():
+            shards = scan_vcb(os.path.join(os.path.dirname(store), "vcb",
+                                           split))
+            check(len(shards) == count, f"{len(shards)} .vcb shards of "
+                  f"{split}, expected {count}")
+        return (f"the generate stage (OpenCV {cv2.__version__}: "
+                f"{len(ids)} MJPG videos written in {videos_s:.2f} s, the "
+                f"command {seconds:.2f} s with the .vcb shards packed)")
+    proc, _ = x_run("videocad_tpu_torch.cli.generate_dataset",
+                    "--raw_dir", raw, "--out_dir", store)
+    check(proc.returncode == 2 and "OpenCV" in proc.stderr
+          and not os.path.exists(store),
+          f"the generate stage did not refuse without OpenCV: exit "
+          f"{proc.returncode}\n{proc.stderr}")
+    for file_id in ids:
+        with open(os.path.join(vec_dir, f"{file_id}.pkl"), "rb") as f:
+            actions, stamps = pickle.load(f)
+        frames, actions, timesteps = assemble_sequence(
+            x_frames(stamps), actions, list(stamps))
+        with open(shard_path(store, file_id, "pkl", "data"), "wb") as f:
+            pickle.dump({"frames": frames, "actions": actions,
+                         "timesteps": timesteps}, f)
+        shutil.copy(os.path.join(raw, "images", file_id[:4],
+                                 f"{file_id}_0.png"),
+                    shard_path(store, file_id, "png", "frame"))
+    return ("assemble_sequence (no OpenCV: the generate stage refused with "
+            "exit code 2)")
+
+
+def x_class_weights(store, vec_dir, ids):
+    """cli.compute_class_weights on the store: the file's sums, a weight
+    for every command the vectors hold, and the loss configs built from
+    it. Returns (path, weights, seconds)."""
+    import pickle
+
+    import numpy as np
+
+    from videocad_tpu_torch.actions.vocab import NUM_BINS, PARAM_NAMES
+    from videocad_tpu_torch.experiment import default_loss_config
+
+    path = os.path.join(os.path.dirname(store), "class_weights.json")
+    proc, seconds = x_run("videocad_tpu_torch.cli.compute_class_weights",
+                          store, path)
+    check(proc.returncode == 0 and os.path.isfile(path),
+          f"compute_class_weights failed:\n{proc.stdout}\n{proc.stderr}")
+    with open(path) as f:
+        weights = json.load(f)
+    check(sorted(weights) == sorted(PARAM_NAMES),
+          f"class weights keys {sorted(weights)}")
+    check(abs(sum(weights["Label"]) - 1.0) < 1e-12,
+          f"the Label weights sum to {sum(weights['Label'])}")
+    for name in PARAM_NAMES[1:]:
+        bins = np.asarray(weights[name])
+        check(len(bins) == NUM_BINS and (not bins.any() or abs(
+            bins.mean() - 1.0 / NUM_BINS) < 1e-15),
+              f"the {name} weights: {len(bins)} bins, mean {bins.mean()}")
+    seen = set()
+    for file_id in ids:
+        with open(os.path.join(vec_dir, f"{file_id}.pkl"), "rb") as f:
+            seen.update(int(c) for c in pickle.load(f)[0][:, 0])
+    check(seen == {0, 1, 2, 3, 4}
+          and all(weights["Label"][c] > 0 for c in seen),
+          f"commands {sorted(seen)}, Label weights {weights['Label']}")
+    check(default_loss_config({}, path).cmd_weights
+          == tuple(weights["Label"]),
+          "the loss config does not carry the file's Label weights")
+    bins = default_loss_config({"use_mse": False}, path).param_bin_weights
+    check(all(bins[p] == tuple(weights[PARAM_NAMES[p + 1]])
+              for p in range(6)),
+          "the loss config does not carry the file's bin weights")
+    return path, weights, seconds
+
+
+def x_qa(root):
+    """cli.eval_qa with the mock backend twice (the second resumes and asks
+    nothing), with the random backend at seed 5, then cli.qa_analysis.
+    Returns the seconds of each."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from videocad_tpu_torch.cli import eval_qa, qa_analysis
+    from videocad_tpu_torch.qa import harness
+
+    qa_dir = os.path.join(root, "qa")
+    os.makedirs(qa_dir)
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(X_QA_ITEMS):
+        image = os.path.join(qa_dir, f"view_{i}.png")
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+                        ).save(image)
+        items.append({
+            "id": i,
+            "question": {"text": f"Which part does <img_0> show ({i})?",
+                         "image_refs": {"img_0": image}},
+            "options": [{"id": "a", "text": "extrude"},
+                        {"id": "b", "text": "fillet"},
+                        {"id": "c", "text": "revolve"}],
+            "answer": "abc"[i % 3],
+            "template": ("extrude", "fillet", "revolve")[i % 3]})
+    qa_path = os.path.join(qa_dir, "qa.json")
+    with open(qa_path, "w") as f:
+        json.dump(items, f)
+    out = os.path.join(qa_dir, "results")
+    asked = []
+    complete = harness.MockClient.complete
+
+    def counted(client, item):
+        asked.append(item.id)
+        return complete(client, item)
+
+    seconds = {}
+    harness.MockClient.complete = counted
+    try:
+        for run in ("mock", "mock_resumed"):
+            asked.clear()
+            start = time.monotonic()
+            eval_qa.main(["--qa_dataset_path", qa_path, "--output_dir", out,
+                          "--mock_mode"])
+            seconds[run] = time.monotonic() - start
+            check(len(asked) == (X_QA_ITEMS if run == "mock" else 0),
+                  f"the {run} run asked {len(asked)} questions")
+    finally:
+        harness.MockClient.complete = complete
+    with open(os.path.join(out, "mock", "model_results_all.json")) as f:
+        mock = json.load(f)
+    check([o["correct"] for o in mock] == [int(i["answer"] == "a")
+                                           for i in items],
+          "the mock backend is not right exactly where the first option is")
+    with open(os.path.join(out, "mock", "model_answers_all.json")) as f:
+        metrics = json.load(f)
+    check(metrics["extrude"] == 100.0 and metrics["fillet"] == 0.0,
+          f"the mock backend's accuracies {metrics}")
+    start = time.monotonic()
+    eval_qa.main(["--qa_dataset_path", qa_path, "--output_dir", out,
+                  "--model_name", "random", "--seed", "5"])
+    seconds["random"] = time.monotonic() - start
+    with open(os.path.join(out, "random", "model_results_all.json")) as f:
+        answers = [o["answer"] for o in json.load(f)]
+    chooser = random.Random(5)
+    check(answers == [chooser.choice(["a", "b", "c"]) for _ in items],
+          f"the random backend's answers {answers}")
+    # Three votes a question: the mock's run twice more.
+    for copy in ("r2", "r3"):
+        shutil.copy(os.path.join(out, "mock", "model_results_all.json"),
+                    os.path.join(out, "mock", f"model_results_{copy}.json"))
+    res_final = os.path.join(qa_dir, "res_final.json")
+    start = time.monotonic()
+    qa_analysis.main(["--qa_dataset_path", qa_path, "--model_dirs",
+                      os.path.join(out, "mock"), os.path.join(out, "random"),
+                      "--results_path", res_final])
+    seconds["analysis"] = time.monotonic() - start
+    with open(res_final) as f:
+        final = json.load(f)
+    check([r["model"] for r in final] == ["mock", "random"]
+          and final[0]["num_questions"] == X_QA_ITEMS
+          and final[0]["num_correct"] == X_QA_ITEMS // 3,
+          f"res_final {final}")
+    return seconds
+
+
+def phase_x(counters, card, root):
+    """Phase X: raw captures to a trained and scored flagship. Returns the
+    launches of the path per kernel."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from videocad_tpu_torch import experiment
+    from videocad_tpu_torch.cli import evaluate as cli_evaluate
+    from videocad_tpu_torch.cli import train as cli_train
+    from videocad_tpu_torch.etl import logs_to_actions, truncate_at_sentinel
+    from videocad_tpu_torch.models.factory import (FLAGSHIP_NAME,
+                                                   flagship_config)
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+    from videocad_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(root, "x")
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "mouse"))
+    rng = np.random.default_rng(0)
+    ids = [f"{i:08d}" for i in range(X_CAPTURES + X_UNENDED)]
+    texts = {}
+    for n, file_id in enumerate(ids):
+        texts[file_id] = x_capture(rng, sentinel=n < X_CAPTURES)
+        with open(os.path.join(raw, "mouse", f"{file_id}.log"), "w") as f:
+            f.write(texts[file_id])
+        image_dir = os.path.join(raw, "images", file_id[:4])
+        os.makedirs(image_dir, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+                        ).save(os.path.join(image_dir, f"{file_id}_0.png"))
+    ids = ids[:X_CAPTURES]
+    split = dict(zip(ids, ["train"] * X_SPLIT["train"] + ["val"]
+                     * X_SPLIT["val"] + ["test"] * X_SPLIT["test"]))
+    split_path = os.path.join(root, "dataset_split.json")
+    with open(split_path, "w") as f:
+        json.dump(split, f)
+
+    # The two batch converters, each as its command.
+    json_dir, vec_dir = os.path.join(root, "json"), os.path.join(root, "vec")
+    parse_s = 0.0
+    for stage, source, target in (("logs_to_json", os.path.join(raw, "mouse"),
+                                    json_dir),
+                                   ("json_to_vectors", json_dir, vec_dir)):
+        proc, seconds = x_run("videocad_tpu_torch.cli.generate_dataset",
+                              "--stage", stage, "--source_dir", source,
+                              "--target_dir", target)
+        parse_s += seconds
+        check(proc.returncode == 0, f"the {stage} stage failed:\n"
+              f"{proc.stdout}\n{proc.stderr}")
+    written = sorted(n[:-4] for n in os.listdir(vec_dir) if n.endswith(".pkl"))
+    check(written == ids, f"json_to_vectors wrote {len(written)} sequences, "
+          f"expected the {X_CAPTURES} that end in the sentinel")
+    lengths = []
+    for file_id in ids:
+        with open(os.path.join(vec_dir, f"{file_id}.pkl"), "rb") as f:
+            actions, stamps = pickle.load(f)
+        want, want_stamps = truncate_at_sentinel(
+            *logs_to_actions(texts[file_id]))
+        check(np.array_equal(actions, want) and actions.dtype == want.dtype
+              and np.array_equal(stamps, np.array(want_stamps))
+              and actions[-1, 3] == 950,
+              f"the vectors of {file_id} differ from logs_to_actions'")
+        lengths.append(len(actions) + 1)
+    print(f"X phase: {X_CAPTURES + X_UNENDED} captures ({X_UNENDED} without "
+          f"the sentinel, skipped) parsed to vectors in {parse_s:.2f} s by "
+          f"two generate_dataset commands; {min(lengths)}-{max(lengths)} "
+          f"frames a sequence with the zero row", flush=True)
+
+    store = os.path.join(root, "store")
+    start = time.monotonic()
+    route = x_store(raw, vec_dir, store, split_path, ids)
+    store_s = time.monotonic() - start
+    store_bytes = sum(os.path.getsize(os.path.join(d, n))
+                      for d, _, names in os.walk(store) for n in names)
+    print(f"X phase: store route: {route}; {X_CAPTURES} sequences at "
+          f"224 x 224 x 3 in {store_s:.2f} s, {store_bytes} bytes",
+          flush=True)
+
+    weights_path, weights, weights_s = x_class_weights(store, vec_dir, ids)
+    print(f"X phase: class weights in {weights_s:.2f} s (the command); "
+          f"Label {[round(w, 5) for w in weights['Label']]}", flush=True)
+
+    name = FLAGSHIP_NAME + "_etl"
+    params = dict(flagship_config(), **ALL_PALLAS)
+    params["train_config"] = {"experiment_name": "train_x",
+                              "save_frequency": 1, "val_frequency": 1,
+                              "log_frequency": 2}
+    config_path = os.path.join(root, "model_config.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    dataset_argv = ["--dataset_path", store, "--config_path", split_path]
+    model_argv = ["--model_config", config_path, "--model_name", name,
+                  "--device", "cuda", "--batch_size", str(TRAIN_BATCH),
+                  "--checkpoint_dir", os.path.join(root, "checkpoints"),
+                  "--class_weights", weights_path]
+    loss_configs = []
+    build = experiment.default_loss_config
+
+    def recorded(*args, **kw):
+        loss_configs.append(build(*args, **kw))
+        return loss_configs[-1]
+
+    for reset in counters.values():
+        reset(0)                          # phase X's path starts here
+    experiment.default_loss_config = recorded
+    start = time.monotonic()
+    try:
+        with EpochWatch(Trainer, CheckpointHandler, counters) as watch:
+            results = cli_train.main(dataset_argv + model_argv + [
+                "--lr", "1e-5", "--no_enable_random", "--epochs", "1",
+                "--log_dir", os.path.join(root, "logs")])
+    finally:
+        experiment.default_loss_config = build
+    train_s = time.monotonic() - start
+    launches_train = {k: read() for k, read in counters.items()}
+    check(len(loss_configs) == 1
+          and loss_configs[0].cmd_weights == tuple(weights["Label"]),
+          "the experiment's loss config does not carry the class weights")
+    check(not watch.syncs, "phase X's epoch loop synchronised the host "
+          "outside its logging fetch:\n" + "\n".join(watch.syncs[:10]))
+    check(len(watch.epochs) == 1 and watch.epochs[0]["steps"] == 2,
+          f"phase X's epochs: {watch.epochs}")
+    epoch = watch.epochs[0]
+    check(math.isfinite(epoch["loss"]) and results["total_predictions"] > 0
+          and math.isfinite(results["overall_accuracy"]),
+          f"phase X's epoch loss {epoch['loss']}, test results {results}")
+    per_step = {k: epoch["launches"][k] / epoch["steps"] for k in counters}
+    want = {"mhsa_short": 12, "mhsa_short_tc": 12, "mhsa_short_bwd": 12,
+            "mhsa_short_bwd_tc": 12, "layer_norm_fwd": 30,
+            "layer_norm_fwd_bf16_512": 28, "layer_norm_fwd_bf16_1024": 2,
+            "layer_norm_bwd": 30, "layer_norm_bwd_bf16_512": 28,
+            "layer_norm_bwd_bf16_1024": 2, "hw_dropout": 140,
+            **{k + tc: 16 for k in FLASH_KERNELS for tc in ("", "_tc")}}
+    check(all(per_step[k] == v for k, v in want.items()),
+          f"phase X's launches a train step {per_step}, expected {want}")
+    step_ms = epoch["seconds"] / epoch["steps"] * 1e3
+    print(f"X phase: cli.train.main on the store with --class_weights, "
+          f"flagship bf16 with attention_impl, ln_impl and dropout_impl "
+          f"pallas, B={TRAIN_BATCH}, bucket 192, on {card}: 1 epoch of 2 "
+          f"steps, validation, 2 checkpoints and the test evaluation in "
+          f"{train_s:.1f} s; {step_ms:.1f} ms per step (host clock around "
+          f"the epoch, data loading included); mean train loss "
+          f"{epoch['loss']:.5f}; test accuracy "
+          f"{results['overall_accuracy']:.2f}%; "
+          f"launches per train step {per_step}", flush=True)
+
+    start = time.monotonic()
+    scored = cli_evaluate.main(dataset_argv + model_argv + [
+        "--checkpoint_folder", "train_x", "--output_root_dir",
+        os.path.join(root, "evaluate")])
+    torch.cuda.synchronize()
+    eval_s = time.monotonic() - start
+    launches = {k: read() for k, read in counters.items()}  # and ends here
+    for mode in ("val", "test"):
+        metrics = scored[mode]
+        check(metrics["total_predictions"] > 0
+              and all(math.isfinite(v) for v in metrics.values()
+                      if isinstance(v, float)),
+              f"phase X's {mode} metrics: {metrics}")
+    evaluated = {k: launches[k] - launches_train[k] for k in counters}
+    check(evaluated["flash_attention"] == evaluated["flash_attention_tc"]
+          == 5 * 16 and evaluated["flash_attention_dq"] == 0
+          and evaluated["mhsa_short_bwd"] == 0,
+          f"phase X's evaluation launched {evaluated}, expected 80 tc flash "
+          "forwards and no backward")
+    print(f"X phase: cli.evaluate.main (teacher-forced) on train_x's "
+          f"best_model in {eval_s:.1f} s; accuracy val "
+          f"{scored['val']['overall_accuracy']:.2f}% test "
+          f"{scored['test']['overall_accuracy']:.2f}%", flush=True)
+
+    qa_s = x_qa(root)
+    print(f"X phase: QA on {X_QA_ITEMS} items, seconds "
+          f"{ {k: round(v, 3) for k, v in qa_s.items()} } (mock, mock "
+          f"resumed asking nothing, random at seed 5, qa_analysis)",
+          flush=True)
+    print(json.dumps({"phase_x": {
+        "route": route, "parse_s": parse_s, "store_s": store_s,
+        "store_bytes": store_bytes, "class_weights_s": weights_s,
+        "train_s": train_s, "step_ms": step_ms, "evaluate_s": eval_s,
+        "qa_s": qa_s}}), flush=True)
+    return launches
+
+
 def kernel_entry(name, replaces, launches, rows, pick, extra):
     """One entry of the kernels line: the times at the train step's shape,
     the largest error over all checks."""
@@ -4301,6 +4785,9 @@ def main() -> None:
     counted = {
         "mhsa_short": (fa.mhsa_short, "launches"),
         "mhsa_short_bwd": (fa.mhsa_short_backward, "launches"),
+        # Of those, the launches of the tensor-core variant.
+        "mhsa_short_tc": (fa.mhsa_short, "tc_launches"),
+        "mhsa_short_bwd_tc": (fa.mhsa_short_backward, "tc_launches"),
         # Of those, the launches of the wide instantiation (T past 64).
         "mhsa_short_wide": (fa.mhsa_short, "wide_launches"),
         "mhsa_short_bwd_wide": (fa.mhsa_short_backward, "wide_launches"),
@@ -4389,6 +4876,10 @@ def main() -> None:
         start = time.monotonic()
         phase_w(root)
         print(f"W phase: {time.monotonic() - start:.1f} s", flush=True)
+        start = time.monotonic()
+        launches_x = phase_x(counters, card, root)
+        torch.cuda.empty_cache()
+        print(f"X phase: {time.monotonic() - start:.1f} s", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # The path each kernel is claimed on: train E for the fused sub-block
@@ -4403,7 +4894,8 @@ def main() -> None:
                       **{phase: counts[name]
                          for phase, counts in launches_named.items()},
                       "S": launches_s[name], "N": launches_n[name],
-                      "Q": launches_q[name], "RM": launches_rm[name]}
+                      "Q": launches_q[name], "RM": launches_rm[name],
+                      "etl": launches_x[name]}
                for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]

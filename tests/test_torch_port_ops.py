@@ -435,7 +435,10 @@ def test_vocab_constants_equal_the_jax_package():
              "ACTION_PARAM_MASK", "KEY3_WINDOW_LO", "KEY3_WINDOW_HI",
              "END_SENTINEL", "CMD_MOVE_TO", "CMD_PRESS_KEYS", "CMD_SCROLL",
              "CMD_TYPE", "CMD_CLICK", "PARAM_NAMES", "PARAM_TO_LABEL",
-             "TOLERANCE", "PARAM_TOLERANCES", "PARAM_ABOVE"]
+             "TOLERANCE", "PARAM_TOLERANCES", "PARAM_ABOVE",
+             # the log ETL's
+             "PAD_VALUE", "SCALE_FACTOR", "BIN", "MOVE_X_OFFSET",
+             "DEFAULT_VECTOR", "KEY_MAP"]
     for name in names:
         assert getattr(port_vocab, name) == getattr(jax_vocab, name), name
 
@@ -476,9 +479,9 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=str(Path(__file__).resolve().parents[1]))
     assert out.returncode == 0, out.stderr
-    # Every module of the package, the trainer's and the evaluation's
-    # among them.
-    assert int(out.stdout.split()[-1]) >= 59
+    # Every module of the package, the trainer's, the evaluation's, the
+    # log ETL's and the QA harness's among them.
+    assert int(out.stdout.split()[-1]) >= 70
     package = Path(__file__).resolve().parents[1] / "videocad_tpu_torch"
     for module in ["ops/layernorm.py", "utils/io.py", "data/collate.py",
                    "data/dataset.py", "data/pipeline.py",
@@ -489,7 +492,11 @@ def test_port_imports_no_jax():
                    "models/decision_transformer.py", "infer/incremental.py",
                    "infer/interpret.py", "infer/export.py",
                    "cli/export_model.py", "data/native.py", "ops/quant.py",
-                   "models/torch_checkpoint.py"]:
+                   "models/torch_checkpoint.py", "etl/log_parser.py",
+                   "etl/handlers.py", "etl/dataset_gen.py", "qa/harness.py",
+                   "qa/analysis.py", "cli/generate_dataset.py",
+                   "cli/eval_qa.py", "cli/qa_analysis.py",
+                   "cli/compute_class_weights.py"]:
         assert (package / module).is_file(), module
 
 

@@ -29,6 +29,8 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from videocad_tpu_torch.etl.dataset_gen import shard_path
+
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "loader.cpp"
 BUILD_DIR = REPO / "build" / "native"
@@ -142,17 +144,6 @@ def write_vcb(path: str, cad: np.ndarray, frames: np.ndarray,
         actions.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     if not ok:
         raise IOError(f"failed to write {path}")
-
-
-def shard_path(base: str, file_id: str, ext: str,
-               file_type: str = "frames") -> str:
-    """``<base>/<id[:4]>/<id>_<type>.<ext>``, the store's sharded layout
-    (a copy of ``videocad_tpu/etl/dataset_gen.py:shard_path``)."""
-    shard_dir = os.path.join(base, file_id[:4])
-    os.makedirs(shard_dir, exist_ok=True)
-    if file_type:
-        return os.path.join(shard_dir, f"{file_id}_{file_type}.{ext}")
-    return shard_dir
 
 
 def convert_store_to_vcb(store_dir: str, out_dir: str,

@@ -10,7 +10,6 @@ files, as the JAX package's functions.
 from __future__ import annotations
 
 import json
-import os
 import pickle
 from typing import Dict, Optional
 
@@ -21,6 +20,7 @@ from videocad_tpu_torch.actions.vocab import (
     END_SENTINEL,
     NUM_COMMANDS,
 )
+from videocad_tpu_torch.etl.dataset_gen import shard_path
 
 
 def random_action_sequence(rng: np.random.Generator, length: int,
@@ -40,18 +40,6 @@ def random_action_sequence(rng: np.random.Generator, length: int,
     if end_sentinel:
         actions[-1] = [1, -1, -1, END_SENTINEL, -1, -1, -1]
     return actions
-
-
-def shard_path(base: str, file_id: str, ext: str,
-               file_type: str = "frames") -> str:
-    """``<base>/<id[:4]>/<id>_<type>.<ext>`` in the sharded layout (a copy
-    of ``videocad_tpu/etl/dataset_gen.py:shard_path``); makes the shard's
-    directory."""
-    shard_dir = os.path.join(base, file_id[:4])
-    os.makedirs(shard_dir, exist_ok=True)
-    if file_type:
-        return os.path.join(shard_dir, f"{file_id}_{file_type}.{ext}")
-    return shard_dir
 
 
 def synthetic_sequence(rng: np.random.Generator, length: int,

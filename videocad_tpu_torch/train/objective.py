@@ -79,8 +79,14 @@ def _weights_on(weights: Tuple[float, ...], device: torch.device
                 ) -> torch.Tensor:
     """``weights`` as a float32 tensor on ``device``, made once: a tensor
     built from host values on every step would copy them to the card with
-    a synchronising copy and stall the training loop."""
-    return torch.tensor(weights, dtype=torch.float32, device=device)
+    a synchronising copy and stall the training loop. The one copy goes
+    from pinned memory without a synchronisation too, since the first step
+    of an epoch may be the first to ask for a class-weights file's
+    numbers."""
+    host = torch.tensor(weights, dtype=torch.float32)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _param_correct_counts(params_pred, params_target, correct_mask, use_mse,
