@@ -18,8 +18,9 @@ imports nothing of JAX. Phases, each of which must pass:
      mask's properties, each in the variant its dtype takes (bf16 on the
      tensor cores, float32 scalar; the bf16 rows also time the scalar
      kernel on the same inputs), the two
-     grayscale kernels (also timed on the device), layer_norm forward and
-     backward (the exact-width instantiations checked by their counters;
+     grayscale kernels (also timed on the device, by torch.profiler and
+     by queued_ms, the fallback when the tracer sees nothing), layer_norm
+     forward and backward (the exact-width instantiations checked by their counters;
      the backward also against float64, and bit-equal over two runs),
      hw_dropout (compared exactly, and its mask's properties), the
      LayerNorm kernels and hw_dropout also timed on the device beside the
@@ -174,6 +175,42 @@ on 8 val and 8 test sequences (80 flash forwards); 12 QA items through
 cli.eval_qa (mock twice, the second asking nothing; random at seed 5) and
 cli.qa_analysis. The seconds of each step are printed.
 
+Phase P (last, after 14): the parallel layer (videocad_tpu_torch/
+parallel/), its ranks processes of their own started by
+parallel/dryrun.py:launch after the parent has built every kernel. P1: one
+rank over NCCL (world 1): the flagship's step through the DDP path (bf16,
+dropout 0.1, B = 8, T = 192, 2 steps) bit-equal to the step without a
+process group (losses and parameters); two NCCL ranks on the one card are
+tried and what NCCL says is printed (it refuses: one card a rank). P2-P4
+over gloo, every rank's compute on cuda:0: data 2, model 2 and dcn 2 x
+data 1 x model 1 in one world of 2 ranks, data 2 x model 2 in one of 4.
+Each holds float32 steps (depth 2 + 2, dropout 0, B = 8, T = 48, lr 1e-5)
+to the single process's on the same global batch after 1 and 3 steps: the
+loss within 1e-5 relative, the counters exactly, each parameter within a
+quarter of lr a step and the attention key biases (whose gradient is zero
+but for rounding, so that Adam moves them by up to lr either way) within 2
+lr a step (the share within 1e-7 printed); under data 2 a planted fault,
+data rank 1's gradient left out of the sum, must break that bound (its
+readings printed); then the flagship at full
+width in bf16 with dropout 0.1, B = 8 global, T = 192 and every "pallas"
+setting (K1 in the ViT at 8 of 16 heads a rank under model 2, K2, K3 at 2
+of 4 heads, K4, K5), and under model 2 once more with vit_attention_impl
+"block" (K6 on its gathered weights): finite losses, replicated parameters
+bit-equal across the model ranks, each rank's launches of every kernel on
+its tensor-core (K4: exact-width) variant, the step ms a rank, the ms and
+bytes of its synchronous collectives and the bytes of DDP's buckets (timed
+here, around torch.distributed's calls). P5: each rank joins over gloo and
+runs cli.train.main --data_parallel 2 --device cuda:0 --resume on train
+C's dataset and experiment, resuming train C's
+one-process checkpoint, with a SIGTERM to rank 1 once rank 0 logs the
+resumed epoch's first batch: both ranks stop at one step (a rank that went
+on would wait in its next collective), one checkpoint holds the resumed
+step plus the steps logged, and it is served in one process. P6:
+dryrun_multichip(4, "cuda"). Each part's seconds are printed beside the
+card's nvidia-smi line; gloo moves every collective through the host and
+the ranks share the card, so the times say nothing of NVLink scaling. The
+ranks' launches, summed, are the kernels line's "parallel" path.
+
 Phase 3 also holds K1's wide instantiation (T = 65) against its plain
 version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
 values, the kept set (read off the output under shifted identity values,
@@ -196,6 +233,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -261,15 +299,49 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5, warmup: int = 3) -> float:
 
 def device_ms(fn, n: int = 10) -> float:
     """The device time of the kernels one call of ``fn`` launches
-    (torch.profiler after a warm-up window, as cli/profile.py measures it):
-    what a call costs the card when the host keeps up."""
+    (torch.profiler after a warm-up window, as cli/profile.py measures it,
+    else :func:`queued_ms`): what a call costs the card when the host
+    keeps up."""
     from videocad_tpu_torch.cli.profile import profile_work
 
     # The tracer may drop kernels of a window, every one of a window of
     # short launches, and never adds one: the largest of three windows.
     ms = max(profile_work("", fn, n)["device_ms"] for _ in range(3))
-    check(ms > 0, "torch.profiler saw no kernel in three windows")
+    if ms > 0:
+        return ms
+    # On some hosts the tracer has returned no kernel at all: then the
+    # event clock, with the launches queued behind a spin kernel.
+    ms = queued_ms(fn, n)
+    print(f"device_ms: torch.profiler saw no kernel in three windows; "
+          f"{ms} ms on the event clock behind a spin kernel", flush=True)
+    check(ms > 0, "no device time on either clock")
     return ms
+
+
+def queued_ms(fn, n: int = 10) -> float:
+    """The event clock's time of one call of ``fn`` while the card runs
+    ``n`` calls back to back: the host enqueues them behind a spin kernel
+    that outlasts the enqueueing (its length doubled until it does), so no
+    host gap falls between the start and end events. A call that waits
+    for the card reads its host time as well."""
+    import torch
+
+    fn()
+    cycles = 10_000_000
+    while True:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead or cycles >= 1 << 30:
+            return start.elapsed_time(end) / n
+        cycles *= 2
 
 
 def in_turns(kernel, plain, **kw):
@@ -703,7 +775,8 @@ def phase_gray(pp):
             kernel, lambda: pp.grayscale_normalize(images, True, target))
         row = {"kernel": name, "shape": list(shape), "max_abs_err": max_err,
                "max_abs_err_vs_f64": f64_err.item(), "ms": ms,
-               "plain_ms": plain_ms, "device_ms": device_ms(kernel)}
+               "plain_ms": plain_ms, "device_ms": device_ms(kernel),
+               "queued_ms": queued_ms(kernel)}
         row.update(bound(images.numel() + got.numel() * 4,
                          7.0 * got.numel() if target is None
                          else 30.0 * got.numel(), "float32"))
@@ -4730,56 +4803,588 @@ def attention_bound(tensors, flops_per_cell):
     return extra
 
 
-def main() -> None:
+# ---- phase P: the parallel layer, ranks sharing the one card ----
+
+P_LR = 1e-5
+P_F32_SEQ = 48                    # the float32 parity steps: B=8 x 47 frames
+P_STEPS = 3
+# The kernel modules a rank loads (their libraries are built by the parent).
+P_MODULES = ("fused_attention", "preprocess", "layernorm", "dropout",
+             "attention", "fused_block")
+# Each world's meshes: (name, shape, jobs). "f32" holds the single-process
+# step (float32, dropout 0, depth 2 + 2, T=48), and "fault" the same with
+# data rank 1's gradient left out (:func:`p_planted_hook`); "bf16" is the
+# flagship at
+# full width and depth, dropout 0.1, with every "pallas" setting (K1 in
+# the ViT, K2, K3, K4, K5); "block" adds vit_attention_impl "block" (K6, its
+# weights gathered).
+P_WORLDS = {
+    2: [("P2 data=2", dict(data=2, model=1), ("f32", "fault", "bf16")),
+        ("P3 model=2", dict(data=1, model=2), ("f32", "bf16", "block")),
+        ("P4 dcn=2", dict(dcn=2, data=1, model=1), ("f32",))],
+    4: [("P4 data=2 x model=2", dict(data=2, model=2), ("f32", "bf16"))],
+}
+
+
+P_FLOAT32 = ("f32", "fault")
+# The float32 steps' bound on a parameter, in lr a step: a key bias (zero
+# gradient but for rounding) may take Adam's step of lr either way; any
+# other entry only a rounding-dependent share of lr where its gradient is
+# near Adam's eps.
+P_KEY_BIAS_LRS, P_PARAM_LRS = 2.0, 0.25
+
+
+def p_config(kind):
+    from videocad_tpu_torch.models.factory import flagship_config
+
+    cfg = flagship_config()
+    if kind in P_FLOAT32:
+        return dict(cfg, dtype="float32", vit_depth=2, num_decoder_layers=2,
+                    dropout=0.0)
+    if kind == "bf16":
+        return dict(cfg, preprocess_impl="pallas", **ALL_PALLAS)
+    return dict(cfg, **BLOCK)
+
+
+def p_batch(kind):
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+
+    return synthetic_batch_feed(
+        TRAIN_BATCH, P_F32_SEQ if kind in P_FLOAT32 else TRAIN_SEQ,
+        image_size=224, seed=0)
+
+
+def p_model(kind, device):
     import torch
 
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    check((REPO / "videocad_tpu_torch").is_dir(),
-          f"no videocad_tpu_torch package beside {Path(__file__).name}")
-    sys.path.insert(0, str(REPO))
-    import numpy as np
+    from videocad_tpu_torch.models.factory import create_model
 
-    from videocad_tpu_torch.kernels import build
-    from videocad_tpu_torch.ops import attention as fl
-    from videocad_tpu_torch.ops import dropout as dr
-    from videocad_tpu_torch.ops import fused_attention as fa
-    from videocad_tpu_torch.ops import fused_block as fb
-    from videocad_tpu_torch.ops import layernorm as ln
-    from videocad_tpu_torch.ops import preprocess as pp
-    from videocad_tpu_torch.ops import prng
+    return create_model(p_config(kind), device=device,
+                        generator=torch.Generator().manual_seed(0))
 
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
-          flush=True)
+
+def p_reference():
+    """The single-process float32 steps on the whole batch: losses,
+    counters, parameters after 1 and 3 steps (on the host)."""
+    import torch
+
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state,
+                                          make_train_step)
+
+    model = p_model("f32", "cuda")
+    state = create_train_state(dict(model.named_parameters()),
+                               {"lr": P_LR})
+    step = make_train_step(model, LossConfig(REFERENCE_CMD_WEIGHTS))
+    batch = to_card(p_batch("f32"))
+    out = {"loss": [], "metrics": [], "params": {}}
+    for i in range(P_STEPS):
+        state, loss, metrics = step(state, batch, 0)
+        out["loss"].append(loss.item())
+        out["metrics"].append({k: v.item() for k, v in metrics.items()})
+        if i + 1 in (1, P_STEPS):
+            out["params"][i + 1] = {k: p.detach().cpu().clone()
+                                    for k, p in state.params.items()}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def p_planted_hook(group, bucket):
+    """The summing DDP hook with data rank 1's gradient left out: the fault
+    that the float32 check must catch."""
+    import torch.distributed as dist
+
+    buffer = bucket.buffer()
+    if dist.get_rank(group) == 1:
+        buffer.zero_()
+    fut = dist.all_reduce(buffer, group=group, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
+class PTimedCollectives:
+    """Within the block, ``torch.distributed.all_reduce`` and ``all_gather``
+    (what ``parallel/collectives.py`` calls) are timed: the card is
+    synchronised before and after each synchronous call, and its host time
+    and bytes are added up; DDP's bucket reductions, which run
+    asynchronously beside the backward, are counted (calls and bytes)."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __init__(self):
+        self.totals = dict(calls=0, seconds=0.0, bytes=0, hook_calls=0,
+                           hook_bytes=0)
+
+    def _wrap(self, fn):
+        import torch
+
+        totals = self.totals
+
+        def timed(first, *args, **kwargs):
+            tensors = first if isinstance(first, list) else [first]
+            size = sum(t.numel() * t.element_size() for t in tensors)
+            if kwargs.get("async_op"):
+                totals["hook_calls"] += 1
+                totals["hook_bytes"] += size
+                return fn(first, *args, **kwargs)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(first, *args, **kwargs)
+            torch.cuda.synchronize()
+            totals["seconds"] += time.perf_counter() - start
+            totals["calls"] += 1
+            totals["bytes"] += size
+            return out
+        return timed
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(dist, name, self._wrap(fn))
+        return self.totals
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+
+def p_rank_job(kind, mesh, counters):
+    """One job on this rank: returns its record (rank 0's is kept)."""
+    import contextlib
+
+    import torch
+
+    from videocad_tpu_torch.parallel.collectives import all_reduce
+    from videocad_tpu_torch.parallel.sharding import (gather_params,
+                                                      param_shardings,
+                                                      shard_model)
+    from videocad_tpu_torch.train import REFERENCE_CMD_WEIGHTS, LossConfig
+    from videocad_tpu_torch.train import steps as train_steps
+    from videocad_tpu_torch.train.state import create_sharded_train_state
+
+    device = torch.device("cuda", 0)
+    model = p_model(kind, device)
+    layout = shard_model(model, mesh)
+    state = create_sharded_train_state(dict(model.named_parameters()),
+                                       {"lr": P_LR}, mesh)
+    hook = train_steps.sum_gradients_hook
+    if kind == "fault":
+        train_steps.sum_gradients_hook = p_planted_hook
+    try:
+        step = train_steps.make_train_step(
+            model, LossConfig(REFERENCE_CMD_WEIGHTS), mesh=mesh)
+    finally:
+        train_steps.sum_gradients_hook = hook
+    batch = p_batch(kind)
+    rows = mesh.rows(len(batch["actions"]))
+    local = {k: torch.from_numpy(v[rows]).to(device)
+             for k, v in batch.items()}
+    for reset in counters.values():
+        reset(0)
+    record = {"loss": [], "metrics": [], "params": {}, "step_ms": [],
+              "split": sum(bool(spec) for spec in layout.values())}
+    # float32: the steps held against one process's; bf16: a warm-up step
+    # and one timed, with the collectives measured (a sync around each).
+    steps = P_STEPS if kind in P_FLOAT32 else 2
+    timing = PTimedCollectives()
+    for i in range(steps):
+        timed = i == steps - 1 and kind not in P_FLOAT32
+        with timing if timed else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            start = time.monotonic()
+            state, loss, metrics = step(state, local, 0)
+            torch.cuda.synchronize()
+        record["step_ms"].append((time.monotonic() - start) * 1e3)
+        keys = sorted(metrics)
+        summed = all_reduce(torch.stack([loss] + [metrics[k] for k in keys]),
+                            mesh.data_group).tolist()
+        record["loss"].append(summed[0])
+        record["metrics"].append(dict(zip(keys, summed[1:])))
+        if kind in P_FLOAT32 and i + 1 in (1, P_STEPS):
+            record["params"][i + 1] = {
+                k: v.cpu().clone() for k, v in gather_params(
+                    state.params, mesh).items()}
+    names = sorted(counters)
+    world = mesh.grid.size
+    table = torch.zeros(world, len(names) + 4, dtype=torch.float64)
+    table[mesh.rank, :len(names)] = torch.tensor(
+        [float(counters[n]()) for n in names], dtype=torch.float64)
+    table[mesh.rank, len(names):] = torch.tensor(
+        [record["step_ms"][-1], timing.totals["seconds"] * 1e3,
+         timing.totals["bytes"], timing.totals["hook_bytes"]],
+        dtype=torch.float64)
+    table = all_reduce(table, mesh.world_group).cpu()
+    record["launches"] = [dict(zip(names, row[:len(names)].tolist()))
+                          for row in table]
+    record["rank_ms"] = table[:, len(names):].tolist()
+    replicated = [p.detach().reshape(-1).float()
+                  for k, p in state.params.items() if not layout[k]]
+    flat = torch.cat(replicated)
+    record["replicated_equal"] = bool(torch.equal(
+        all_reduce(flat, mesh.model_group, "max"),
+        -all_reduce(-flat, mesh.model_group, "max")))
+    record["layout"] = param_shardings(model)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_p_rank(out_path, world):
+    """A rank of phase P: every mesh of ``world`` ranks in turn, over gloo
+    with the compute on cuda:0. Rank 0 writes the records."""
+    import importlib
+
+    import torch
+
+    from videocad_tpu_torch.parallel import distributed
+    from videocad_tpu_torch.parallel.mesh import (create_hybrid_mesh,
+                                                  create_mesh)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    start = time.monotonic()
-    names = build.build_all()
-    for module in (fa, pp, ln, dr, fl, fb):
+    mods = [importlib.import_module(f"videocad_tpu_torch.ops.{m}")
+            for m in P_MODULES]
+    for module in mods:
         module.load_library()
-    print(f"build: {names} in {time.monotonic() - start:.1f} s", flush=True)
-    for name in names:
-        seconds, log = build.build_log.get(name, (0.0, "(cached)"))
-        print(f"build: {name}.cu nvcc {seconds:.1f} s\n{log.strip()}",
-              flush=True)
+    counters = kernel_counters(*mods)
+    distributed.initialize("cuda:0", "gloo")
+    out = {}
+    for name, shape, jobs in P_WORLDS[world]:
+        start = time.monotonic()
+        mesh = (create_hybrid_mesh(shape["dcn"], shape["data"],
+                                   shape["model"]) if "dcn" in shape
+                else create_mesh(shape["data"], shape["model"]))
+        out[name] = {kind: p_rank_job(kind, mesh, counters)
+                     for kind in jobs}
+        out[name]["seconds"] = time.monotonic() - start
+    if distributed.rank() == 0:
+        torch.save(out, out_path)
 
-    rows = phase_forward(fa) + phase_forward_dropout(fa, prng)
-    rows += phase_backward(fa, prng)
-    phase_mask(fa)
+
+def phase_p1_rank(out_path):
+    """P1: one rank over NCCL (world 1), the step through the DDP path
+    against the step without a process group, bit for bit, on the
+    flagship as train A runs it (bf16, dropout 0.1, B=8, T=192)."""
+    import torch
+
+    from videocad_tpu_torch.ops import fused_attention as fa
+    from videocad_tpu_torch.parallel import distributed
+    from videocad_tpu_torch.parallel.mesh import create_mesh
+    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
+                                          create_train_state,
+                                          make_train_step)
+    from videocad_tpu_torch.train.state import create_sharded_train_state
+
+    fa.load_library()
+    distributed.initialize("cuda:0", "nccl")
+    mesh = create_mesh(1, 1)
+    batch = to_card(synthetic_flagship_batch())
+    losses, params = [], []
+    for with_mesh in (False, True):
+        model = flagship("cuda")
+        make = ((lambda p: create_sharded_train_state(p, {"lr": P_LR}, mesh))
+                if with_mesh else
+                (lambda p: create_train_state(p, {"lr": P_LR})))
+        state = make(dict(model.named_parameters()))
+        step = make_train_step(model, LossConfig(REFERENCE_CMD_WEIGHTS),
+                               mesh=mesh if with_mesh else None)
+        run = []
+        for _ in range(2):
+            state, loss, _ = step(state, batch, 0)
+            run.append(loss.item())
+        losses.append(run)
+        params.append({k: p.detach().clone() for k, p in
+                       state.params.items()})
+        del model, state, step
+    same = all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+    torch.save({"losses": losses, "params_equal": same,
+                "backend": torch.distributed.get_backend()}, out_path)
+
+
+def phase_p_nccl_pair(out_path):
+    """Two NCCL ranks on the one card: an all-reduce, and what NCCL says."""
+    import torch
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method="env://")
+        x = torch.ones(4, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        said = f"all_reduce gave {x.tolist()}"
+    except Exception as exc:          # recorded, the phase goes on on gloo
+        said = f"{type(exc).__name__}: {str(exc).strip()[:400]}"
+    with open(f"{out_path}.{rank}", "w") as f:
+        f.write(said)
+    os._exit(0)
+
+
+def synthetic_flagship_batch():
+    from videocad_tpu_torch.data.synthetic import synthetic_batch_feed
+
+    return synthetic_batch_feed(TRAIN_BATCH, TRAIN_SEQ, image_size=224,
+                                seed=0)
+
+
+def p_is_key_bias(name):
+    return name.endswith("key.bias")
+
+
+def p_f32_readings(record, ref):
+    """How far multi-rank float32 steps are from the single process's: the
+    loss's relative error a step, the counters that differ, and after 1
+    and 3 steps the largest parameter difference (diff, name, share of
+    entries within 1e-7) apart from the key biases and at them."""
+    losses = [abs(got - want) / abs(want)
+              for got, want in zip(record["loss"], ref["loss"])]
+    counters = [(i + 1, key, record["metrics"][i][key], value)
+                for i in range(P_STEPS)
+                for key, value in ref["metrics"][i].items()
+                if record["metrics"][i][key] != value]
+    params = {}
+    for steps, got in record["params"].items():
+        want = ref["params"][steps]
+        diffs = {k: float((got[k] - v).abs().max()) for k, v in want.items()}
+        close = sum(float((got[k] - v).abs().le(1e-7).float().mean())
+                    for k, v in want.items()) / len(want)
+        other = max((d, k) for k, d in diffs.items() if not p_is_key_bias(k))
+        keyb = max(((d, k) for k, d in diffs.items() if p_is_key_bias(k)),
+                   default=(0.0, None))
+        params[steps] = {"other": other + (close,), "key_bias": keyb}
+    return {"loss": losses, "counters": counters, "params": params}
+
+
+def p_f32_faults(readings):
+    """The checks that the readings break: the loss within 1e-5 relative,
+    the counters exactly, the parameters within P_PARAM_LRS lr a step and
+    the key biases within P_KEY_BIAS_LRS lr a step."""
+    faults = [f"step {i + 1}: loss off by {err} relative"
+              for i, err in enumerate(readings["loss"]) if err > 1e-5]
+    faults += [f"step {i}: {key} {got} against {want}"
+               for i, key, got, want in readings["counters"]]
+    for steps, worst in readings["params"].items():
+        err, key = worst["other"][:2]
+        if err > P_PARAM_LRS * P_LR * steps:
+            faults.append(f"after {steps} steps {key} differs by {err} "
+                          f"(bound {P_PARAM_LRS * P_LR * steps})")
+        err, key = worst["key_bias"]
+        if err > P_KEY_BIAS_LRS * P_LR * steps:
+            faults.append(f"after {steps} steps {key} differs by {err} "
+                          f"(bound {P_KEY_BIAS_LRS * P_LR * steps})")
+    return faults
+
+
+def phase_p5_rank(argv):
+    """A rank of P5: joins the group over gloo (the ranks share cuda:0),
+    then runs the training CLI, which keeps that group."""
+    from videocad_tpu_torch.cli import train
+    from videocad_tpu_torch.parallel import distributed
+
+    distributed.initialize("cuda:0", "gloo")
+    return train.main(argv)
+
+
+def phase_p5(counters, root, dataset_argv):
+    """P5: cli.train.main on two data ranks that share the card: train C's
+    run (one process, three epochs) resumed with --resume, and a SIGTERM to
+    rank 1 alone once the resumed epoch has begun; both stop at one step
+    with one checkpoint, which loads in one process and serves."""
+    import signal
+
+    import torch
+
+    from videocad_tpu_torch.models.factory import FLAGSHIP_NAME, flagship_config
+    from videocad_tpu_torch.parallel.dryrun import launch
+    from videocad_tpu_torch.train.checkpoint import CheckpointHandler
+
+    # Train C's model and experiment, logging every step, without the
+    # rollout validation.
+    name = FLAGSHIP_NAME + "_parallel"
+    params = dict(flagship_config(), ln_impl="pallas", dropout_impl="pallas")
+    params["train_config"] = {
+        "experiment_name": "train_c", "save_frequency": 1,
+        "val_frequency": 1, "log_frequency": 1, "sequential": False,
+        "early_stopping_enabled": False}
+    config_path = os.path.join(root, "model_config_p.json")
+    with open(config_path, "w") as f:
+        json.dump({name: params}, f)
+    handler = CheckpointHandler("train_c", os.path.join(root, "checkpoints"))
+    resumed_from = handler.latest_epoch()
+    resumed_step = torch.load(
+        os.path.join(handler.base, resumed_from, "state.pt"),
+        map_location="cpu", weights_only=True, mmap=True)["step"]
+    argv = dataset_argv + [
+        "--model_config", config_path, "--model_name", name,
+        "--device", "cuda:0",
+        "--data_parallel", "2", "--batch_size", str(TRAIN_BATCH),
+        "--lr", "1e-5", "--no_enable_random", "--epochs", "40", "--resume",
+        "--checkpoint_dir", os.path.join(root, "checkpoints"),
+        "--log_dir", os.path.join(root, "logs_p"),
+        "--class_weights", os.path.join(root, "no_class_weights")]
+    signaled = {}
+
+    def watch(procs, outs):
+        if signaled:
+            return
+        with open(outs[0]) as f:
+            started = ", Batch [1]," in f.read()
+        if started:
+            os.kill(procs[1].pid, signal.SIGTERM)
+            signaled["at"] = time.monotonic()
+
     start = time.monotonic()
-    rows += phase_k1_wide(fa, prng)
-    torch.cuda.empty_cache()
-    print(f"K1 wide phase: {time.monotonic() - start:.1f} s", flush=True)
-    rows += phase_gray(pp)
-    rows += phase_layer_norm(ln)
-    rows += phase_hw_dropout(dr)
-    rows += phase_flash(fl, fa, prng)
-    torch.cuda.empty_cache()
-    rows += phase_block(fb, prng)
-    torch.cuda.empty_cache()
+    texts = launch(2, "chip_smoke:phase_p5_rank", {"argv": argv},
+                   timeout=300, watch=watch)
+    seconds = time.monotonic() - start
+    log = texts[0]
+    epoch = int(resumed_from.split("_")[1])
+    check(signaled and f"Resumed from {resumed_from} at epoch {epoch}" in log
+          and "Preempt" in log, f"P5 resumed run:\n{log[-3000:]}")
+    check("Epoch [" not in texts[1], "rank 1 logged")
+    # Both ranks stopped at one step: a rank that went on alone would wait
+    # in its next collective until the time limit. With log_frequency 1
+    # each step logs a line on rank 0; the stop's checkpoint holds the
+    # resumed step plus those, and is the only save after the signal.
+    stop = [line for line in log.splitlines() if "Preempt" in line]
+    steps = len(re.findall(r"Epoch \[\d+\], Batch \[\d+\]", log))
+    latest = handler.latest_epoch()
+    payload = torch.load(os.path.join(handler.base, latest, "state.pt"),
+                         map_location="cpu", weights_only=True, mmap=True)
+    check(len(stop) == 2 and payload["step"] == resumed_step + steps,
+          f"P5: stop lines {stop}, the checkpoint {latest} holds step "
+          f"{payload['step']}, resumed at {resumed_step} + {steps} steps")
+    phase_serve_checkpoint(config_path, name,
+                           os.path.join(handler.base, latest))
+    print(f"P5: cli.train.main --data_parallel 2 (gloo, cuda:0) resumed "
+          f"train C's one-process {resumed_from} (step {resumed_step}) in "
+          f"{seconds:.1f} s; SIGTERM to rank 1 -> {stop}; {latest} holds "
+          f"step {payload['step']}; served in one process", flush=True)
+    return {"seconds": seconds}
 
+
+def phase_p(counters, card, root, dataset_argv):
+    """Phase P: the parallel layer (P1-P6). Returns the launches of the
+    ranks' paths per kernel, summed over the ranks."""
+    import torch
+
+    from videocad_tpu_torch.parallel.dryrun import dryrun_multichip, launch
+
+    total = {name: 0 for name in counters}
+    seconds = {}
+    out_dir = tempfile.mkdtemp(prefix="phase_p_", dir=root)
+    # P1: one NCCL rank through the DDP path, and two NCCL ranks tried.
+    start = time.monotonic()
+    path = os.path.join(out_dir, "p1.pt")
+    launch(1, "chip_smoke:phase_p1_rank", {"out_path": path}, timeout=300)
+    p1 = torch.load(path, weights_only=False)
+    check(p1["params_equal"] and p1["losses"][0] == p1["losses"][1],
+          f"P1: the one-rank NCCL step differs from the plain step: {p1}")
+    pair = os.path.join(out_dir, "nccl_pair")
+    try:
+        launch(2, "chip_smoke:phase_p_nccl_pair", {"out_path": pair},
+               timeout=90)
+        said = [open(f"{pair}.{r}").read() for r in range(2)]
+    except RuntimeError as exc:
+        said = [f"launch failed: {str(exc)[:300]}"]
+    seconds["P1"] = time.monotonic() - start
+    print(f"P1: NCCL world 1, DDP path: losses {p1['losses'][1]} bit-equal "
+          f"to the plain step's, parameters bit-equal; two NCCL ranks on "
+          f"one card: {said}", flush=True)
+    ref = p_reference()
+    for world in (2, 4):
+        start = time.monotonic()
+        path = os.path.join(out_dir, f"p{world}.pt")
+        launch(world, "chip_smoke:phase_p_rank",
+               {"out_path": path, "world": world}, timeout=600)
+        out = torch.load(path, weights_only=False)
+        seconds[f"world {world}"] = time.monotonic() - start
+        for name, jobs in out.items():
+            for kind, record in jobs.items():
+                if kind == "seconds":
+                    continue
+                for row in record["launches"] if kind != "fault" else ():
+                    for key, value in row.items():
+                        total[key] += int(value)
+                check(all(math.isfinite(x) for x in record["loss"]),
+                      f"{name} {kind}: losses {record['loss']}")
+                check(record["replicated_equal"],
+                      f"{name} {kind}: replicated parameters differ between "
+                      "model ranks")
+                if kind in P_FLOAT32:
+                    readings = p_f32_readings(record, ref)
+                    faults = p_f32_faults(readings)
+                    if kind == "f32":
+                        check(not faults, f"{name} f32: {faults}")
+                        verdict = "every check met"
+                    else:
+                        check(bool(faults), f"{name}: the planted fault "
+                              f"(data rank 1's gradient left out) passed "
+                              f"the float32 checks: {readings}")
+                        verdict = f"caught: {faults}"
+                    print(f"{name} {kind}: losses {record['loss']} (single "
+                          f"process {ref['loss']}); relative loss errors "
+                          f"{readings['loss']}; counters that differ "
+                          f"{readings['counters']}; the largest parameter "
+                          f"differences after 1 and 3 steps ((diff, name, "
+                          f"share of entries within 1e-7) apart from the key "
+                          f"biases; (diff, name) at them): "
+                          f"{readings['params']}; {verdict}", flush=True)
+                    continue
+                per_rank = record["launches"]
+                pairs = ([("mhsa_short", "mhsa_short_tc"),
+                          ("mhsa_short_bwd", "mhsa_short_bwd_tc"),
+                          ("flash_attention", "flash_attention_tc"),
+                          ("flash_attention_dq", "flash_attention_dq_tc"),
+                          ("flash_attention_dkv", "flash_attention_dkv_tc")]
+                         if kind == "bf16" else
+                         [("attn_block", "attn_block_tc"),
+                          ("attn_block_bwd", "attn_block_bwd_tc"),
+                          ("mlp_block", "mlp_block_tc"),
+                          ("mlp_block_bwd", "mlp_block_bwd_tc")])
+                musts = (["layer_norm_fwd_bf16_512", "layer_norm_bwd_bf16_1024",
+                          "hw_dropout", "gray_normalize"] if kind == "bf16"
+                         else [])
+                for rank, row in enumerate(per_rank):
+                    for all_, tc in pairs:
+                        check(row[all_] > 0 and row[tc] == row[all_],
+                              f"{name} {kind} rank {rank}: {all_} "
+                              f"{row[all_]} launches, {row[tc]} of the "
+                              f"tensor-core variant")
+                    for must in musts:
+                        check(row[must] > 0, f"{name} {kind} rank {rank}: "
+                              f"no launch of {must}")
+                shown = {k: [int(r[k]) for r in per_rank] for k in
+                         [p for pair in pairs for p in pair] + musts}
+                print(f"{name} {kind}: losses {record['loss']}; replicated "
+                      f"parameters bit-equal across model ranks; "
+                      f"{record['split']} split parameters a rank; per rank "
+                      f"[step ms, ms in synchronous collectives, their "
+                      f"bytes, DDP bucket bytes]: {record['rank_ms']}; "
+                      f"launches of 2 steps per rank: {shown}", flush=True)
+            print(f"{name}: {jobs['seconds']:.1f} s", flush=True)
+    start = time.monotonic()
+    p5 = phase_p5(counters, root, dataset_argv)
+    seconds["P5"] = time.monotonic() - start
+    start = time.monotonic()
+    out = dryrun_multichip(4, "cuda", timeout=300)
+    check("dryrun_multichip OK: 4 ranks (data=2, model=2)" in out,
+          f"P6: {out[-2000:]}")
+    seconds["P6"] = time.monotonic() - start
+    print(f"phase P seconds: {seconds}; P5 {p5}; {card}. Gloo moves every "
+          f"collective through the host, and the ranks share one card: "
+          f"these times say nothing of NVLink scaling", flush=True)
+    return total
+
+
+def kernel_counters(fa, pp, ln, dr, fl, fb):
+    """name -> a reader of a kernel's launch count that sets it when given
+    a value: counters[name]() reads it, counters[name](0) sets it."""
     # name -> (the function that carries the count, the count's attribute);
     # counter(name)() reads a count, counter(name)(0) sets it.
     counted = {
@@ -4833,7 +5438,60 @@ def main() -> None:
         return lambda *value: (setattr(holder, attr, value[0]) if value
                                else getattr(holder, attr))
 
-    counters = {name: counter(name) for name in counted}
+    return {name: counter(name) for name in counted}
+
+
+def main() -> None:
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    check((REPO / "videocad_tpu_torch").is_dir(),
+          f"no videocad_tpu_torch package beside {Path(__file__).name}")
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    from videocad_tpu_torch.kernels import build
+    from videocad_tpu_torch.ops import attention as fl
+    from videocad_tpu_torch.ops import dropout as dr
+    from videocad_tpu_torch.ops import fused_attention as fa
+    from videocad_tpu_torch.ops import fused_block as fb
+    from videocad_tpu_torch.ops import layernorm as ln
+    from videocad_tpu_torch.ops import preprocess as pp
+    from videocad_tpu_torch.ops import prng
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    start = time.monotonic()
+    names = build.build_all()
+    for module in (fa, pp, ln, dr, fl, fb):
+        module.load_library()
+    print(f"build: {names} in {time.monotonic() - start:.1f} s", flush=True)
+    for name in names:
+        seconds, log = build.build_log.get(name, (0.0, "(cached)"))
+        print(f"build: {name}.cu nvcc {seconds:.1f} s\n{log.strip()}",
+              flush=True)
+
+    rows = phase_forward(fa) + phase_forward_dropout(fa, prng)
+    rows += phase_backward(fa, prng)
+    phase_mask(fa)
+    start = time.monotonic()
+    rows += phase_k1_wide(fa, prng)
+    torch.cuda.empty_cache()
+    print(f"K1 wide phase: {time.monotonic() - start:.1f} s", flush=True)
+    rows += phase_gray(pp)
+    rows += phase_layer_norm(ln)
+    rows += phase_hw_dropout(dr)
+    rows += phase_flash(fl, fa, prng)
+    torch.cuda.empty_cache()
+    rows += phase_block(fb, prng)
+    torch.cuda.empty_cache()
+
+    counters = kernel_counters(fa, pp, ln, dr, fl, fb)
     for reset in counters.values():
         reset(0)                          # the first main path starts here
     engine = phase_serve(fa, np)
@@ -4880,6 +5538,27 @@ def main() -> None:
         launches_x = phase_x(counters, card, root)
         torch.cuda.empty_cache()
         print(f"X phase: {time.monotonic() - start:.1f} s", flush=True)
+        start = time.monotonic()
+        phase_reference()
+        phase_reference_train()
+        phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
+        phase_reference_train(**ALL_PALLAS)
+        phase_reference_train(**BLOCK)
+        phase_reference_train(**dict(ALL_PALLAS,
+                                     vit_attention_impl="pallas"))
+        phase_reference_train(vit_attention_impl="fused",
+                              vit_mlp_impl="block")
+        for phase in NAMED:
+            phase_reference_named(phase)
+        print(f"reference phase: {time.monotonic() - start:.1f} s",
+              flush=True)
+        # The parallel layer last: its ranks are processes of their own,
+        # which count their launches and report them (P5 reads train C's
+        # dataset).
+        torch.cuda.empty_cache()
+        start = time.monotonic()
+        launches_p = phase_p(counters, card, root, dataset_argv)
+        print(f"P phase: {time.monotonic() - start:.1f} s", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # The path each kernel is claimed on: train E for the fused sub-block
@@ -4895,7 +5574,8 @@ def main() -> None:
                          for phase, counts in launches_named.items()},
                       "S": launches_s[name], "N": launches_n[name],
                       "Q": launches_q[name], "RM": launches_rm[name],
-                      "etl": launches_x[name]}
+                      "etl": launches_x[name],
+                      "parallel": launches_p[name]}
                for name in counters}
     print(f"main path launches: {by_path}", flush=True)
     launches = {name: launches_e[name]
@@ -4910,18 +5590,6 @@ def main() -> None:
               f"the main path of the {name} kernel did not launch it")
     check(launches_eval["flash_attention"] > 0,
           "the evaluation launched no flash attention forward")
-
-    start = time.monotonic()
-    phase_reference()
-    phase_reference_train()
-    phase_reference_train(ln_impl="pallas", dropout_impl="pallas")
-    phase_reference_train(**ALL_PALLAS)
-    phase_reference_train(**BLOCK)
-    phase_reference_train(**dict(ALL_PALLAS, vit_attention_impl="pallas"))
-    phase_reference_train(vit_attention_impl="fused", vit_mlp_impl="block")
-    for phase in NAMED:
-        phase_reference_named(phase)
-    print(f"reference phase: {time.monotonic() - start:.1f} s", flush=True)
 
     at_train = lambda r: (r["batch"] == TRAIN_FRAMES  # noqa: E731
                           and r["dtype"] == "bfloat16")
@@ -5008,6 +5676,7 @@ def main() -> None:
                          f"layer_norm_{way}_bf16_1024")})
     for entry in (gray, resize):
         entry["device_ms"] = entry["checks"][0]["device_ms"]
+        entry["queued_ms"] = entry["checks"][0]["queued_ms"]
     flash = flash_entries(rows, launches)
     # The fused sub-block kernels at a train step's frames with dropout;
     # the time of the port's unfused sub-block stands beside them.

@@ -278,3 +278,37 @@ def test_train_cli_runs_an_epoch_with_the_native_loader(store, tmp_path):
     assert os.path.isdir(tmp_path / "ckpt" / "native" / "epoch_1")
     assert _native_tree() == before
     shutil.rmtree(vcb)
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_data_ranks_take_their_rows_of_the_single_process_batches(
+        store, tmp_path, shuffle):
+    """``rows`` = (data rank, 2): each rank's batches are its half of the
+    one-process batch of four, in order, byte for byte; and without
+    shuffling the native loader's rows are the DataPipeline's."""
+    _, path = store
+    native.convert_store_to_vcb(path, str(tmp_path / "vcb"))
+    paths = native.scan_vcb(str(tmp_path / "vcb"))
+    kw = dict(bucket_len=8, image_shape=(16, 16, 3), shuffle=shuffle,
+              seed=7)
+    whole = list(native.NativePipeline(paths, batch_size=4, **kw).epoch(1))
+    keys = ["frames", "actions", "cad_image", "timesteps"]
+    for rank in (0, 1):
+        pipe = native.NativePipeline(paths, batch_size=4, rows=(rank, 2),
+                                     **kw)
+        assert len(pipe) == len(whole) == 1
+        ours = list(pipe.epoch(1))
+        assert len(ours) == 1
+        rows = slice(2 * rank, 2 * rank + 2)
+        assert ours[0]["ids"] == whole[0]["ids"][rows]
+        for key in keys:
+            np.testing.assert_array_equal(ours[0][key], whole[0][key][rows])
+        if not shuffle:
+            python = list(DataPipeline(VideoCADDataset(path), batch_size=4,
+                                       buckets=(8,), shuffle=False,
+                                       rows=(rank, 2)).epoch(0))
+            assert python[0]["ids"] == ours[0]["ids"]
+            for key in keys:
+                np.testing.assert_array_equal(python[0][key], ours[0][key])
+    with pytest.raises(ValueError, match="does not split"):
+        native.NativePipeline(paths, batch_size=3, rows=(0, 2), **kw)

@@ -496,7 +496,9 @@ def test_port_imports_no_jax():
                    "etl/handlers.py", "etl/dataset_gen.py", "qa/harness.py",
                    "qa/analysis.py", "cli/generate_dataset.py",
                    "cli/eval_qa.py", "cli/qa_analysis.py",
-                   "cli/compute_class_weights.py"]:
+                   "cli/compute_class_weights.py", "parallel/mesh.py",
+                   "parallel/sharding.py", "parallel/distributed.py",
+                   "parallel/collectives.py", "parallel/dryrun.py"]:
         assert (package / module).is_file(), module
 
 

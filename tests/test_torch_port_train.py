@@ -241,8 +241,7 @@ def test_add_action_noise_touches_only_valid_slots():
     actions = np.stack([port_synthetic.random_action_sequence(rng, 200)
                         for _ in range(4)]).astype(np.float32)
     actions[0, 1] = [0, 0, 999, -1, -1, -1, -1]      # boundary values
-    noisy = port_steps.add_action_noise(
-        torch.from_numpy(actions), torch.Generator().manual_seed(0)).numpy()
+    noisy = port_steps.add_action_noise(torch.from_numpy(actions), 0).numpy()
     delta = noisy - actions
     move, typed = actions[..., 0] == 0, actions[..., 0] == 3
     assert np.all(delta[..., [0, 3, 4, 5]] == 0)
@@ -251,13 +250,27 @@ def test_add_action_noise_touches_only_valid_slots():
     assert set(np.unique(delta[..., 1:3][move])) == {-2, -1, 0, 1, 2}
     assert set(np.unique(delta[..., 6][typed])) == {-2, -1, 0, 1, 2}
     # Unclamped on purpose: values may leave [0, 999].
-    again = port_steps.add_action_noise(
-        torch.from_numpy(actions), torch.Generator().manual_seed(0)).numpy()
+    again = port_steps.add_action_noise(torch.from_numpy(actions), 0).numpy()
     np.testing.assert_array_equal(noisy, again)
-    others = [port_steps.add_action_noise(
-        torch.from_numpy(actions), torch.Generator().manual_seed(s)).numpy()
-        for s in range(1, 30)]
+    others = [port_steps.add_action_noise(torch.from_numpy(actions),
+                                          s).numpy() for s in range(1, 30)]
     assert any(o[0, 1, 1] < 0 or o[0, 1, 2] > 999 for o in others)
+
+
+def test_action_noise_of_a_data_ranks_rows_is_one_process_noise():
+    """Rows 2-3 of a global batch, padded to a shorter length as a data
+    rank's own bucket pads them, draw the noise one process draws for
+    them."""
+    rng = np.random.default_rng(7)
+    actions = torch.from_numpy(np.stack([
+        port_synthetic.random_action_sequence(rng, 64)
+        for _ in range(4)]).astype(np.float32))
+    whole = port_steps.add_action_noise(actions, 123)
+    rows = port_steps.add_action_noise(actions[2:4, :40].contiguous(), 123,
+                                       first_row=2)
+    torch.testing.assert_close(rows, whole[2:4, :40], rtol=0, atol=0)
+    assert not torch.equal(port_steps.add_action_noise(
+        actions[2:4, :40].contiguous(), 123), rows)
 
 
 # ---- train and eval steps ----

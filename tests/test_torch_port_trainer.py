@@ -579,23 +579,26 @@ def test_train_cli_refuses_cuda_without_a_card(env, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data_parallel", "2"], "slice 9"),
-    (["--model_parallel", "2"], "slice 9"),
-    (["--dcn_slices", "2"], "slice 9"),
+    # Ported in the parallel slice: in one process a mesh of two ranks
+    # raises, naming both numbers (their multi-rank runs:
+    # test_torch_port_parallel*.py).
+    (["--data_parallel", "2"], "data=2 x model=1 needs 2 ranks.*has 1"),
+    (["--model_parallel", "2"], "needs 2 ranks.*has 1|do not divide"),
+    (["--dcn_slices", "2"], "do not divide by model=1 x dcn=2"),
     # Ported since: accepted (their runs: test_torch_port_native.py,
     # test_torch_port_quant.py).
     (["--native_loader", "--vcb_dir", "v"], None),
     (["--quant", "int8"], None),
 ])
 def test_train_cli_unported_flags_raise(flags, item):
-    """The parallel options raise, naming their ROADMAP item; the native
-    loader and int8 dense layers pass the check."""
+    """No option raises as unported any more: a parallel option asks for
+    more ranks than one process has and names both numbers; the native
+    loader and int8 dense layers parse."""
     if item is None:
         args = port_cli.parse_args(["--device", "cpu", *flags])
-        port_cli._check_ported(args)
         assert args.native_loader or args.quant == "int8"
     else:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             port_cli.main(["--device", "cpu", *flags])
     with pytest.raises(SystemExit):          # no counterpart in the port
         port_cli.parse_args(["--dropout_rng_impl", "rbg"])

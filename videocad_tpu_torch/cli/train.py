@@ -1,4 +1,4 @@
-"""Train CLI on one device.
+"""Train CLI, on one device or on a mesh of ranks.
 
     python -m videocad_tpu_torch.cli.train \
         --dataset_path data/data_resized \
@@ -12,10 +12,22 @@ never moves to another device than the one asked for: ``--device cuda``
 without a card is an error. ``--native_loader`` reads batches through the
 C++ ``.vcb`` loader (``data/native.py``), converting the store into
 ``--vcb_dir`` on first use; ``--quant`` puts the dense layers on int8
-products. Parallel meshes (``--data_parallel``, ``--model_parallel``,
-``--dcn_slices``) are not ported yet and raise, naming their ROADMAP item;
-``--dropout_rng_impl`` (a choice between JAX generators) has no
+products. ``--dropout_rng_impl`` (a choice between JAX generators) has no
 counterpart.
+
+Several ranks, one process each, come from ``torchrun`` (or any launcher
+that exports ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``)::
+
+    torchrun --nproc_per_node 2 -m videocad_tpu_torch.cli.train \
+        --device cuda --data_parallel 2 ...
+
+``parallel/distributed.py:initialize`` joins the group (NCCL on the card,
+gloo on the CPU; a caller that has joined it already, over gloo for ranks
+that share one card, keeps its group), then ``--data_parallel`` (0: the
+world over ``--model_parallel``), ``--model_parallel`` and ``--dcn_slices``
+lay the mesh out, as ``videocad_tpu.cli.train`` does. ``--batch_size`` is
+the global batch; each data rank assembles its rows of it.
 """
 
 from __future__ import annotations
@@ -29,16 +41,17 @@ from videocad_tpu_torch.experiment import Experiment
 from videocad_tpu_torch.utils.io import load_json
 
 
-def build_pipelines(args, view_ids, model_params=None):
+def build_pipelines(args, view_ids, model_params=None, rows=None):
     """The train, val and test pipelines over the dataset the arguments
-    name."""
+    name; ``rows`` = (data rank, data ranks) of a mesh."""
     model_params = model_params or {}
     gencad = bool(model_params.get("use_pretrained_cad_model", False))
     image_size = model_params.get("image_size")
     splits = load_split_ids(args.config_path)
     if getattr(args, "native_loader", False):
         return _build_native_pipelines(args, splits, view_ids,
-                                       gencad=gencad, image_size=image_size)
+                                       gencad=gencad, image_size=image_size,
+                                       rows=rows)
     pipes = {}
     for split in ("train", "val", "test"):
         ds = VideoCADDataset(
@@ -49,12 +62,12 @@ def build_pipelines(args, view_ids, model_params=None):
             image_size=image_size, gencad=gencad)
         pipes[split] = DataPipeline(
             ds, batch_size=args.batch_size, shuffle=split == "train",
-            buckets=tuple(args.buckets or DEFAULT_BUCKETS))
+            buckets=tuple(args.buckets or DEFAULT_BUCKETS), rows=rows)
     return pipes
 
 
 def _build_native_pipelines(args, splits, view_ids=(), gencad=False,
-                            image_size=None):
+                            image_size=None, rows=None):
     """The C++ loader over ``.vcb`` shards, converted from the store on
     first use.
 
@@ -78,6 +91,11 @@ def _build_native_pipelines(args, splits, view_ids=(), gencad=False,
     for split in ("train", "val", "test"):
         split_dir = os.path.join(vcb_root, split)
         paths = scan_vcb(split_dir)
+        if not paths and rows is not None:
+            raise ValueError(
+                f"{split_dir} holds no .vcb shards: convert the store once "
+                f"in one process (or on rank 0) before a multi-rank run, "
+                f"so that ranks do not write the same files")
         if not paths:
             convert_store_to_vcb(args.dataset_path, split_dir,
                                  ids=splits.get(split, []),
@@ -107,12 +125,12 @@ def _build_native_pipelines(args, splits, view_ids=(), gencad=False,
                 f"image {cad_shape}) but the model config does not set "
                 f"use_pretrained_cad_model; re-convert the store (delete "
                 f"{vcb_root} or pass a fresh --vcb_dir)")
-        # One process on one card: the whole shuffled order (slice 9 of
-        # the ROADMAP brings host shards).
+        # The single process's shuffled order; a data rank takes its rows
+        # of each global batch.
         pipes[split] = NativePipeline(
             paths, batch_size=args.batch_size, bucket_len=bucket,
             image_shape=shape, num_views=num_views, cad_shape=cad_shape,
-            shuffle=split == "train", host_id=0, num_hosts=1)
+            shuffle=split == "train", rows=rows)
     return pipes
 
 
@@ -155,11 +173,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--noise", action="store_true",
                         help="action-noise augmentation")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="not ported yet (ROADMAP slice 9)")
+                        help="data-parallel ranks (0 = world / "
+                             "(model_parallel x dcn_slices))")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="not ported yet (ROADMAP slice 9)")
+                        help="tensor-parallel ranks (heads, FFN width, "
+                             "the parameter head's columns)")
     parser.add_argument("--dcn_slices", type=int, default=1,
-                        help="not ported yet (ROADMAP slice 9)")
+                        help="a leading data axis of slices (hybrid mesh)")
     parser.add_argument("--checkpoint_dir", default="checkpoints")
     parser.add_argument("--log_dir", default="logs")
     parser.add_argument("--buckets", type=int, nargs="*", default=None)
@@ -181,33 +201,44 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    unported = [
-        (args.data_parallel > 1, "--data_parallel (ROADMAP slice 9)"),
-        (args.model_parallel > 1, "--model_parallel (ROADMAP slice 9)"),
-        (args.dcn_slices > 1, "--dcn_slices (ROADMAP slice 9)"),
-    ]
-    missing = [what for bad, what in unported if bad]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+def build_mesh(args, device):
+    """Join the process group the environment names, and lay the mesh out
+    (``videocad_tpu/cli/train.py``'s rule): None for one process with no
+    parallel axis asked for."""
+    from videocad_tpu_torch.parallel import distributed
+    from videocad_tpu_torch.parallel.mesh import (create_hybrid_mesh,
+                                                  create_mesh)
+
+    distributed.initialize(device)
+    data = args.data_parallel or None
+    if (distributed.world_size() == 1 and (data or 1) == 1
+            and args.model_parallel == 1 and args.dcn_slices == 1):
+        return None
+    if args.dcn_slices > 1:
+        return create_hybrid_mesh(args.dcn_slices, data,
+                                  args.model_parallel)
+    return create_mesh(data, args.model_parallel)
 
 
 def main(argv=None):
     import torch
 
+    from videocad_tpu_torch.parallel.distributed import local_device
+
     args = parse_args(argv)
-    _check_ported(args)
-    device = torch.device(args.device)
+    device = local_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (the port does not fall back to CPU)")
+    mesh = build_mesh(args, device)
+    rows = None if mesh is None else (mesh.data_rank, mesh.data_size)
 
     model_configs = load_json(args.model_config)
     model_params = model_configs[args.model_name]
     if args.quant is not None:
         model_params["quant"] = args.quant
     view_ids = ["05", "09", "20"][: model_params.get("num_views", 0)]
-    pipes = build_pipelines(args, view_ids, model_params)
+    pipes = build_pipelines(args, view_ids, model_params, rows)
 
     # the reference's training_config defaults
     training_config = {
@@ -233,7 +264,8 @@ def main(argv=None):
     experiment = Experiment(pipes["train"], pipes["val"], pipes["test"],
                             training_config, device=device,
                             log_dir=args.log_dir,
-                            class_weights_path=args.class_weights)
+                            class_weights_path=args.class_weights,
+                            mesh=mesh)
     return experiment.run_with_config(model_configs, args.model_name)
 
 

@@ -8,7 +8,7 @@ timesteps are regenerated as ``arange`` (the stored ones are unused).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,3 +53,16 @@ def collate(items: List[Dict[str, np.ndarray]],
             [i["multiview_images"] for i in items])
     batch["ids"] = [i.get("id", "") for i in items]
     return batch
+
+
+def check_rows(batch_size: int, rows: Optional[Tuple[int, int]]
+               ) -> Optional[Tuple[int, int]]:
+    """``rows`` = (data rank, data ranks), checked against the global
+    batch size; None for the whole batch."""
+    if rows is None or rows[1] == 1:
+        return None
+    rank, count = rows
+    if batch_size % count or not 0 <= rank < count:
+        raise ValueError(f"batch size {batch_size} does not split into "
+                         f"rows {rank} of {count} data ranks")
+    return rank, count

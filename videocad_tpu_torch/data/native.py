@@ -25,10 +25,11 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from videocad_tpu_torch.data.collate import check_rows
 from videocad_tpu_torch.etl.dataset_gen import shard_path
 
 REPO = Path(__file__).resolve().parents[2]
@@ -211,9 +212,16 @@ class NativePipeline:
                  num_views: int = 0, cad_shape=None, shuffle: bool = True,
                  seed: int = 42, prefetch: int = 2, num_threads: int = 2,
                  host_id: int = 0, num_hosts: int = 1,
-                 max_skipped_rows: int = 0):
+                 max_skipped_rows: int = 0,
+                 rows: Optional[Tuple[int, int]] = None):
         """``host_id`` / ``num_hosts``: a disjoint slice of the shuffled
-        order for each process, reshuffled every epoch. ``num_views`` > 0
+        order for each process, reshuffled every epoch. ``rows`` = (data
+        rank r, data ranks dp): the rows ``[r * B / dp, (r + 1) * B / dp)``
+        of each global batch of the single process's order, as
+        ``DataPipeline`` takes them. The loader strides its host slices
+        (host h reads positions h, h + H, ...), so row j of every global
+        batch is host j of H = B reading one row a batch: the rank runs one
+        such loader for each of its rows and joins them. ``num_views`` > 0
         reads version-2 files and yields ``multiview_images`` (B, V, H, W,
         C). ``cad_shape``: the CAD image's own (H, W, C) where it differs
         from a frame's (version-3 GenCAD stores). ``max_skipped_rows``:
@@ -230,6 +238,10 @@ class NativePipeline:
             raise ValueError(
                 f"host_id {host_id} out of range [0, {num_hosts}): a "
                 "misconfigured multi-host launch would duplicate shards")
+        rows = check_rows(batch_size, rows)
+        if rows is not None and num_hosts > 1:
+            raise ValueError("rows and num_hosts > 1 are two shardings; "
+                             "pass one")
         self.lib = load_library()
         self.paths = list(paths)
         self.batch_size = batch_size
@@ -246,34 +258,34 @@ class NativePipeline:
         self._dummy_views = np.empty((1,), np.uint8)
         arr = (ctypes.c_char_p * len(self.paths))(
             *[p.encode() for p in self.paths])
-        self._handle = self.lib.vcb_loader_create(
-            arr, len(self.paths), batch_size, bucket_len,
-            self.h, self.w, self.c, act_dim, num_views,
-            self.cad_shape[0], self.cad_shape[1], self.cad_shape[2],
-            prefetch, num_threads, host_id, num_hosts)
-        if not self._handle:
-            raise ValueError("vcb_loader_create failed (see stderr)")
+        if rows is None:
+            loaders = [(batch_size, host_id, num_hosts)]
+        else:
+            per = batch_size // rows[1]
+            loaders = [(1, rows[0] * per + j, batch_size)
+                       for j in range(per)]
+        self._handles = []
+        for size, host, hosts in loaders:
+            handle = self.lib.vcb_loader_create(
+                arr, len(self.paths), size, bucket_len,
+                self.h, self.w, self.c, act_dim, num_views,
+                self.cad_shape[0], self.cad_shape[1], self.cad_shape[2],
+                prefetch, num_threads, host, hosts)
+            if not handle:
+                raise ValueError("vcb_loader_create failed (see stderr)")
+            self._handles.append((handle, size))
 
     def __len__(self) -> int:
-        return self.lib.vcb_loader_num_batches(self._handle)
+        return self.lib.vcb_loader_num_batches(self._handles[0][0])
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        self.lib.vcb_loader_start_epoch(self._handle, epoch, self.seed,
-                                        int(self.shuffle))
-        b, l, v = self.batch_size, self.bucket_len, self.num_views
+        for handle, _ in self._handles:
+            self.lib.vcb_loader_start_epoch(handle, epoch, self.seed,
+                                            int(self.shuffle))
         while True:
-            frames = np.empty((b, l, self.h, self.w, self.c), np.uint8)
-            actions = np.empty((b, l, self.act_dim), np.float32)
-            cad = np.empty((b,) + self.cad_shape, np.uint8)
-            views = (np.empty((b, v, self.h, self.w, self.c), np.uint8)
-                     if v > 0 else self._dummy_views)
-            indices = np.empty((b,), np.int32)
-            ok = self.lib.vcb_loader_next(
-                self._handle, _u8_ptr(frames),
-                actions.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                _u8_ptr(cad), _u8_ptr(views),
-                indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-            if not ok:
+            parts = [self._next(handle, size)
+                     for handle, size in self._handles]
+            if any(part is None for part in parts):
                 skipped = self.skipped_rows()
                 if skipped > self.max_skipped_rows:
                     raise RuntimeError(
@@ -282,23 +294,48 @@ class NativePipeline:
                         f"(max_skipped_rows={self.max_skipped_rows}); "
                         f"see stderr for the offending paths")
                 return
-            batch = {
-                "frames": frames,
-                "actions": actions,
-                "cad_image": cad,
-                "timesteps": np.tile(np.arange(l)[None], (b, 1)),
-                "ids": [os.path.basename(self.paths[i]).split("_")[0]
-                        for i in indices],
-            }
-            if v > 0:
-                batch["multiview_images"] = views
-            yield batch
+            if len(parts) == 1:
+                yield parts[0]
+                continue
+            yield {k: (sum((p[k] for p in parts), []) if k == "ids"
+                       else np.concatenate([p[k] for p in parts]))
+                   for k in parts[0]}
+
+    def _next(self, handle, b: int) -> Optional[Dict[str, np.ndarray]]:
+        """One batch of ``b`` rows from one C++ loader, or None at the end
+        of its epoch."""
+        l, v = self.bucket_len, self.num_views
+        frames = np.empty((b, l, self.h, self.w, self.c), np.uint8)
+        actions = np.empty((b, l, self.act_dim), np.float32)
+        cad = np.empty((b,) + self.cad_shape, np.uint8)
+        views = (np.empty((b, v, self.h, self.w, self.c), np.uint8)
+                 if v > 0 else self._dummy_views)
+        indices = np.empty((b,), np.int32)
+        ok = self.lib.vcb_loader_next(
+            handle, _u8_ptr(frames),
+            actions.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            _u8_ptr(cad), _u8_ptr(views),
+            indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if not ok:
+            return None
+        batch = {
+            "frames": frames,
+            "actions": actions,
+            "cad_image": cad,
+            "timesteps": np.tile(np.arange(l)[None], (b, 1)),
+            "ids": [os.path.basename(self.paths[i]).split("_")[0]
+                    for i in indices],
+        }
+        if v > 0:
+            batch["multiview_images"] = views
+        return batch
 
     def skipped_rows(self) -> int:
         """Corrupt or mismatched rows padded out so far this epoch."""
-        return int(self.lib.vcb_loader_skipped_rows(self._handle))
+        return sum(int(self.lib.vcb_loader_skipped_rows(handle))
+                   for handle, _ in self._handles)
 
     def __del__(self):
-        if getattr(self, "_handle", None):
-            self.lib.vcb_loader_destroy(self._handle)
-            self._handle = None
+        for handle, _ in getattr(self, "_handles", ()):
+            self.lib.vcb_loader_destroy(handle)
+        self._handles = []

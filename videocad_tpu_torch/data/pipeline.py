@@ -3,7 +3,10 @@
 Port of ``videocad_tpu/data/pipeline.py``:
 
   * deterministic per-epoch shuffling with a contiguous per-host shard
-    (each process reads only its slice);
+    (each process reads only its slice), or, for the data ranks of a mesh
+    (``rows``), the single process's order with each rank assembling only
+    its rows ``[r * B / dp, (r + 1) * B / dp)`` of every global batch, so
+    that a data-parallel step sees the batch one process would;
   * a bounded pool of threads assembles padded uint8 batches ahead of the
     consumer and emits them in batch order (bytes stay small: channels stay
     uint8 until the device);
@@ -18,27 +21,31 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from videocad_tpu_torch.data.collate import DEFAULT_BUCKETS, collate
+from videocad_tpu_torch.data.collate import (DEFAULT_BUCKETS, check_rows,
+                                             collate)
 from videocad_tpu_torch.data.dataset import VideoCADDataset
 
 
 class ShardedSampler:
     """Deterministic epoch shuffling, a contiguous per-host shard, and
-    drop_last."""
+    drop_last; with ``rows`` = (data rank r, data ranks dp), the rows
+    ``[r * B / dp, (r + 1) * B / dp)`` of each global batch of size B."""
 
     def __init__(self, num_items: int, batch_size: int, shuffle: bool = True,
-                 seed: int = 42, host_id: int = 0, num_hosts: int = 1):
+                 seed: int = 42, host_id: int = 0, num_hosts: int = 1,
+                 rows: Optional[Tuple[int, int]] = None):
         self.num_items = num_items
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.host_id = host_id
         self.num_hosts = num_hosts
+        self.rows = check_rows(batch_size, rows)
 
     def epoch_batches(self, epoch: int):
         order = np.arange(self.num_items)
@@ -48,7 +55,12 @@ class ShardedSampler:
         shard = order[self.host_id * per_host:(self.host_id + 1) * per_host]
         n_batches = len(shard) // self.batch_size  # drop_last=True
         for b in range(n_batches):
-            yield shard[b * self.batch_size:(b + 1) * self.batch_size]
+            batch = shard[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.rows is not None:
+                rank, count = self.rows
+                per = self.batch_size // count
+                batch = batch[rank * per:(rank + 1) * per]
+            yield batch
 
     def num_batches(self) -> int:
         return (self.num_items // self.num_hosts) // self.batch_size
@@ -62,14 +74,20 @@ class DataPipeline:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  fixed_length: Optional[int] = None,
                  prefetch: int = 2, num_workers: int = 2,
-                 host_id: int = 0, num_hosts: int = 1):
+                 host_id: int = 0, num_hosts: int = 1,
+                 rows: Optional[Tuple[int, int]] = None):
         """``num_workers``: concurrent batch-assembly threads. Assembly is
         bound by unpickling, PNG decode and resize, which release the GIL
         inside numpy and PIL. Emission order is batch order whatever the
-        worker count."""
+        worker count. ``rows`` = (data rank, data ranks): this rank's rows
+        of each global batch of ``batch_size`` (:class:`ShardedSampler`).
+        A rank's rows are padded to the bucket of their own longest
+        sequence, which may be shorter than the global batch's: a padded
+        step has target -1 and follows every real step under the causal
+        and banded masks, so it changes no loss, counter or gradient."""
         self.dataset = dataset
         self.sampler = ShardedSampler(len(dataset), batch_size, shuffle,
-                                      seed, host_id, num_hosts)
+                                      seed, host_id, num_hosts, rows)
         self.buckets = buckets
         self.fixed_length = fixed_length
         self.prefetch = prefetch

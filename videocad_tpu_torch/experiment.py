@@ -11,6 +11,10 @@ checkpoints of the first to resume from); the experiment's directory is the
 one the trainer logs to. A ``state_dict`` key warm-starts the model from a
 port checkpoint, JAX weights or a reference torch checkpoint (``.pt``), whose
 ViT generation is folded into the model config before the model is built.
+
+With a ``mesh`` every rank runs the experiment: each builds the model from
+the same seed and warm start, the trainer splits it over the mesh
+(``train/trainer.py``), and only rank 0 writes the JSON files.
 """
 
 from __future__ import annotations
@@ -95,7 +99,10 @@ def load_warm_start(model, path: str) -> None:
 class Experiment:
     def __init__(self, train_pipe, val_pipe, test_pipe, training_config: Dict,
                  device="cuda", log_dir: str = "logs",
-                 class_weights_path: Optional[str] = "class_weights.json"):
+                 class_weights_path: Optional[str] = "class_weights.json",
+                 mesh=None):
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0
         self.train_pipe = train_pipe
         self.val_pipe = val_pipe
         self.test_pipe = test_pipe
@@ -138,9 +145,11 @@ class Experiment:
             generator=torch.Generator().manual_seed(
                 training_config.get("seed", 0)))
         os.makedirs(exp_dir, exist_ok=True)
-        save_json(experiment_params, os.path.join(exp_dir, "params.json"))
-        save_json(training_config,
-                  os.path.join(exp_dir, "training_config.json"))
+        if self.main:
+            save_json(experiment_params, os.path.join(exp_dir,
+                                                      "params.json"))
+            save_json(training_config,
+                      os.path.join(exp_dir, "training_config.json"))
         if torch_tree is not None:
             from videocad_tpu_torch.models.convert import state_dict_from_jax
             model.load_state_dict(state_dict_from_jax(torch_tree))
@@ -151,16 +160,19 @@ class Experiment:
                                           self.class_weights_path)
         trainer = Trainer(model, self.train_pipe, self.val_pipe,
                           self.test_pipe, training_config, loss_config,
-                          log_dir=self.log_dir)
+                          log_dir=self.log_dir, mesh=self.mesh)
         if training_config.get("resume", False):
             trainer.resume()
         trainer.train(training_config.get("epochs", 100))
 
         results = trainer.evaluate(mode="test")
-        save_json(results, os.path.join(exp_dir, "results.json"))
+        if self.main:
+            save_json(results, os.path.join(exp_dir, "results.json"))
         if training_config.get("sequential", False):
             seq_results = trainer.sequential_evaluate(mode="test")
-            save_json(seq_results, os.path.join(exp_dir, "seq_results.json"))
+            if self.main:
+                save_json(seq_results, os.path.join(exp_dir,
+                                                    "seq_results.json"))
         return results
 
     def run_grid(self, experiment_params: Dict[str, Any]):

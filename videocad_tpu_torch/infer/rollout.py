@@ -38,20 +38,25 @@ from torch import nn
 
 from videocad_tpu_torch.actions.ops import apply_action_mask, normalize_actions
 from videocad_tpu_torch.actions.vocab import ACT_DIM
+from videocad_tpu_torch.parallel.collectives import gather_tensor
 
 KV = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def param_tree(module: nn.Module) -> Dict:
     """The module's parameters as nested dicts, split on ``.``; the leaves
-    share storage with the module's parameters."""
+    share storage with the module's parameters. A parameter split over a
+    model group (``parallel/sharding.py``) is gathered whole, so the
+    decode runs replicated on every model rank, which must all call it."""
     tree: Dict = {}
     for name, p in module.named_parameters():
         node = tree
         parts = name.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = p.detach()
+        dim = getattr(p, "tp_dim", None)
+        node[parts[-1]] = (p.detach() if dim is None
+                           else gather_tensor(p, dim, p.tp_group))
     return tree
 
 

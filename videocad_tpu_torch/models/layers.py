@@ -32,12 +32,24 @@ generator (``dropout_impl="xla"``) or through the standalone dropout kernel
 with a seed derived per call from its CPU generator (``"pallas"``), the
 fused and the flash attention kernels' in-kernel dropout from such a seed
 too. A training-mode forward with dropout on and no ``rng`` raises.
+
+Tensor parallelism (``parallel/sharding.py:shard_model``) splits a
+:class:`Dense` as a column (its output features; the replicated input
+passes :func:`copy_to_model`), a row (its input features; the partial
+products pass :func:`reduce_from_model`, then the bias is added once) or a
+gathered column (the parameter head: the output joined by
+:func:`gather_along`). A :class:`MultiHeadAttention` whose heads divide
+passes each of its inputs through :func:`copy_to_model` once, before the
+query, key and value products (split as ``"heads"``: columns whose input
+the attention has copied), then runs its local heads through whichever
+core it has. The dropout of its attention weights and of a split FFN's
+hidden layer draws from ``rng.sharded()``, one stream a model rank.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +61,20 @@ from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_attention import mhsa_short
 from videocad_tpu_torch.ops.prng import derive_seed
 from videocad_tpu_torch.ops.quant import check_quant, quantized_dense
+from videocad_tpu_torch.parallel.collectives import (copy_to_model,
+                                                     gather_along,
+                                                     reduce_from_model)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` in torch layout: weight (out, in), bias (out,);
-    under ``quant`` the int8 product (``ops/quant.py``)."""
+    under ``quant`` the int8 product (``ops/quant.py``); split over the
+    model axis when ``tp_mode`` is set (module docstring)."""
+
+    # None, "column", "heads" (a column whose caller copied its input),
+    # "row" or "gather"
+    tp_mode: Optional[str] = None
+    tp_group = None
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -68,14 +89,50 @@ class Dense(nn.Module):
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = self.tp_mode
+        if mode in ("column", "gather"):
+            x = copy_to_model(x, self.tp_group)
+        bias = None if mode == "row" else self.bias
         if self.quant != "none":
-            return quantized_dense(
-                x, self.weight, self.bias, self.dtype,
+            y = quantized_dense(
+                x, self.weight, bias, self.dtype,
                 backward="int8" if self.quant == "int8_bwd" else "bf16")
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            if bias is not None:
+                y = y + bias.to(self.dtype)
+        if mode == "row":
+            y = reduce_from_model(y, self.tp_group)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
+        elif mode == "gather":
+            y = gather_along(y, -1, self.tp_group)
         return y
+
+    @property
+    def split(self) -> bool:
+        return self.tp_mode is not None
+
+    def full_weight(self) -> torch.Tensor:
+        """The whole weight, gathered from the model group's shards when it
+        is split (the gradient flows back to this rank's shard): for a
+        fused kernel that reads the layer whole."""
+        dim = getattr(self.weight, "tp_dim", None)
+        if dim is None:
+            return self.weight
+        return gather_along(self.weight, dim, self.tp_group)
+
+    def full_bias(self) -> Optional[torch.Tensor]:
+        if self.bias is None or getattr(self.bias, "tp_dim", None) is None:
+            return self.bias
+        return gather_along(self.bias, 0, self.tp_group)
+
+
+def site_rng(rng: Optional[DropoutRng], split: bool
+             ) -> Optional[DropoutRng]:
+    """The generators of a dropout site: ``rng.sharded()`` on an activation
+    that is split over the model axis, ``rng`` itself otherwise."""
+    return rng.sharded() if split and rng is not None else rng
 
 
 class LayerNorm(nn.Module):
@@ -149,7 +206,7 @@ def remat(module: nn.Module, *args, method=None):
     if not torch.is_grad_enabled():
         return fn(*args)
     gens = [g for a in args if isinstance(a, DropoutRng)
-            for g in (a.seeds, a.bits)]
+            for g in a.generators()]
     modules = list(module.modules())
     entry = ([g.get_state() for g in gens], [m.training for m in modules])
     calls = []
@@ -224,7 +281,8 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if attention_impl not in ("xla", "fused", "pallas", "block"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
-        self.num_heads = num_heads
+        self.num_heads = num_heads    # this rank's heads once sharded
+        self.sharded = False
         self.head_dim = head_dim or model_dim // num_heads
         self.attention_impl = attention_impl
         self.dropout_impl = dropout_impl
@@ -240,12 +298,10 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.num_heads, self.head_dim)
 
-    def project_q(self, q_in: torch.Tensor) -> torch.Tensor:
-        return self._split(self.query(q_in))
-
-    def project_kv(self, kv_in: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._split(self.key(kv_in)), self._split(self.value(kv_in))
+    def _to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """An input of the split projections, copied into the model region
+        (its gradient summed over the model ranks) once."""
+        return copy_to_model(x, self.query.tp_group) if self.sharded else x
 
     def attend(self, q, k, v, mask=None,
                rng: Optional[DropoutRng] = None,
@@ -261,6 +317,7 @@ class MultiHeadAttention(nn.Module):
             out, weights = xla_attention(q, k, v, mask, return_weights=True)
             return self.out(out.reshape(b, t, -1)), weights
         rate = active_rate(self, self.dropout_rate, rng)
+        rng = site_rng(rng, self.sharded)
         if self.attention_impl == "fused" and mask is None:
             # Unlike the JAX module off the TPU, the fused path is kept
             # when dropout is on: the kernel has its own bit function on
@@ -281,8 +338,11 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q_in, kv_in, mask=None,
                 rng: Optional[DropoutRng] = None,
                 return_weights: bool = False):
-        q = self.project_q(q_in)
-        k, v = self.project_kv(kv_in)
+        x = self._to_model(q_in)
+        # self-attention: one copy serves the three products
+        memory = x if kv_in is q_in else self._to_model(kv_in)
+        q = self._split(self.query(x))
+        k, v = self._split(self.key(memory)), self._split(self.value(memory))
         return self.attend(q, k, v, mask, rng, return_weights)
 
 
@@ -315,8 +375,10 @@ class TransformerDecoderLayer(nn.Module):
         drop = lambda y: dropout(y, rng, rate, self.dropout_impl)  # noqa: E731
         x = self.norm1(x + drop(self.self_attn(x, x, tgt_mask, rng)))
         x = self.norm2(x + drop(self.cross_attn(x, memory, memory_mask, rng)))
-        ffn = self.linear2(drop(F.relu(self.linear1(x))))
-        return self.norm3(x + drop(ffn))
+        hidden_rng = site_rng(rng, self.linear1.split)
+        hidden = dropout(F.relu(self.linear1(x)), hidden_rng, rate,
+                         self.dropout_impl)
+        return self.norm3(x + drop(self.linear2(hidden)))
 
 
 class TransformerDecoder(nn.Module):

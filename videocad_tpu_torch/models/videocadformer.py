@@ -38,6 +38,11 @@ same gradients. ``frame_chunk`` encodes the frames in chunks of that many in
 activations of a long inference batch; JAX's condition, so training and
 other sizes take the whole batch.
 
+Split over a mesh's model axis (``parallel/sharding.py:shard_model``),
+``predict_params`` is column-split (6,000 -> 3,000 float32 columns a rank
+at model = 2) and its logits are gathered before the objective;
+``predict_cmd`` and the embeddings stay replicated.
+
 Dropout is active in ``train()`` mode only, at every site the JAX modules
 have, and draws from the ``rng`` argument of ``forward`` (a
 :class:`~videocad_tpu_torch.ops.dropout.DropoutRng`); ``eval()`` mode

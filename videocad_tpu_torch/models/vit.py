@@ -42,6 +42,11 @@ projections around it are quantized; under ``"block"`` the fused
 sub-block kernels read the raw float weights, so only the patch embedding
 is quantized there (and, under ``mlp_impl="block"`` alone, the attention's
 projections).
+
+Under tensor parallelism (``parallel/sharding.py``) the attention runs its
+local heads (8 of 16 at model = 2) through its core, and ``mlp_in`` /
+``mlp_out`` split the MLP width; the fused sub-block kernels read their
+weights gathered whole and run replicated on every model rank.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from torch import nn
 
 from videocad_tpu_torch.models.layers import (Dense, LayerNorm,
                                               MultiHeadAttention, active_rate,
-                                              remat)
+                                              remat, site_rng)
 from videocad_tpu_torch.ops.dropout import DropoutRng, dropout
 from videocad_tpu_torch.ops.fused_block import attn_block, mlp_block
 from videocad_tpu_torch.ops.layernorm import layer_norm
@@ -153,10 +158,15 @@ class ViTBlock(nn.Module):
             h, weights = self.attn(h, h, return_weights=True)
             x = x + drop(h)
         elif self.attention_block:
+            # Split over the model axis, the weights are gathered and the
+            # kernel runs the whole sub-block on every model rank (as XLA
+            # runs a custom call it cannot partition); the weight gradients
+            # are sliced back to the shards.
             attn = self.attn
             x = attn_block(
-                x, attn.query.weight.t(), attn.key.weight.t(),
-                attn.value.weight.t(), attn.out.weight.t(), attn.out.bias,
+                x, attn.query.full_weight().t(), attn.key.full_weight().t(),
+                attn.value.full_weight().t(), attn.out.full_weight().t(),
+                attn.out.bias,
                 self.attn_norm.weight, self.attn_norm.bias, seed(),
                 self.heads, rate, self.attn_norm.eps)
         else:
@@ -164,14 +174,17 @@ class ViTBlock(nn.Module):
             x = x + drop(self.attn(h, h, rng=rng))
         if self.mlp_block:
             x = mlp_block(
-                x, self.mlp_in.weight.t(), self.mlp_in.bias,
-                self.mlp_out.weight.t(), self.mlp_out.bias,
+                x, self.mlp_in.full_weight().t(), self.mlp_in.full_bias(),
+                self.mlp_out.full_weight().t(), self.mlp_out.bias,
                 self.mlp_norm.weight, self.mlp_norm.bias, seed(), rate,
                 self.mlp_norm.eps)
         else:
             h = self.mlp_in(self.mlp_norm(x))
-            # exact erf GELU (torch nn.GELU default, as the reference)
-            h = self.mlp_out(drop(F.gelu(h)))
+            # exact erf GELU (torch nn.GELU default, as the reference); the
+            # hidden layer is split when the MLP is.
+            h = dropout(F.gelu(h), site_rng(rng, self.mlp_in.split), rate,
+                        self.dropout_impl)
+            h = self.mlp_out(h)
             x = x + drop(h)
         return (x, weights) if return_attention else x
 

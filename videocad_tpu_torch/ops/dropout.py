@@ -35,12 +35,16 @@ above, in double precision as they are computed here.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from videocad_tpu_torch.kernels import build
 from videocad_tpu_torch.ops.prng import (derive_seed, dropout_threshold,
-                                         elementwise_bits, keep_mask)
+                                         elementwise_bits, fold_in, keep_mask)
+
+# fold_in word of the per-model-rank stream of DropoutRng.sharded()
+_SHARD_WORD = 1 << 20
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,9 +55,29 @@ class DropoutRng:
     in-kernel dropout without touching the device, and ``bits`` (on the
     model's device) yields the elementwise sites' masks."""
 
-    def __init__(self, seed: int, device="cpu"):
+    def __init__(self, seed: int, device="cpu",
+                 model_rank: Optional[int] = None):
         self.seeds = torch.Generator().manual_seed(seed)
         self.bits = torch.Generator(device=device).manual_seed(seed)
+        self._sharded = (self if model_rank is None else DropoutRng(
+            fold_in(seed, _SHARD_WORD + model_rank), device))
+
+    def sharded(self) -> "DropoutRng":
+        """The generators of sites on activations that are split over the
+        model axis (attention probabilities of split heads, a split FFN or
+        MLP hidden layer): one stream a model rank, so that the ranks'
+        shards do not share masks. Sites on replicated activations draw
+        from this object itself, the same masks on every model rank, or
+        the replicated stream would diverge between them. Without a model
+        rank (one model rank) it is this object."""
+        return self._sharded
+
+    def generators(self):
+        """Every generator that a forward draws from."""
+        gens = [self.seeds, self.bits]
+        if self._sharded is not self:
+            gens += [self._sharded.seeds, self._sharded.bits]
+        return gens
 
 
 def _check_rate(rate: float) -> None:

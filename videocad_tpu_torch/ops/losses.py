@@ -34,22 +34,47 @@ def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
     logits: (..., C); targets: (...,) int.
     """
+    num, total_w = weighted_cross_entropy_terms(logits, targets,
+                                                class_weights, ignore_index)
+    return torch.where(total_w > 0, num / total_w.clamp(min=1e-20), 0.0)
+
+
+def weighted_cross_entropy_terms(logits: torch.Tensor, targets: torch.Tensor,
+                                 class_weights: Optional[torch.Tensor] = None,
+                                 ignore_index: int = -1
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The numerator ``sum_i w[t_i] * nll_i`` and the denominator
+    ``sum_i w[t_i]`` of :func:`weighted_cross_entropy`, which the
+    data-parallel objective reduces over its ranks apart.
+
+    Targets index as JAX indexes: a negative one counts from the end, and
+    one outside [-C, C) gives a NaN nll, as JAX's ``take_along_axis``
+    does, so the objective's NaN guard drops that loss; its bin weight is
+    the nearest bin's (JAX clamps an index). Both are ``torch.where`` on a
+    clamped index: no out-of-bounds gather (an error on the CPU, a
+    device-side assert on the card) and no host synchronisation.
+    """
     num_classes = logits.shape[-1]
     logits = logits.reshape(-1, num_classes)
     targets = targets.reshape(-1)
     valid = targets != ignore_index
     safe_targets = torch.where(valid, targets, 0)
+    index = torch.where(safe_targets < 0, safe_targets + num_classes,
+                        safe_targets)
+    in_range = (index >= 0) & (index < num_classes)
 
     log_probs = _log_softmax(logits)
-    nll = -log_probs.gather(1, safe_targets[:, None])[:, 0]
+    picked = log_probs.gather(1, index.clamp(0, num_classes - 1)[:, None])
+    nll = torch.where(in_range, -picked[:, 0], torch.nan)
 
     if class_weights is not None:
-        w = class_weights[safe_targets] * valid
+        n_w = class_weights.shape[0]
+        w_index = torch.where(safe_targets < 0, safe_targets + n_w,
+                              safe_targets).clamp(0, n_w - 1)
+        w = class_weights[w_index] * valid
     else:
         w = valid.to(logits.dtype)
-    total_w = w.sum()
-    return torch.where(total_w > 0,
-                       (nll * w).sum() / total_w.clamp(min=1e-20), 0.0)
+    return (nll * w).sum(), w.sum()
 
 
 def tolerance_interval(targets: torch.Tensor, tolerance: int, above: bool,
@@ -79,6 +104,20 @@ def flexible_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     dropped too; the rest get CE against the uniform distribution over the
     window; mean over the remaining rows, 0.0 when none remain.
     """
+    total, n_sel = flexible_cross_entropy_terms(
+        logits, targets, tolerance, ignore_index, above, ignore_valid,
+        class_weights)
+    return torch.where(n_sel > 0, total / n_sel.clamp(min=1), 0.0)
+
+
+def flexible_cross_entropy_terms(logits: torch.Tensor, targets: torch.Tensor,
+                                 tolerance: int = 2, ignore_index: int = -1,
+                                 above: bool = True,
+                                 ignore_valid: bool = True,
+                                 class_weights: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The summed row losses and the count of rows that remain, of
+    :func:`flexible_cross_entropy`."""
     num_classes = logits.shape[-1]
     logits = logits.reshape(-1, num_classes).to(torch.float32)
     targets = targets.reshape(-1)
@@ -102,6 +141,4 @@ def flexible_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         log_probs = log_probs * class_weights[safe_targets][:, None]
     row_loss = -(soft * log_probs).sum(dim=1)
 
-    n_sel = sel.sum()
-    return torch.where(n_sel > 0,
-                       (row_loss * sel).sum() / n_sel.clamp(min=1), 0.0)
+    return (row_loss * sel).sum(), sel.sum()

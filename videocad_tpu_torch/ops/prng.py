@@ -20,7 +20,10 @@ ever share a stream under one seed: the short-sequence attention kernels
 ``(seed, 0)``, the standalone dropout ``(seed, 1)``, the flash attention
 kernels ``(seed, 2)`` (:data:`FLASH_KEY_WORD`), the four dropout sites of
 the fused ViT sub-block kernels ``(seed, 3 + site)``
-(:data:`BLOCK_KEY_WORD`, :func:`block_site_bits`).
+(:data:`BLOCK_KEY_WORD`, :func:`block_site_bits`). The training step's
+action noise draws :func:`dropout_bits` under ``(seed, 7)``
+(:data:`NOISE_KEY_WORD`), so a row's jitter depends on its index in the
+global batch and on nothing of the batch's shape.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ _MASK32 = 0xFFFFFFFF
 _INT32_MAX = 2 ** 31 - 1
 FLASH_KEY_WORD = 2    # the flash attention kernels' second key word
 BLOCK_KEY_WORD = 3    # the fused sub-block kernels': 3 + site, sites 0..3
+NOISE_KEY_WORD = 7    # the training step's action noise (train/steps.py)
 # The fused sub-block kernels' dropout sites (videocad_tpu/ops/fused_block.py
 # numbers them the same way).
 SITE_ATTN_W = 0       # attention weights, (heads, T, T) a frame

@@ -12,6 +12,14 @@ counts) and ``TrainState.step``, written by ``torch.save`` into
 A directory is written under a temporary name and renamed into place, so a
 run cut during a save leaves litter beside the checkpoints, never a
 half-written ``epoch_N``; ``latest_epoch`` takes only ``epoch_<digits>``.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank calls ``save`` and
+``restore`` at the same point: the model group gathers the split
+parameters and Adam's moments (``parallel/sharding.py``), rank 0 writes the
+same single-card ``state.pt`` and the other ranks wait at a barrier; a
+restore reads the full tensors and slices them back to this rank's
+shards. So a checkpoint written under any mesh loads in one process, and
+the other way round.
 """
 
 from __future__ import annotations
@@ -24,6 +32,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from videocad_tpu_torch.parallel.collectives import barrier
+from videocad_tpu_torch.parallel.sharding import (gather_like, gather_params,
+                                                  shard_like, shard_params,
+                                                  split_dims)
 from videocad_tpu_torch.train.state import TrainState
 
 _PAYLOAD = "state.pt"
@@ -33,10 +45,32 @@ class CheckpointHandler:
     """epoch_N / best_model checkpoints under <dir>/<experiment>/."""
 
     def __init__(self, experiment_name: str,
-                 checkpoint_dir: str = "checkpoints"):
+                 checkpoint_dir: str = "checkpoints", mesh=None):
         self.base = os.path.abspath(os.path.join(checkpoint_dir,
                                                  experiment_name))
+        self.mesh = mesh
         os.makedirs(self.base, exist_ok=True)
+
+    def _opt_names(self, state: TrainState):
+        """The parameter names in the order of the optimizer's state dict
+        (its groups' parameters, flattened)."""
+        by_id = {id(p): k for k, p in state.params.items()}
+        return [by_id[id(p)] for group in state.opt_state.param_groups
+                for p in group["params"]]
+
+    def _full_opt_state(self, state: TrainState) -> Dict[str, Any]:
+        """Adam's state dict with the split parameters' moments gathered."""
+        opt = state.opt_state.state_dict()
+        if self.mesh is None or self.mesh.model_size == 1:
+            return opt
+        dims = split_dims(state.params)
+        names = self._opt_names(state)
+        for index, entry in opt["state"].items():
+            dim = dims[names[index]]
+            entry.update(gather_like(
+                {k: entry[k] for k in ("exp_avg", "exp_avg_sq")},
+                {"exp_avg": dim, "exp_avg_sq": dim}, self.mesh))
+        return opt
 
     def _path(self, name: str) -> str:
         return os.path.join(self.base, name)
@@ -51,18 +85,23 @@ class CheckpointHandler:
         """
         name = name or ("best_model" if is_best else f"epoch_{epoch + 1}")
         path = self._path(name)
-        tmp = f"{path}.tmp-{os.getpid()}"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({
-            "params": {k: p.detach().cpu() for k, p in state.params.items()},
-            "opt_state": state.opt_state.state_dict(),
-            "step": state.step,
-        }, os.path.join(tmp, _PAYLOAD))
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"epoch": epoch + 1, "loss": float(loss)}, f)
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
+        params = gather_params(state.params, self.mesh)
+        opt_state = self._full_opt_state(state)
+        if self.mesh is None or self.mesh.rank == 0:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save({
+                "params": {k: p.cpu() for k, p in params.items()},
+                "opt_state": opt_state,
+                "step": state.step,
+            }, os.path.join(tmp, _PAYLOAD))
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"epoch": epoch + 1, "loss": float(loss)}, f)
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            barrier(self.mesh.world_group)
         return path
 
     def restore_params(self, name: str, params) -> Dict[str, Any]:
@@ -77,9 +116,10 @@ class CheckpointHandler:
             raise ValueError(
                 f"checkpoint {path} holds other parameters than the model: "
                 f"{sorted(set(saved) ^ set(params))[:5]} ...")
+        local = shard_params(saved, params, self.mesh)
         with torch.no_grad():
             for key, param in params.items():
-                param.copy_(saved[key])
+                param.copy_(local[key])
         return payload
 
     def restore(self, name: str, target: TrainState
@@ -90,7 +130,15 @@ class CheckpointHandler:
         in its groups) takes the saved moments and step counts. Returns the
         state with the saved step, and the metadata."""
         payload = self.restore_params(name, target.params)
-        target.opt_state.load_state_dict(payload["opt_state"])
+        opt = payload["opt_state"]
+        dims = split_dims(target.params)
+        names = self._opt_names(target)
+        for index, entry in opt["state"].items():
+            dim = dims[names[index]]
+            entry.update(shard_like(
+                {k: entry[k] for k in ("exp_avg", "exp_avg_sq")},
+                {"exp_avg": dim, "exp_avg_sq": dim}, self.mesh))
+        target.opt_state.load_state_dict(opt)
         meta = {}
         meta_path = os.path.join(self._path(name), "meta.json")
         if os.path.exists(meta_path):

@@ -10,6 +10,15 @@ Two loss modes, selected by ``use_mse``:
     weights), scaled by the command-class weight of the parameter's owning
     command;
   * ``use_mse=False``: 1000-bin class-weighted CE per parameter.
+
+Under data parallelism (``data_group``) each rank holds some rows of the
+global batch, and each loss is still one weighted mean over the whole
+batch, as JAX's is: the rank divides its local numerator by the
+denominator all-reduced over the group (no gradient flows through that
+reduction), the NaN guard and the "0 when empty" rule act on the global
+quantities, and the ranks' losses and gradients are summed, not averaged
+(``parallel/collectives.py:sum_gradients_hook``). The metric counters stay
+the rank's own; the trainer sums them when it fetches them.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ from videocad_tpu_torch.actions.vocab import (
     PARAM_TO_LABEL,
     TOLERANCE,
 )
-from videocad_tpu_torch.ops.losses import (flexible_cross_entropy,
-                                           weighted_cross_entropy)
+from videocad_tpu_torch.ops.losses import (flexible_cross_entropy_terms,
+                                           weighted_cross_entropy_terms)
+from videocad_tpu_torch.parallel.collectives import all_reduce
 
 TOPK = 30  # "top-30": accuracy over the first 30 timesteps
 
@@ -106,43 +116,64 @@ def _param_correct_counts(params_pred, params_target, correct_mask, use_mse,
     return counts
 
 
+def _means(terms, data_group) -> torch.Tensor:
+    """The losses ``num / den`` of (numerator, denominator) pairs, 0 where
+    the denominator is 0, with the denominators summed over
+    ``data_group`` first. Entries 1.. (the parameters') get the NaN guard,
+    as the reference trainer has it, on the global value: with a group,
+    one rank's NaN numerator zeroes that loss on every rank."""
+    nums = torch.stack([n for n, _ in terms])
+    dens = torch.stack([d.to(torch.float32) for _, d in terms])
+    if data_group is not None:
+        stats = all_reduce(torch.cat([dens, torch.isnan(nums).to(
+            torch.float32)]), data_group)
+        dens, nan = stats[:len(terms)], stats[len(terms):] > 0
+    losses = torch.where(dens > 0, nums / dens.clamp(min=1e-20), 0.0)
+    if data_group is None:
+        nan = torch.isnan(losses)
+    guarded = torch.where(nan, 0.0, losses)
+    return torch.cat([losses[:1], guarded[1:]])
+
+
 def compute_loss_and_metrics(
     cmd_logits: torch.Tensor,      # (B, T, 5)
     param_logits: torch.Tensor,    # (B, T, 6, 1000)
     target_actions: torch.Tensor,  # (B, T, 7) int (or float; cast like .long())
     config: LossConfig,
+    data_group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and the metric counters of this batch, or, with
+    ``data_group``, of this rank's rows (module docstring)."""
     device = cmd_logits.device
     targets = target_actions.to(torch.int64)
     cmd_target = targets[..., 0]
     params_target = targets[..., 1:]
 
     cmd_w = _weights_on(tuple(config.cmd_weights), device)
-    loss_cmd = weighted_cross_entropy(cmd_logits, cmd_target, cmd_w)
-
-    loss_params = 0.0
+    terms = [weighted_cross_entropy_terms(cmd_logits, cmd_target, cmd_w)]
     for i in range(NUM_PARAMS):
         logits_i = param_logits[..., i, :]
         target_i = params_target[..., i]
         if config.use_mse:
             above = True if config.above_quirk else PARAM_ABOVE[i]
-            loss_i = flexible_cross_entropy(
+            terms.append(flexible_cross_entropy_terms(
                 logits_i, target_i, tolerance=PARAM_TOLERANCES[i],
-                above=above, ignore_valid=True)
+                above=above, ignore_valid=True))
         else:
             bins = None
             if (config.param_bin_weights
                     and config.param_bin_weights[i] is not None):
                 bins = _weights_on(tuple(config.param_bin_weights[i]),
                                    device)
-            loss_i = weighted_cross_entropy(logits_i, target_i, bins)
-        # NaN guard, as the reference trainer has it (empty selections
-        # already yield 0).
-        loss_i = torch.where(torch.isnan(loss_i), 0.0, loss_i)
-        loss_params = loss_params + loss_i * config.cmd_weights[
+            terms.append(weighted_cross_entropy_terms(logits_i, target_i,
+                                                      bins))
+    losses = _means(terms, data_group)
+    loss_params = 0.0
+    for i in range(NUM_PARAMS):
+        loss_params = loss_params + losses[i + 1] * config.cmd_weights[
             PARAM_TO_LABEL[i]]
 
-    loss = 2.0 * loss_cmd + loss_params
+    loss = 2.0 * losses[0] + loss_params
 
     # ---- accuracy counters ----
     cmd_pred = cmd_logits.argmax(dim=-1)

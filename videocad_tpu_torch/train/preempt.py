@@ -1,19 +1,22 @@
 """Preemption-safe training: SIGTERM -> checkpoint.
 
-Port of ``videocad_tpu/train/preempt.py`` for one process. Fleet
-maintenance and spot reclaims deliver SIGTERM with a short grace window;
-:class:`PreemptionGuard` turns the signal into a clean stop: the handler
-only sets a flag, and the trainer polls ``consensus()`` at log-frequency
-boundaries and epoch ends, saves a checkpoint and stops. With one process
-``consensus()`` is the local flag; the agreement of all ranks (a global OR,
-so that every rank stops at the same step) comes with the parallel slice
-(ROADMAP slice 9).
+Port of ``videocad_tpu/train/preempt.py``. Fleet maintenance and spot
+reclaims deliver SIGTERM with a short grace window; :class:`PreemptionGuard`
+turns the signal into a clean stop: the handler only sets a flag, and the
+trainer polls ``consensus()`` at log-frequency boundaries and epoch ends,
+saves a checkpoint and stops. ``consensus()`` is a global OR over the
+ranks (an all-reduce max of the flag over ``group``), so a signal to one
+rank stops every rank at the same step and one checkpoint is written. It is
+a collective: every rank calls it at the same points, which the trainer's
+equal batch counts guarantee. With one process it is the local flag.
 """
 
 from __future__ import annotations
 
 import signal
 from typing import Dict, Tuple
+
+from videocad_tpu_torch.parallel.collectives import any_over
 
 
 class PreemptionGuard:
@@ -33,8 +36,11 @@ class PreemptionGuard:
     loop (also the main thread) needs no locking.
     """
 
-    def __init__(self, signals: Tuple[int, ...] = (signal.SIGTERM,)):
+    def __init__(self, signals: Tuple[int, ...] = (signal.SIGTERM,),
+                 group=None, device="cpu"):
         self._signals = tuple(signals)
+        self._group = group
+        self._device = device
         self._prev: Dict[int, object] = {}
         self._flag = False
 
@@ -59,6 +65,6 @@ class PreemptionGuard:
         return self._flag
 
     def consensus(self) -> bool:
-        """True iff the run should stop: with one process, the local
-        flag."""
-        return self._flag
+        """True iff any rank of the group was signaled: identical on all
+        of them."""
+        return any_over(self._flag, self._group, self._device)

@@ -9,8 +9,16 @@ teacher-forced ``evaluate``, KV-cached ``sequential_evaluate``, per-sample
 CSV dumps and first-mistake analysis.
 
 The model's parameters are the state (``train/state.py``), so where the JAX
-trainer takes ``params`` a caller loads them into the model beforehand. One
-process, one device: the mesh comes with the parallel slice.
+trainer takes ``params`` a caller loads them into the model beforehand.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs a trainer: the model
+is split over the model axis, the steps run under DDP over the data group,
+each rank's pipelines yield its rows of every global batch, and only rank
+0 logs, writes metrics and saves (checkpoints gather the shards first).
+The loss and the counters are summed over the data group in the one fetch
+of each ``log_frequency`` interval, so the loop adds no host
+synchronisation; ``evaluate`` and ``sequential_evaluate`` sum each rank's
+counters once at the end.
 """
 
 from __future__ import annotations
@@ -27,12 +35,14 @@ import torch
 from videocad_tpu_torch.actions.ops import apply_action_mask
 from videocad_tpu_torch.data.pipeline import device_prefetch
 from videocad_tpu_torch.infer.rollout import sequential_inference
+from videocad_tpu_torch.parallel.collectives import all_reduce
+from videocad_tpu_torch.parallel.sharding import shard_model
 from videocad_tpu_torch.train.checkpoint import CheckpointHandler
 from videocad_tpu_torch.train.metrics import init_metrics, update_metrics
 from videocad_tpu_torch.train.objective import (LossConfig,
                                                 compute_loss_and_metrics)
 from videocad_tpu_torch.train.preempt import PreemptionGuard
-from videocad_tpu_torch.train.state import create_train_state
+from videocad_tpu_torch.train.state import create_sharded_train_state
 from videocad_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                             prepare_model_inputs)
 
@@ -45,11 +55,15 @@ def _array_batch(batch: Dict) -> Dict:
 class MetricsLogger:
     """JSON snapshots under logs/<experiment>/."""
 
-    def __init__(self, experiment_name: str, log_dir: str = "logs"):
+    def __init__(self, experiment_name: str, log_dir: str = "logs",
+                 enabled: bool = True):
         self.dir = os.path.join(log_dir, experiment_name)
+        self.enabled = enabled
         os.makedirs(self.dir, exist_ok=True)
 
     def save(self, metrics: Dict, ext: str):
+        if not self.enabled:
+            return
         with open(os.path.join(self.dir, f"{ext}.json"), "w") as f:
             json.dump({k: float(v) if isinstance(v, (int, float, np.floating))
                        else v for k, v in metrics.items()}, f, indent=4)
@@ -138,8 +152,12 @@ def sequence_mistakes(gt_cmd: torch.Tensor, gt_params: torch.Tensor,
 class Trainer:
     def __init__(self, model, train_pipe, val_pipe, test_pipe,
                  training_config: Dict, loss_config: LossConfig,
-                 log_dir: str = "logs"):
+                 log_dir: str = "logs", mesh=None):
         self.model = model
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0
+        self._data_group = None if mesh is None else mesh.data_group
+        shard_model(model, mesh)
         self.train_pipe = train_pipe
         self.val_pipe = val_pipe
         self.test_pipe = test_pipe
@@ -149,19 +167,21 @@ class Trainer:
 
         self.experiment_name = training_config.get(
             "experiment_name", f"default_{int(time.time())}")
-        self.logger = MetricsLogger(self.experiment_name, log_dir)
+        self.logger = MetricsLogger(self.experiment_name, log_dir,
+                                    enabled=self.main)
         self.checkpoints = CheckpointHandler(
             self.experiment_name, training_config.get("checkpoint_dir",
-                                                      "checkpoints"))
+                                                      "checkpoints"), mesh)
 
-        self.state = create_train_state(
-            dict(model.named_parameters()), training_config,
+        self.state = create_sharded_train_state(
+            dict(model.named_parameters()), training_config, mesh,
             freeze_cad=model.config.use_pretrained_cad_model)
         self._train_step = make_train_step(
-            model, loss_config, noise=training_config.get("noise", False))
-        self._eval_step = make_eval_step(model, loss_config)
+            model, loss_config, noise=training_config.get("noise", False),
+            mesh=mesh)
+        self._eval_step = make_eval_step(model, loss_config, mesh=mesh)
         self._eval_step_ablation = make_eval_step(model, loss_config,
-                                                  ablate_cad=True)
+                                                  ablate_cad=True, mesh=mesh)
 
         self.es_enabled = training_config.get("early_stopping_enabled", False)
         self.es_patience = training_config.get("early_stopping_patience", 100)
@@ -178,7 +198,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def log(self, message: str):
-        print(message, flush=True)
+        if self.main:
+            print(message, flush=True)
 
     def _put(self, batch: Dict) -> Dict:
         return {k: torch.from_numpy(v).to(self.model.device)
@@ -205,7 +226,9 @@ class Trainer:
             # SIGTERM becomes a clean save-and-stop instead of losing the
             # work since the last save_frequency checkpoint. Installed only
             # for the duration of train().
-            self._guard = PreemptionGuard().install()
+            self._guard = PreemptionGuard(
+                group=None if self.mesh is None else self.mesh.world_group,
+                device=self.model.device).install()
         try:
             for epoch in range(self.start_epoch, epochs):
                 epoch_start = time.time()
@@ -346,9 +369,10 @@ class Trainer:
         return self._snapshot(loss_sum, num_batches, counters)
 
     def _snapshot(self, loss_sum, num_batches, counters):
-        """Fetch the device-side accumulators in one copy and derive the
-        percentages."""
-        values = torch.stack([loss_sum, *counters.values()]).tolist()
+        """Fetch the device-side accumulators (summed over the data group)
+        in one copy and derive the percentages."""
+        values = all_reduce(torch.stack([loss_sum, *counters.values()]),
+                            self._data_group).tolist()
         metrics = init_metrics()
         update_metrics(metrics, dict(zip(counters, values[1:])))
         return values[0] / num_batches, metrics
@@ -385,18 +409,32 @@ class Trainer:
         return {"train": self.train_pipe, "val": self.val_pipe,
                 "test": self.test_pipe}[mode]
 
-    def _accumulate(self, metrics: Dict, batch_metrics: Dict) -> None:
-        keys = list(batch_metrics)
-        values = torch.stack([batch_metrics[k] for k in keys]).tolist()
-        update_metrics(metrics, dict(zip(keys, values)))
+    def _accumulate(self, sums: Dict, batch_metrics: Dict) -> None:
+        """Add a batch's counters to ``sums`` on the device."""
+        if not sums:
+            sums.update({k: v.clone() for k, v in batch_metrics.items()})
+        else:
+            torch._foreach_add_(list(sums.values()),
+                                [batch_metrics[k] for k in sums])
+
+    def _metrics(self, sums: Dict) -> Dict:
+        """The counters summed over the data group, fetched in one copy,
+        with the derived percentages."""
+        metrics = init_metrics()
+        if sums:
+            values = all_reduce(torch.stack(list(sums.values())),
+                                self._data_group).tolist()
+            update_metrics(metrics, dict(zip(sums, values)))
+        return metrics
 
     def evaluate(self, mode: str = "test", ablation: bool = False,
                  epoch: int = -1) -> Dict:
-        metrics = init_metrics()
+        sums: Dict[str, torch.Tensor] = {}
         step = self._eval_step_ablation if ablation else self._eval_step
         for batch in self._loader(mode).epoch(0):
             _, batch_metrics = step(self._put(batch))
-            self._accumulate(metrics, batch_metrics)
+            self._accumulate(sums, batch_metrics)
+        metrics = self._metrics(sums)
         ext = f"{mode}_epoch_{epoch + 1}" if epoch != -1 else mode
         self.logger.save(metrics, ext)
         return metrics
@@ -404,7 +442,7 @@ class Trainer:
     def sequential_evaluate(self, mode: str = "test",
                             ablation: bool = False) -> Dict:
         """Rollout evaluation over a split via the KV-cached decode."""
-        metrics = init_metrics()
+        sums: Dict[str, torch.Tensor] = {}
         for batch in self._loader(mode).epoch(0):
             device_batch = self._put(batch)
             cad = device_batch["cad_image"]
@@ -418,8 +456,9 @@ class Trainer:
                 multiview_images=device_batch.get("multiview_images"))
             _, batch_metrics = compute_loss_and_metrics(
                 cmd_logits, param_logits, device_batch["actions"][:, 1:],
-                self.loss_config)
-            self._accumulate(metrics, batch_metrics)
+                self.loss_config, self._data_group)
+            self._accumulate(sums, batch_metrics)
+        metrics = self._metrics(sums)
         self.logger.save(metrics, f"{mode}_seq")
         return metrics
 
