@@ -75,8 +75,10 @@ imports nothing of JAX. Phases, each of which must pass:
      the files of the logs layout must exist; the resumed run must start at
      epoch 2, step 4, with the checkpoint's parameters; the eval loss on
      the test split must fall;
-  9. serve from train C's last checkpoint (--checkpoint_folder), one
-     session of a few steps over HTTP;
+  9. serve from train C's last checkpoint, named as the JAX package's
+     serving CLI names it (--checkpoint_folder <experiment>
+     --checkpoint_name epoch_3 --checkpoint_dir), one session of a few
+     steps over HTTP;
  10. train D: cli.train.main once more on train C's dataset, with
      attention_impl, ln_impl and dropout_impl all "pallas" (the decoder's
      attention through the flash attention kernels, 16 + 16 + 16 launches
@@ -212,9 +214,13 @@ the ranks share the card, so the times say nothing of NVLink scaling. The
 ranks' launches, summed, are the kernels line's "parallel" path.
 
 Phase 3 also holds K1's wide instantiation (T = 65) against its plain
-version at B = 8, 1 and 1,528, bf16 and float32, dropout 0 and 0.1:
-values, the kept set (read off the output under shifted identity values,
-in two pieces), bit-equal gradients, beside F.scaled_dot_product_attention.
+version at B = 8, 1 and 1,528, bf16 and float32, and at T = 128 (the
+instantiation's limit) at 1,528 in bf16, dropout 0 and 0.1: values, the
+kept set (read off the output under shifted identity values, in two
+pieces), bit-equal gradients, beside F.scaled_dot_product_attention; then
+its tensor-core kernels' ten instantiations as the CUDA runtime reports
+them (registers, shared and local memory, blocks and warps an SM) and
+their ptxas spills, none allowed.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
 after phase 7, again just before phase 8 and read just after it, and so
@@ -2393,14 +2399,16 @@ def phase_train_c(counters, card, root):
               f"train C's steps launched no {kernel} kernel")
     del model
     torch.cuda.empty_cache()
-    phase_serve_checkpoint(config_path, name,
-                           os.path.join(handler.base, "epoch_3"))
+    phase_serve_checkpoint(config_path, name, handler.base, "epoch_3")
     return launches, ["--dataset_path", data_dir, "--config_path", split_path]
 
 
-def phase_serve_checkpoint(config_path, name, checkpoint):
-    """Phase 9: the serving CLI's engine from a trainer checkpoint, one
-    session of a few steps behind the HTTP server."""
+def phase_serve_checkpoint(config_path, name, base, checkpoint):
+    """Phase 9: the serving CLI's engine from the trainer checkpoint
+    ``checkpoint`` of the experiment directory ``base``, named as the JAX
+    package's serving CLI names it (--checkpoint_folder <experiment>
+    --checkpoint_name --checkpoint_dir), one session of a few steps behind
+    the HTTP server."""
     import numpy as np
 
     from videocad_tpu_torch.cli.serve import build_engine, parse_args
@@ -2409,7 +2417,9 @@ def phase_serve_checkpoint(config_path, name, checkpoint):
     engine = build_engine(parse_args([
         "--device", "cuda", "--lanes", "2", "--seq_len", str(SEQ_LEN),
         "--model_config", config_path, "--model_name", name,
-        "--checkpoint_folder", checkpoint]))
+        "--checkpoint_folder", os.path.basename(base),
+        "--checkpoint_name", checkpoint,
+        "--checkpoint_dir", os.path.dirname(base)]))
     server = make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2429,7 +2439,7 @@ def phase_serve_checkpoint(config_path, name, checkpoint):
         thread.join(timeout=30)
     for s, reply in enumerate(replies):
         check(valid_reply(reply, s), f"checkpoint serve step {s}: {reply}")
-    print(f"serve from checkpoint: {os.path.basename(checkpoint)} answered 3 "
+    print(f"serve from checkpoint: {checkpoint} answered 3 "
           f"steps, cmds {[r['cmd'] for r in replies]}", flush=True)
 
 
@@ -3087,30 +3097,35 @@ def phase_k1_wide(fa, prng):
     """K1 at T = 65, its wide instantiation (GenCAD's CAD encoder): forward
     and backward against the plain versions at B = 8 and 1 (the path's) and
     1,528 (where the host does not bound a call), bf16 (tc) and float32
-    (scalar), dropout 0 and 0.1: values (K1's tolerances at T = 50), the
-    kept set (identical to the plain version's and the bit function's),
-    gradients bit-equal over two launches, float32 against autograd
-    through the plain forward; the kernels and the plain versions timed in
-    turns, F.scaled_dot_product_attention (and its autograd backward)
-    beside them; the bound."""
+    (scalar), dropout 0 and 0.1, and at T = 128, the instantiation's limit,
+    at B = 1,528 in bf16: values (K1's tolerances at T = 50), the kept set
+    (identical to the plain version's and the bit function's), gradients
+    bit-equal over two launches, float32 against autograd through the
+    plain forward; the kernels and the plain versions timed in turns,
+    F.scaled_dot_product_attention (and its autograd backward) beside
+    them; the bound."""
     import torch
     import torch.nn.functional as F
 
-    t = WIDE_SEQ
     gen = torch.Generator(device="cuda").manual_seed(11)
-    heads = lambda x: x.view(x.shape[0], t, HEADS, -1).transpose(1, 2)  # noqa: E731
+    heads = lambda x: x.view(*x.shape[:2], HEADS, -1).transpose(1, 2)  # noqa: E731
     rows = []
-    cases = [(b, torch.bfloat16, rate) for b in (8, 1, TRAIN_FRAMES)
+    cases = [(WIDE_SEQ, b, torch.bfloat16, rate) for b in (8, 1, TRAIN_FRAMES)
              for rate in (0.0, RATE)]
-    cases += [(8, torch.float32, rate) for rate in (0.0, RATE)]
-    for b, dtype, rate in cases:
+    cases += [(WIDE_SEQ, 8, torch.float32, rate) for rate in (0.0, RATE)]
+    cases += [(128, TRAIN_FRAMES, torch.bfloat16, rate)
+              for rate in (0.0, RATE)]
+    for t, b, dtype, rate in cases:
         bf16 = dtype == torch.bfloat16
         max_tol, mean_tol = (2e-2, 1e-3) if bf16 else (1e-5, 1e-5)
         q, k, v, g = (randn((b, t, WIDTH), gen, dtype) for _ in range(4))
-        seed = 3000 + b if rate else None
+        seed = 3000 + b + t if rate else None
         reps = dict(reps=3, groups=3, warmup=1) if b > 8 else {}
         base = {"batch": b, "rate": rate, "dtype": dtype_name(dtype),
                 "seq": t, "variant": fa._kernel_variant(dtype, t, 64)}
+        if bf16:
+            base["key_tiles"] = fa.wide_tc_info(t, WIDTH // HEADS,
+                                                False)["key_tiles"]
         itemsize = 2 if bf16 else 4
         cells = b * HEADS * t * t * (WIDTH // HEADS)
         # forward
@@ -3212,6 +3227,40 @@ def phase_k1_wide(fa, prng):
         rows.append(row)
         del q, k, v, g, leaves, grads
     return rows
+
+
+def k1_wide_usage(fa, log):
+    """The wide tc kernels' instantiations (8, 10, 12, 14, 16 key tiles,
+    forward and backward) at heads of 64, as the CUDA runtime reports them
+    (``fa.wide_tc_info``: registers, shared memory, local memory, blocks
+    and warps an SM), with nvcc's -Xptxas -v spills where the library was
+    built in this run; fails on a spill store in any wide tc kernel (every
+    head width) and where the C entries pick another instantiation for T
+    = 8 NT (64 for NT = 8)."""
+    usage = {}
+    built = "ptxas" in log
+    for way in ("fwd", "bwd"):
+        for nt in (8, 10, 12, 14, 16):
+            info = fa.wide_tc_info(max(8 * nt, 64), WIDTH // HEADS,
+                                   way == "bwd")
+            check(info["key_tiles"] == nt,
+                  f"the wide tc {way} entry picked {info['key_tiles']} key "
+                  f"tiles for T = {max(8 * nt, 64)}, not {nt}")
+            for d in (16, 32, 48, 64):
+                found = ptxas_usage(
+                    log, f"mhsa_short_{way}_tc_wide_kernelILi{d}ELi{nt}EE")
+                check(not built or found.get("spill_stores", 1) == 0,
+                      f"the wide tc {way} kernel, D={d} NT={nt}, spills: "
+                      f"{found}")
+                if d == WIDTH // HEADS and built:
+                    info.update(spill_stores=found["spill_stores"],
+                                spill_loads=found["spill_loads"],
+                                ptxas_registers=found["registers"])
+            usage[f"{way}_nt{nt}"] = info
+    print(f"mhsa_short wide tc usage (runtime; ptxas "
+          f"{'this run' if built else 'not built in this run'}): {usage}",
+          flush=True)
+    return usage
 
 
 def phase_named(counters, fa, np):
@@ -5259,8 +5308,7 @@ def phase_p5(counters, root, dataset_argv):
     check(len(stop) == 2 and payload["step"] == resumed_step + steps,
           f"P5: stop lines {stop}, the checkpoint {latest} holds step "
           f"{payload['step']}, resumed at {resumed_step} + {steps} steps")
-    phase_serve_checkpoint(config_path, name,
-                           os.path.join(handler.base, latest))
+    phase_serve_checkpoint(config_path, name, handler.base, latest)
     print(f"P5: cli.train.main --data_parallel 2 (gloo, cuda:0) resumed "
           f"train C's one-process {resumed_from} (step {resumed_step}) in "
           f"{seconds:.1f} s; SIGTERM to rank 1 -> {stop}; {latest} holds "
@@ -5482,6 +5530,8 @@ def main() -> None:
     start = time.monotonic()
     rows += phase_k1_wide(fa, prng)
     torch.cuda.empty_cache()
+    wide_usage = k1_wide_usage(fa, build.build_log.get("mhsa_short",
+                                                       (0.0, ""))[1])
     print(f"K1 wide phase: {time.monotonic() - start:.1f} s", flush=True)
     rows += phase_gray(pp)
     rows += phase_layer_norm(ln)
@@ -5620,21 +5670,28 @@ def main() -> None:
     # beside it.
     wide = []
     for name, line in (("mhsa_short_wide", 110), ("mhsa_short_bwd_wide", 129)):
-        at = lambda b, rate: lambda r: (  # noqa: E731
-            r["batch"] == b and r["dtype"] == "bfloat16" and r["rate"] == rate)
+        at = lambda b, rate, t=WIDE_SEQ: lambda r: (  # noqa: E731
+            r["seq"] == t and r["batch"] == b and r["dtype"] == "bfloat16"
+            and r["rate"] == rate)
         entry = kernel_entry(name, f"videocad_tpu/ops/fused_attention.py:"
                              f"{line}", launches[name], rows, at(8, RATE),
                              same)
         row = next(r for r in entry["checks"] if at(8, RATE)(r))
         entry.update(variant=row["variant"], seq=WIDE_SEQ,
                      roofline_share=row["roofline_share"])
-        for suffix, b, rate in (("_rate0", 8, 0.0), ("_b1", 1, RATE),
-                                ("_b1528", TRAIN_FRAMES, RATE),
-                                ("_b1528_rate0", TRAIN_FRAMES, 0.0)):
-            other = next(r for r in entry["checks"] if at(b, rate)(r))
+        for suffix, b, rate, t in (
+                ("_rate0", 8, 0.0, WIDE_SEQ), ("_b1", 1, RATE, WIDE_SEQ),
+                ("_b1528", TRAIN_FRAMES, RATE, WIDE_SEQ),
+                ("_b1528_rate0", TRAIN_FRAMES, 0.0, WIDE_SEQ),
+                ("_t128_b1528", TRAIN_FRAMES, RATE, 128),
+                ("_t128_b1528_rate0", TRAIN_FRAMES, 0.0, 128)):
+            other = next(r for r in entry["checks"] if at(b, rate, t)(r))
             entry.update({key + suffix: other[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms",
                 "roofline_share")})
+        way = "bwd" if "bwd" in name else "fwd"
+        entry["usage"] = {key: usage for key, usage in wide_usage.items()
+                          if key.startswith(way)}
         wide.append(entry)
     gray = kernel_entry(
         "gray_normalize", "videocad_tpu/ops/preprocess.py:153",

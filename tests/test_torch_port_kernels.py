@@ -348,6 +348,24 @@ def test_mhsa_short_both_instantiations_draw_one_mask(cuda, variant, dtype):
     assert (outs[0].float() - outs[1].float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+def test_mhsa_short_wide_tc_picks_the_fewest_key_tiles(cuda, d):
+    """The wide tc entries pick, for every T in 1..128, the instantiation
+    of the fewest 8-key tiles, in pairs (a warp's 16 query rows), that
+    cover T, and never fewer than 8; each fits an SM at least once, and
+    the query refuses T = 129."""
+    for backward in (False, True):
+        for t in range(1, 129):
+            info = fa.wide_tc_info(t, d, backward)
+            tiles = info["key_tiles"]
+            assert tiles % 2 == 0 and 8 * tiles >= t, (t, info)
+            assert tiles == 8 if t <= 64 else 8 * (tiles - 2) < t, (t, info)
+            assert info["threads"] == 16 * tiles
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+        with pytest.raises(RuntimeError, match="T=129"):
+            fa.wide_tc_info(129, d, backward)
+
+
 @pytest.mark.parametrize("shape,target,tol", [
     ((4, 3, 224, 224, 3), None, 1e-6),
     ((2, 37, 53, 3), None, 1e-6),          # a pixel count off the 4-grid

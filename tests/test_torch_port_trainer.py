@@ -511,7 +511,8 @@ def test_train_cli_runs_an_epoch_on_the_cpu_and_resumes(env):
     args = port_serve.parse_args([
         "--device", "cpu", "--lanes", "2", "--seq_len", "8",
         "--model_config", _argv(env, "cli")[5], "--model_name", "tiny",
-        "--checkpoint_folder", os.path.join(ckpt, "epoch_2")])
+        "--checkpoint_folder", "cli", "--checkpoint_name", "epoch_2",
+        "--checkpoint_dir", os.path.join(root, "cli", "ckpt")])
     engine = port_serve.build_engine(args)
     try:
         saved = torch.load(os.path.join(ckpt, "epoch_2", "state.pt"),

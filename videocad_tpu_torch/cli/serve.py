@@ -6,14 +6,18 @@ one device.
         --model_name cad_past_10_actions_and_states_timestep_embedding \
         --device cuda --lanes 8 [--weight_quant int8|int4] \
         [--jax_params params.npz | model.vcdx]
-        [--checkpoint_folder checkpoints/<experiment>/epoch_N]
+        [--checkpoint_folder <experiment> [--checkpoint_name best_model]
+         [--checkpoint_dir checkpoints]]
 
     python -m videocad_tpu_torch.cli.serve --device cuda \
         --artifact serve/flagship.vcdx
 
-``--checkpoint_folder`` names a checkpoint directory of the port's trainer
-(``train/checkpoint.py``). With neither, the model serves random weights
-from seed 0 (a protocol smoke). ``--artifact`` serves a ``.vcdx`` written
+``--checkpoint_folder`` names an experiment, as in the JAX package's
+``cli/serve.py``: the port's trainer checkpoint
+``<checkpoint_dir>/<checkpoint_folder>/<checkpoint_name>``
+(``train/checkpoint.py``) is loaded. ``--jax_params`` loads JAX weights.
+With neither, the model serves random weights from seed 0 (a protocol
+smoke). ``--artifact`` serves a ``.vcdx`` written
 by ``cli/export_model.py`` or by the JAX package's
 ``tools/export_model.py`` (its weights, config and meta; its programs are
 not read): through ``ArtifactMuxEngine`` when it was exported with lanes,
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def build_engine(args):
@@ -61,7 +66,9 @@ def build_engine(args):
         tree, _ = load_jax_params(args.jax_params)
         model.load_state_dict(state_dict_from_jax(tree))
     if args.checkpoint_folder:
-        load_warm_start(model, args.checkpoint_folder)
+        load_warm_start(model, os.path.join(
+            args.checkpoint_dir, args.checkpoint_folder,
+            args.checkpoint_name))
     return MuxEngine(model, lanes=args.lanes, seq_len=args.seq_len,
                      weight_quant=args.weight_quant,
                      session_ttl_s=args.session_ttl)
@@ -86,8 +93,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--model_name",
                         default="cad_past_10_actions_and_states_timestep_embedding")
     parser.add_argument("--checkpoint_folder", default=None,
-                        help="a checkpoint directory of the port's trainer "
-                             "(<dir>/<experiment>/epoch_N or best_model)")
+                        help="experiment name under --checkpoint_dir; "
+                             "omit to serve --jax_params or seeded random "
+                             "weights")
+    parser.add_argument("--checkpoint_name", default="best_model",
+                        help="the checkpoint under the experiment: "
+                             "best_model or epoch_N")
+    parser.add_argument("--checkpoint_dir", default="checkpoints")
     parser.add_argument("--lanes", type=int, default=4,
                         help="concurrent sessions multiplexed per device "
                              "step")

@@ -106,6 +106,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tc_common.cuh"
 
 namespace {
@@ -710,20 +712,48 @@ bool bad_tc(int dtype, int head_dim) {
 //     over the query rows recomputes the weights and writes the dropped
 //     ones into the same buffer, and a last pass over the key rows dv. At
 //     T = 128 that is 194 KB where two buffers would pass the card's 227.
-//   - tc: T padded to a multiple of 16, one warp per 16 query rows (up to
-//     8); a lane holds its two rows' scores for up to 128 keys, 16 key
-//     tiles of 8, as two halves of the T <= 64 core's 8 tiles (keys 0-63
-//     and 64-127), whose row_products and times_tile run once a half and
-//     whose softmax here spans both. The backward's dropped weights and ds
-//     live in (rows, rows + 8) bf16 tiles: 16 bytes of padding a row keep
-//     ldmatrix's row addresses on distinct banks.
-// Both opt in to their dynamic shared memory (up to 54 KB forward, 140 KB
-// backward in tc; 68 KB and 194 KB scalar) on the launching device at every
-// launch.
+//   - tc: T padded to a multiple of 16 (rows), one warp per 16 query rows,
+//     one block per (frame, head). It is bound by memory traffic like the
+//     T <= 64 kernels (at T = 65, B = 1,528, 16 heads of 64: 0.243 ms
+//     forward, 0.425 backward at 3.35 TB/s), and what kept it from that
+//     was latency, not work: few warps an SM, each waiting for its loads.
+//     So:
+//     * the kernels are instantiated on the number NT of 8-key tiles, 8 NT
+//       = rows (NT = 10, 12, 14, 16 for T in 65..128, and 8 for T <= 64;
+//       wide_key_tiles picks it from T): a lane holds its two rows' scores
+//       of 8 NT keys, 40 floats at T = 65, not the 64 + 64 of two fixed
+//       halves; a block is NT / 2 warps, and __launch_bounds__ says so,
+//       with as many blocks an SM as shared memory allows for a minimum
+//       (wide_min_blocks), so that registers do not cut occupancy further;
+//     * the backward's first pass holds only the weights across the keys:
+//       dP = g v^T is formed a pair of key tiles at a time, once for the
+//       row dot rowsum(dw * w) and once more (the same products in the
+//       same order, so the same bits) for ds and the dropped weights, which
+//       go to shared memory as bf16 and, for ds, stay as the A fragments
+//       of dq = ds k;
+//     * the mask is drawn by the whole block into shared memory, one
+//       Philox call for each real (query, group of four keys), where each
+//       warp drawing its own 16 rows made 1,440 calls at T = 65 for 1,105
+//       real ones (Philox's integer products bound the kernels at rate
+//       0.1, PERF.md);
+//     * loads overlap work: the mask, which needs no data, is drawn while
+//       the block's cp.async loads are in flight, and they come in two
+//       groups, q and k first, whose scores and softmax run while v (and
+//       g) land; other blocks on the SM compute while one waits. A
+//       persistent grid that walks several units a block and loads the
+//       next behind this one's products was tried: it held a third fewer
+//       blocks an SM (two stages of shared memory) and lost (PERF.md, PR
+//       17).
+//     The backward's dropped weights and ds live in (8 NT, 8 NT + 8) bf16
+//     tiles: 16 bytes of padding a row keep ldmatrix's row addresses on
+//     distinct banks.
+// Both variants opt in to their dynamic shared memory (scalar 68 KB
+// forward, up to 194 KB backward; tc 28-58 KB forward, 55-144 KB
+// backward) on the launching device at every launch.
 
 constexpr int kWideSeq = 128;   // T padded to 128: four key columns a lane
 constexpr int kWideCols = kWideSeq / 32;
-constexpr int kWideWarps = 8;   // the scalar backward's; at most, tc's
+constexpr int kWideWarps = 8;   // the scalar backward's
 
 __host__ __device__ constexpr int wide_fwd_shared_floats(int seq) {
   return seq * (kRowStride + kMaxHeadDim) + kWarps * (kMaxHeadDim + kWideSeq);
@@ -992,86 +1022,108 @@ int launch_bwd_scalar_wide(const void* q, const void* k, const void* v,
       heads, head_dim, scale, seed, threshold, inv_keep);
 }
 
-// The row softmax of the scores of keys 0-63 (lo) and 64-127 (hi), C
-// layout, unscaled, in place: softmax_rows over both halves. Key columns
-// from seq on get weight 0.
-__device__ __forceinline__ void mask_row_max(float (&s)[8][4], int c0,
-                                             int lane, int seq, float& m0,
-                                             float& m1) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (c0 + 8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
-      if (e < 2)
-        m0 = fmaxf(m0, s[n][e]);
-      else
-        m1 = fmaxf(m1, s[n][e]);
-    }
-}
-
-__device__ __forceinline__ void exp_row_sum(float (&s)[8][4], float m0,
-                                            float m1, float scale_log2,
-                                            float& l0, float& l1) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = exp2f((s[n][e] - (e < 2 ? m0 : m1)) * scale_log2);
-      if (e < 2)
-        l0 += s[n][e];
-      else
-        l1 += s[n][e];
-    }
-}
-
-__device__ __forceinline__ void softmax_rows_wide(float (&lo)[8][4],
-                                                  float (&hi)[8][4],
-                                                  int lane, int seq,
-                                                  float scale_log2) {
-  float m0 = -INFINITY, m1 = -INFINITY;
-  mask_row_max(lo, 0, lane, seq, m0, m1);
-  mask_row_max(hi, 64, lane, seq, m0, m1);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-  }
-  float l0 = 0.f, l1 = 0.f;
-  exp_row_sum(lo, m0, m1, scale_log2, l0, l1);
-  exp_row_sum(hi, m0, m1, scale_log2, l0, l1);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[n][e] *= e < 2 ? inv0 : inv1;
-      hi[n][e] *= e < 2 ? inv0 : inv1;
-    }
-}
-
-// The tc tiles of a wide block: q, k, v (and g) as (rows, kTcStride), rows
-// = seq rounded up to 16; in the backward also the dropped weights and ds
-// as (rows, rows + 8).
+// T padded to a multiple of 16: the rows of a wide tc unit's tiles.
 __host__ __device__ constexpr int wide_rows(int seq) {
   return (seq + 15) & ~15;
 }
-__host__ __device__ constexpr int wide_tc_fwd_bytes(int seq) {
-  return 3 * wide_rows(seq) * kTcStride * 2;
-}
-__host__ __device__ constexpr int wide_tc_bwd_bytes(int seq) {
-  return (4 * wide_rows(seq) * kTcStride +
-          2 * wide_rows(seq) * (wide_rows(seq) + 8)) * 2;
+
+// ---- The wide tc kernels ----
+
+// The 8-key tiles a wide tc instantiation holds for ``seq`` keys: seq
+// rounded up to 16, over 8, and 8 at the least (the wide entries take seq
+// <= 64 too). mhsa_short_tc_wide_info reports it.
+__host__ __device__ constexpr int wide_key_tiles(int seq) {
+  return seq <= 64 ? 8 : wide_rows(seq) / 8;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWideWarps * 32)
+// The shared memory of instantiation NT, whose tiles hold 8 NT rows: q, k,
+// v (and g) as (8 NT, kTcStride) bf16; in the backward also the dropped
+// weights and ds as (8 NT, 8 NT + 8): 16 bytes of padding a row keep
+// ldmatrix's row addresses on distinct banks; last the mask, a byte for
+// each of 8 NT rows and 2 NT groups of four keys.
+__host__ __device__ constexpr int wide_tc_tile(int nt) {
+  return 8 * nt * kTcStride;
+}
+__host__ __device__ constexpr int wide_tc_pstride(int nt) {
+  return 8 * nt + 8;
+}
+__host__ __device__ constexpr int wide_tc_mask_bytes(int nt) {
+  return 8 * nt * 2 * nt;
+}
+__host__ __device__ constexpr int wide_tc_fwd_bytes(int nt) {
+  return 3 * wide_tc_tile(nt) * 2 + wide_tc_mask_bytes(nt);
+}
+__host__ __device__ constexpr int wide_tc_bwd_bytes(int nt) {
+  return (4 * wide_tc_tile(nt) + 2 * 8 * nt * wide_tc_pstride(nt)) * 2 +
+         wide_tc_mask_bytes(nt);
+}
+// The minimum-blocks hint of __launch_bounds__ for blocks of NT / 2 warps
+// and ``bytes`` of shared memory: as many as an SM holds by shared memory
+// (228 KB, of which the runtime keeps 1 KB a block), but no more than 20
+// warps an SM. A scheduler's quarter of the register file (16,384) then
+// holds its five warps at 96 registers a thread or more: the forward at NT
+// = 10 takes 78 and the backward 122, without spills (PERF.md, PR 17).
+__host__ __device__ constexpr int wide_min_blocks(int nt, int bytes) {
+  return 233472 / (bytes + 1024) < 20 / (nt / 2) ? 233472 / (bytes + 1024)
+                                                 : 20 / (nt / 2);
+}
+
+// The unit's mask, drawn by the whole block: one Philox call for each
+// (query row i < seq, group c of four keys < seq) and no call for padding,
+// spread evenly over the threads (a warp drawing its own 16 rows would
+// draw 16 at T = 65, where one is real). Byte i * 2 NT + c holds the keep
+// bits of keys 4c..4c+3 of row i (bit j % 4). Bytes of padding rows and
+// groups are not written: what they select is never stored.
+template <int NT>
+__device__ __forceinline__ void draw_mask(uint8_t* mask, uint32_t seed,
+                                          int frame, int head, int seq,
+                                          uint32_t threshold) {
+  const int groups = (seq + 3) >> 2;
+  const int step_rows = blockDim.x / groups;
+  const int step_groups = blockDim.x - step_rows * groups;
+  int row = threadIdx.x / groups;
+  int group = threadIdx.x - row * groups;
+  for (int idx = threadIdx.x; idx < seq * groups; idx += blockDim.x) {
+    const uint4 w = philox(seed, 0u, group, row, head, frame);
+    mask[row * 2 * NT + group] =
+        (uint8_t)((w.x >= threshold) | (w.y >= threshold) << 1 |
+                  (w.z >= threshold) << 2 | (w.w >= threshold) << 3);
+    group += step_groups;
+    row += step_rows;
+    if (group >= groups) {
+      group -= groups;
+      ++row;
+    }
+  }
+}
+
+// The keep bits of the warp's 16 rows from r0 against keys 0..8 NT - 1
+// from the block's mask, in keep_bits' layout: bit 4 (n % 8) + e of word
+// n / 8 for element e of key tile n.
+template <int NT>
+__device__ __forceinline__ void read_mask(uint32_t (&keep)[2],
+                                          const uint8_t* mask, int r0,
+                                          int lane) {
+  const int t = lane & 3;
+  const int shift = (t & 1) * 2;   // the lane's two keys of a group
+  const uint8_t* upper = mask + (r0 + (lane >> 2)) * 2 * NT + (t >> 1);
+  const uint8_t* lower = upper + 8 * 2 * NT;
+  keep[0] = keep[1] = 0u;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    keep[n >> 3] |= (((upper[2 * n] >> shift) & 3u) |
+                     (((lower[2 * n] >> shift) & 3u) << 2))
+                    << (4 * (n & 7));
+}
+
+__device__ __forceinline__ bool is_kept(const uint32_t (&keep)[2], int n,
+                                        int e) {
+  return (keep[n >> 3] >> (4 * (n & 7) + e)) & 1u;
+}
+
+template <int D, int NT>
+__global__ void __launch_bounds__(NT * 16,
+                                  wide_min_blocks(NT, wide_tc_fwd_bytes(NT)))
 mhsa_short_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -1079,118 +1131,66 @@ mhsa_short_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                               int heads, float scale_log2, uint32_t seed,
                               uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(16) unsigned char tc_wide_shared[];
-  const int rows = wide_rows(seq);
+  constexpr int kTile = wide_tc_tile(NT);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_wide_shared);
-  __nv_bfloat16* ks = qs + rows * kTcStride;
-  __nv_bfloat16* vs = ks + rows * kTcStride;
+  __nv_bfloat16* ks = qs + kTile;
+  __nv_bfloat16* vs = ks + kTile;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(vs + kTile);
 
   const int frame = blockIdx.x / heads;
   const int head = blockIdx.x - frame * heads;
   const long long row_stride = (long long)heads * D;
   const long long base =
       (long long)frame * seq * row_stride + (long long)head * D;
+  const int rows = wide_rows(seq);
+  // Two groups: the scores need q and k, only P V needs v.
   load_tile<D>(qs, q + base, seq, rows, row_stride);
   load_tile<D>(ks, k + base, seq, rows, row_stride);
+  cp_async_commit();
   load_tile<D>(vs, v + base, seq, rows, row_stride);
-  wait_loads();
-  __syncthreads();
+  cp_async_commit();
 
-  // rows / 16 warps: each owns 16 query rows, at least one of them real.
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
-  constexpr int kHalf = 64 * kTcStride;   // key rows 64.. of a tile
-
-  float lo[8][4] = {}, hi[8][4] = {};
-  row_products<D>(qs, ks, r0, lane, seq, lo);
-  row_products<D>(qs, ks + kHalf, r0, lane, seq - 64, hi);
-  softmax_rows_wide(lo, hi, lane, seq, scale_log2);
-  uint32_t keep_lo = 0xffffffffu, keep_hi = 0xffffffffu;
-  if (threshold != 0u) {
-    keep_lo = keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
-                           threshold);
-    keep_hi = keep_bits<8>(seed, 0u, frame, head, r0, 64, lane, seq,
-                           threshold);
+  const int r0 = warp * 16;   // the warp's 16 query rows
+  const bool active = r0 < seq;
+  // The mask needs no data: it is drawn while the loads are in flight.
+  if (threshold != 0u)
+    draw_mask<NT>(mask, seed, frame, head, seq, threshold);
+  cp_async_wait<1>();
+  __syncthreads();
+  float s[NT][4] = {};
+  uint32_t keep[2] = {0xffffffffu, 0xffffffffu};
+  if (active) {
+    if (threshold != 0u) read_mask<NT>(keep, mask, r0, lane);
+    row_products<D>(qs, ks, r0, lane, seq, s);
+    softmax_rows(s, lane, seq, scale_log2);
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;   // padding rows only; no barrier follows
   // Dropped (inv_keep is 1 without dropout) and rounded to bf16 where the
   // plain version rounds, as the A fragments of P V.
-  uint32_t p_lo[4][4], p_hi[4][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[n][e] = (keep_lo >> (4 * n + e)) & 1u ? lo[n][e] * inv_keep : 0.f;
-      hi[n][e] = (keep_hi >> (4 * n + e)) & 1u ? hi[n][e] * inv_keep : 0.f;
-    }
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = is_kept(keep, n, e) ? s[n][e] * inv_keep : 0.f;
+  uint32_t p[NT / 2][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    to_a_fragment(lo[2 * kk], lo[2 * kk + 1], p_lo[kk]);
-    to_a_fragment(hi[2 * kk], hi[2 * kk + 1], p_hi[kk]);
-  }
-
+  for (int kk = 0; kk < NT / 2; ++kk)
+    to_a_fragment(s[2 * kk], s[2 * kk + 1], p[kk]);
   float acc[D / 8][4] = {};
-  times_tile<D>(p_lo, vs, lane, seq, acc);
-  times_tile<D>(p_hi, vs + kHalf, lane, seq - 64, acc);
+  times_tile<D>(p, vs, lane, seq, acc);
   // The warp's q rows are read by no one now: they stage its output.
   __nv_bfloat16* staging = qs + r0 * kTcStride;
   stage_rows<D>(acc, staging, lane);
   store_rows<D>(staging, o + base, r0, seq, row_stride, lane);
 }
 
-// One half (keys c0.., c0 = 0 or 64) of the wide backward's pass 1: the
-// dropped weights and ds of the warp's rows into their (rows, rows + 8)
-// tiles as bf16, and ds as the A fragments of dq = ds k. Padded query rows
-// get zero weights and ds; key tiles from ``rows`` on are not stored.
-__device__ __forceinline__ void wide_p_ds(
-    const float (&w)[8][4], const float (&dw)[8][4], uint32_t keep, int c0,
-    float dot0, float dot1, bool upper, bool lower, float scale,
-    float inv_keep, __nv_bfloat16* ps, __nv_bfloat16* dss, int pstride,
-    int rows, int r0, int lane, uint32_t (&ds_frag)[4][4]) {
-  const int gr = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    float pv[4], dsv[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool row_ok = e < 2 ? upper : lower;
-      const bool kept = (keep >> (4 * n + e)) & 1u;
-      pv[e] = row_ok && kept ? w[n][e] * inv_keep : 0.f;
-      dsv[e] = row_ok ? w[n][e] * (dw[n][e] - (e < 2 ? dot0 : dot1)) * scale
-                      : 0.f;
-    }
-    const uint32_t ds_upper = pack_bf16(dsv[0], dsv[1]);
-    const uint32_t ds_lower = pack_bf16(dsv[2], dsv[3]);
-    // As to_a_fragment lays out key tiles n & ~1 and n | 1.
-    ds_frag[n >> 1][(n & 1) * 2] = ds_upper;
-    ds_frag[n >> 1][(n & 1) * 2 + 1] = ds_lower;
-    if (c0 + 8 * n >= rows) continue;
-    const int at = (r0 + gr) * pstride + c0 + 8 * n + 2 * t;
-    *reinterpret_cast<uint32_t*>(ps + at) = pack_bf16(pv[0], pv[1]);
-    *reinterpret_cast<uint32_t*>(ps + at + 8 * pstride) =
-        pack_bf16(pv[2], pv[3]);
-    *reinterpret_cast<uint32_t*>(dss + at) = ds_upper;
-    *reinterpret_cast<uint32_t*>(dss + at + 8 * pstride) = ds_lower;
-  }
-}
-
-__device__ __forceinline__ void drop_and_dot(float (&dw)[8][4],
-                                             const float (&w)[8][4],
-                                             uint32_t keep, float inv_keep,
-                                             float& dot0, float& dot1) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dw[n][e] = (keep >> (4 * n + e)) & 1u ? dw[n][e] * inv_keep : 0.f;
-      if (e < 2)
-        dot0 += dw[n][e] * w[n][e];
-      else
-        dot1 += dw[n][e] * w[n][e];
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWideWarps * 32)
+template <int D, int NT>
+__global__ void __launch_bounds__(NT * 16,
+                                  wide_min_blocks(NT, wide_tc_bwd_bytes(NT)))
 mhsa_short_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -1202,66 +1202,117 @@ mhsa_short_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                               uint32_t seed, uint32_t threshold,
                               float inv_keep) {
   extern __shared__ __align__(16) unsigned char tc_wide_shared[];
-  const int rows = wide_rows(seq);
-  const int pstride = rows + 8;
+  constexpr int kTile = wide_tc_tile(NT);
+  constexpr int kP = wide_tc_pstride(NT);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_wide_shared);
-  __nv_bfloat16* ks = qs + rows * kTcStride;
-  __nv_bfloat16* vs = ks + rows * kTcStride;
-  __nv_bfloat16* gs = vs + rows * kTcStride;
-  __nv_bfloat16* ps = gs + rows * kTcStride;   // dropped (query, key)
-  __nv_bfloat16* dss = ps + rows * pstride;    // ds (query, key)
+  __nv_bfloat16* ks = qs + kTile;
+  __nv_bfloat16* vs = ks + kTile;
+  __nv_bfloat16* gs = vs + kTile;
+  __nv_bfloat16* ps = gs + kTile;         // dropped (query, key)
+  __nv_bfloat16* dss = ps + 8 * NT * kP;  // ds (query, key)
+  uint8_t* mask = reinterpret_cast<uint8_t*>(dss + 8 * NT * kP);
 
   const int frame = blockIdx.x / heads;
   const int head = blockIdx.x - frame * heads;
   const long long row_stride = (long long)heads * D;
   const long long base =
       (long long)frame * seq * row_stride + (long long)head * D;
+  const int rows = wide_rows(seq);
+  // Two groups: the weights need q and k, dP = g v^T the other two.
   load_tile<D>(qs, q + base, seq, rows, row_stride);
   load_tile<D>(ks, k + base, seq, rows, row_stride);
+  cp_async_commit();
   load_tile<D>(vs, v + base, seq, rows, row_stride);
   load_tile<D>(gs, g + base, seq, rows, row_stride);
-  wait_loads();
-  __syncthreads();
+  cp_async_commit();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  constexpr int kHalf = 64 * kTcStride;
+  const int r0 = warp * 16;   // the warp's 16 query rows, then key rows
+  const bool active = r0 < seq;
+  // The mask needs no data: it is drawn while the loads are in flight.
+  if (threshold != 0u)
+    draw_mask<NT>(mask, seed, frame, head, seq, threshold);
+  cp_async_wait<1>();
+  __syncthreads();
 
-  // Pass 1, a warp per 16 query rows: the weights, the mask, dP, ds, dq.
-  {
-    float w_lo[8][4] = {}, w_hi[8][4] = {};
-    row_products<D>(qs, ks, r0, lane, seq, w_lo);
-    row_products<D>(qs, ks + kHalf, r0, lane, seq - 64, w_hi);
-    softmax_rows_wide(w_lo, w_hi, lane, seq, scale_log2);
-    uint32_t keep_lo = 0xffffffffu, keep_hi = 0xffffffffu;
-    if (threshold != 0u) {
-      keep_lo = keep_bits<8>(seed, 0u, frame, head, r0, 0, lane, seq,
-                             threshold);
-      keep_hi = keep_bits<8>(seed, 0u, frame, head, r0, 64, lane, seq,
-                             threshold);
+  // Pass 1, a warp per 16 query rows: the weights, dP, ds, dq. Only the
+  // weights stay in registers across the keys: dP = g v^T is computed a
+  // pair of key tiles at a time, once for the row dot and again, the same
+  // products in the same order, for ds.
+  float w[NT][4] = {};
+  uint32_t keep[2] = {0xffffffffu, 0xffffffffu};
+  if (active) {
+    if (threshold != 0u) read_mask<NT>(keep, mask, r0, lane);
+    row_products<D>(qs, ks, r0, lane, seq, w);
+    softmax_rows(w, lane, seq, scale_log2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active) {
+    uint32_t gfrag[D / 16][4];
+    a_fragments<D>(gs, r0, lane, gfrag);
+    float dot0 = 0.f, dot1 = 0.f;   // rowsum(dw * w), rows r0 + gr (+ 8)
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      if (8 * n >= seq) break;   // the rest have w = 0
+      float d[2][4] = {};
+      pair_products<D>(gfrag, vs, n, lane, d[0], d[1]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dw =
+              is_kept(keep, n + m, e) ? d[m][e] * inv_keep : 0.f;
+          if (e < 2)
+            dot0 += dw * w[n + m][e];
+          else
+            dot1 += dw * w[n + m][e];
+        }
     }
-    float dw_lo[8][4] = {}, dw_hi[8][4] = {};   // d_dropped = g v^T
-    row_products<D>(gs, vs, r0, lane, seq, dw_lo);
-    row_products<D>(gs, vs + kHalf, r0, lane, seq - 64, dw_hi);
-    float dot0 = 0.f, dot1 = 0.f;
-    drop_and_dot(dw_lo, w_lo, keep_lo, inv_keep, dot0, dot1);
-    drop_and_dot(dw_hi, w_hi, keep_hi, inv_keep, dot0, dot1);
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       dot0 += __shfl_xor_sync(0xffffffffu, dot0, off);
       dot1 += __shfl_xor_sync(0xffffffffu, dot1, off);
     }
+    // Padded query rows get zero dropped weights and ds, so that they add
+    // nothing to dv and dk. Padded key columns have w = 0, hence ds = 0.
     const bool upper = r0 + gr < seq, lower = r0 + gr + 8 < seq;
-    uint32_t ds_lo[4][4], ds_hi[4][4];
-    wide_p_ds(w_lo, dw_lo, keep_lo, 0, dot0, dot1, upper, lower, scale,
-              inv_keep, ps, dss, pstride, rows, r0, lane, ds_lo);
-    wide_p_ds(w_hi, dw_hi, keep_hi, 64, dot0, dot1, upper, lower, scale,
-              inv_keep, ps, dss, pstride, rows, r0, lane, ds_hi);
+    uint32_t ds_frag[NT / 2][4];
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      if (8 * n >= seq) break;   // times_tile stops at the same key
+      float d[2][4] = {};
+      pair_products<D>(gfrag, vs, n, lane, d[0], d[1]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool row_ok = e < 2 ? upper : lower;
+          const bool keep_e = is_kept(keep, n + m, e);
+          const float dw = keep_e ? d[m][e] * inv_keep : 0.f;
+          pv[e] = row_ok && keep_e ? w[n + m][e] * inv_keep : 0.f;
+          dsv[e] = row_ok ? w[n + m][e] * (dw - (e < 2 ? dot0 : dot1)) *
+                                scale
+                          : 0.f;
+        }
+        const uint32_t ds_upper = pack_bf16(dsv[0], dsv[1]);
+        const uint32_t ds_lower = pack_bf16(dsv[2], dsv[3]);
+        // As to_a_fragment lays out key tiles n and n + 1.
+        ds_frag[n >> 1][2 * m] = ds_upper;
+        ds_frag[n >> 1][2 * m + 1] = ds_lower;
+        const int at = (r0 + gr) * kP + 8 * (n + m) + 2 * t;
+        *reinterpret_cast<uint32_t*>(ps + at) = pack_bf16(pv[0], pv[1]);
+        *reinterpret_cast<uint32_t*>(ps + at + 8 * kP) =
+            pack_bf16(pv[2], pv[3]);
+        *reinterpret_cast<uint32_t*>(dss + at) = ds_upper;
+        *reinterpret_cast<uint32_t*>(dss + at + 8 * kP) = ds_lower;
+      }
+    }
     float acc[D / 8][4] = {};
-    times_tile<D>(ds_lo, ks, lane, seq, acc);   // dq = ds k
-    times_tile<D>(ds_hi, ks + kHalf, lane, seq - 64, acc);
+    times_tile<D>(ds_frag, ks, lane, seq, acc);   // dq = ds k
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       __nv_bfloat16* at = dq + base + 8 * n + 2 * t;
@@ -1274,13 +1325,16 @@ mhsa_short_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
+  if (!active) return;   // no barrier follows
 
   // Pass 2, a warp per 16 key rows j from r0: dv = P^T g, dk = ds^T q.
   float acc_v[D / 8][4] = {}, acc_k[D / 8][4] = {};
-  for (int kk = 0; 16 * kk < seq; ++kk) {   // query rows 16kk..16kk+15
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {   // query rows 16kk..16kk+15
+    if (16 * kk >= seq) break;
     // The A fragments of P^T and ds^T: P and ds read transposed.
-    const int at = (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * pstride +
-                   r0 + ((lane >> 3) & 1) * 8;
+    const int at = (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kP + r0 +
+                   ((lane >> 3) & 1) * 8;
     uint32_t a_p[4], a_ds[4];
     ldsm_x4_trans(ps + at, a_p);
     ldsm_x4_trans(dss + at, a_ds);
@@ -1306,35 +1360,91 @@ mhsa_short_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(vs + r0 * kTcStride, dv + base, r0, seq, row_stride, lane);
 }
 
-template <int D>
+template <int D, int NT>
 int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* o,
                        int batch, int seq, int heads, float scale,
                        uint32_t seed, uint32_t threshold, float inv_keep,
                        cudaStream_t stream) {
   return launch_shared(
-      mhsa_short_fwd_tc_wide_kernel<D>, dim3((unsigned)(batch * heads)),
-      dim3(wide_rows(seq) / 16 * 32), wide_tc_fwd_bytes(seq), stream,
+      mhsa_short_fwd_tc_wide_kernel<D, NT>, dim3((unsigned)(batch * heads)),
+      dim3(NT * 16), wide_tc_fwd_bytes(NT), stream,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       seq, heads, scale * 1.4426950408889634f, seed, threshold, inv_keep);
 }
 
-template <int D>
+template <int D, int NT>
 int launch_bwd_tc_wide(const void* q, const void* k, const void* v,
                        const void* g, void* dq, void* dk, void* dv, int batch,
                        int seq, int heads, float scale, uint32_t seed,
                        uint32_t threshold, float inv_keep,
                        cudaStream_t stream) {
   return launch_shared(
-      mhsa_short_bwd_tc_wide_kernel<D>, dim3((unsigned)(batch * heads)),
-      dim3(wide_rows(seq) / 16 * 32), wide_tc_bwd_bytes(seq), stream,
+      mhsa_short_bwd_tc_wide_kernel<D, NT>, dim3((unsigned)(batch * heads)),
+      dim3(NT * 16), wide_tc_bwd_bytes(NT), stream,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq,
       heads, scale, scale * 1.4426950408889634f, seed, threshold, inv_keep);
+}
+
+// Calls f(D, NT) as std::integral_constant values for the wide tc
+// instantiation that takes ``seq`` keys of width ``head_dim``: NT =
+// wide_key_tiles(seq), one of 8, 10, 12, 14, 16.
+template <int D, typename F>
+int with_key_tiles(int seq, F&& f) {
+  const std::integral_constant<int, D> d;
+  switch (wide_key_tiles(seq)) {
+    case 8:
+      return f(d, std::integral_constant<int, 8>());
+    case 10:
+      return f(d, std::integral_constant<int, 10>());
+    case 12:
+      return f(d, std::integral_constant<int, 12>());
+    case 14:
+      return f(d, std::integral_constant<int, 14>());
+    default:
+      return f(d, std::integral_constant<int, 16>());
+  }
+}
+
+template <typename F>
+int with_tc_wide(int seq, int head_dim, F&& f) {
+  switch (head_dim) {
+    case 16:
+      return with_key_tiles<16>(seq, f);
+    case 32:
+      return with_key_tiles<32>(seq, f);
+    case 48:
+      return with_key_tiles<48>(seq, f);
+    default:
+      return with_key_tiles<64>(seq, f);
+  }
+}
+
+// What the runtime reports of ``kernel``, launched as blocks of ``threads``
+// with ``bytes`` of dynamic shared memory, on the current device: out[0]
+// ``tiles``, out[1] ``threads``, out[2] registers a thread, out[3]
+// ``bytes``, out[4] local memory a thread (spills among it), out[5] the
+// blocks an SM holds at once.
+template <typename Kernel>
+int kernel_info(Kernel kernel, int tiles, int threads, int bytes, int* out) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int info[] = {tiles, threads, attr.numRegs, bytes,
+                      (int)attr.localSizeBytes, blocks};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  return 0;
 }
 
 }  // namespace
@@ -1502,7 +1612,8 @@ extern "C" int mhsa_short_wide_bwd(const void* q, const void* k,
 }
 
 // The wide instantiation of the tc variant: bf16, head_dim a multiple of 16
-// up to 64, 1 <= seq <= 128, every pointer 16-byte aligned.
+// up to 64, 1 <= seq <= 128, every pointer 16-byte aligned. The kernels'
+// instantiation is picked from seq (wide_key_tiles).
 extern "C" int mhsa_short_tc_wide_fwd(const void* q, const void* k,
                                       const void* v, void* o, int batch,
                                       int seq, int heads, int head_dim,
@@ -1514,20 +1625,11 @@ extern "C" int mhsa_short_tc_wide_fwd(const void* q, const void* k,
   const DropoutArgs drop = dropout_args(rate);
   const float scale = score_scale(head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      return launch_fwd_tc_wide<16>(q, k, v, o, batch, seq, heads, scale,
-                                    seed, drop.threshold, drop.inv_keep, s);
-    case 32:
-      return launch_fwd_tc_wide<32>(q, k, v, o, batch, seq, heads, scale,
-                                    seed, drop.threshold, drop.inv_keep, s);
-    case 48:
-      return launch_fwd_tc_wide<48>(q, k, v, o, batch, seq, heads, scale,
-                                    seed, drop.threshold, drop.inv_keep, s);
-    default:
-      return launch_fwd_tc_wide<64>(q, k, v, o, batch, seq, heads, scale,
-                                    seed, drop.threshold, drop.inv_keep, s);
-  }
+  return with_tc_wide(seq, head_dim, [&](auto d, auto nt) {
+    return launch_fwd_tc_wide<decltype(d)::value, decltype(nt)::value>(
+        q, k, v, o, batch, seq, heads, scale, seed, drop.threshold,
+        drop.inv_keep, s);
+  });
 }
 
 // The wide tc backward, under the same conditions.
@@ -1543,22 +1645,27 @@ extern "C" int mhsa_short_tc_wide_bwd(const void* q, const void* k,
   const DropoutArgs drop = dropout_args(rate);
   const float scale = score_scale(head_dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      return launch_bwd_tc_wide<16>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                                    scale, seed, drop.threshold,
-                                    drop.inv_keep, s);
-    case 32:
-      return launch_bwd_tc_wide<32>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                                    scale, seed, drop.threshold,
-                                    drop.inv_keep, s);
-    case 48:
-      return launch_bwd_tc_wide<48>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                                    scale, seed, drop.threshold,
-                                    drop.inv_keep, s);
-    default:
-      return launch_bwd_tc_wide<64>(q, k, v, g, dq, dk, dv, batch, seq, heads,
-                                    scale, seed, drop.threshold,
-                                    drop.inv_keep, s);
-  }
+  return with_tc_wide(seq, head_dim, [&](auto d, auto nt) {
+    return launch_bwd_tc_wide<decltype(d)::value, decltype(nt)::value>(
+        q, k, v, g, dq, dk, dv, batch, seq, heads, scale, seed,
+        drop.threshold, drop.inv_keep, s);
+  });
+}
+
+// What the runtime reports of the wide tc kernel (the forward, or the
+// backward where ``backward`` is not 0) that the entries above launch for
+// ``seq`` keys of width ``head_dim``, on the current device; out[0..5] as
+// kernel_info fills them, out[0] the key tiles wide_key_tiles picks.
+// Launches nothing.
+extern "C" int mhsa_short_tc_wide_info(int seq, int head_dim, int backward,
+                                       int* out) {
+  if (bad_wide_shape(1, seq, 1, head_dim) || bad_tc(1, head_dim))
+    return (int)cudaErrorInvalidValue;
+  return with_tc_wide(seq, head_dim, [&](auto d, auto nt) {
+    constexpr int D = decltype(d)::value, NT = decltype(nt)::value;
+    return backward ? kernel_info(mhsa_short_bwd_tc_wide_kernel<D, NT>, NT,
+                                  NT * 16, wide_tc_bwd_bytes(NT), out)
+                    : kernel_info(mhsa_short_fwd_tc_wide_kernel<D, NT>, NT,
+                                  NT * 16, wide_tc_fwd_bytes(NT), out);
+  });
 }

@@ -3,8 +3,8 @@
 // (sm_90a): ldmatrix, mma.sync.m16n8k16 by inline PTX, fragment packing,
 // the dropout keep bits of a C fragment, cp.async, and the short-sequence
 // attention core that K1 and K6 share (the scores of 16 query rows against
-// up to 64 keys held in registers, their softmax, products with a (64, D)
-// tile).
+// 8 NT keys held in registers, NT = 8 but in K1's wide instantiation,
+// their softmax, products with a (8 NT, D) tile).
 //
 // Fragment layouts are the PTX ISA's for mma.m16n8k16 with bf16 operands:
 // lane (g = lane / 4, t = lane % 4) holds, of a 16 x 8 C tile, the
@@ -174,45 +174,65 @@ __device__ __forceinline__ void cp_async_wait() {
 // ldmatrix's eight row addresses fall on distinct banks.
 constexpr int kTcStride = 72;
 
-// s[n] += the C fragment of key tile n (keys 8n..8n+7) of A B^T, A the 16
-// rows from r0 of tile a, B the rows of tile b: lane (g = lane / 4, t =
-// lane % 4) holds s[n][e] at row r0 + g + 8 (e / 2), key 8n + 2t + e % 2.
-// Key tiles from seq on are skipped (they stay as they were).
+// The A fragments of the 16 rows from r0 of tile a (row stride kTcStride)
+// over its D columns, one per 16-column step, by ldmatrix.
 template <int D>
-__device__ __forceinline__ void row_products(const __nv_bfloat16* a,
-                                             const __nv_bfloat16* b, int r0,
-                                             int lane, int seq,
-                                             float (&s)[8][4]) {
-  uint32_t frag[D / 16][4];
+__device__ __forceinline__ void a_fragments(const __nv_bfloat16* a, int r0,
+                                            int lane,
+                                            uint32_t (&frag)[D / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     ldsm_x4(a + (r0 + (lane & 15)) * kTcStride + kk * 16 + (lane >> 4) * 8,
             frag[kk]);
+}
+
+// s0 += the C fragment of key tile n (keys 8n..8n+7, n even) of A B^T and
+// s1 += that of key tile n + 1, A given by its fragments, B the rows of
+// tile b.
+template <int D>
+__device__ __forceinline__ void pair_products(const uint32_t (&frag)[D / 16][4],
+                                              const __nv_bfloat16* b, int n,
+                                              int lane, float (&s0)[4],
+                                              float (&s1)[4]) {
 #pragma unroll
-  for (int n = 0; n < 8; n += 2) {
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t bf[4];
+    ldsm_x4(b + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
+                kk * 16 + ((lane >> 3) & 1) * 8,
+            bf);
+    mma_bf16(s0, frag[kk], bf[0], bf[1]);
+    mma_bf16(s1, frag[kk], bf[2], bf[3]);
+  }
+}
+
+// s[n] += the C fragment of key tile n (keys 8n..8n+7, n < NT) of A B^T, A
+// the 16 rows from r0 of tile a, B the rows of tile b: lane (g = lane / 4,
+// t = lane % 4) holds s[n][e] at row r0 + g + 8 (e / 2), key 8n + 2t + e %
+// 2. Key tiles from seq on are skipped (they stay as they were).
+template <int D, int NT>
+__device__ __forceinline__ void row_products(const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b, int r0,
+                                             int lane, int seq,
+                                             float (&s)[NT][4]) {
+  uint32_t frag[D / 16][4];
+  a_fragments<D>(a, r0, lane, frag);
+#pragma unroll
+  for (int n = 0; n < NT; n += 2) {
     if (8 * n >= seq) break;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t bf[4];
-      ldsm_x4(b + (8 * n + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
-                  kk * 16 + ((lane >> 3) & 1) * 8,
-              bf);
-      mma_bf16(s[n], frag[kk], bf[0], bf[1]);
-      mma_bf16(s[n + 1], frag[kk], bf[2], bf[3]);
-    }
+    pair_products<D>(frag, b, n, lane, s[n], s[n + 1]);
   }
 }
 
 // acc[n] += the C fragment of output tile n (columns 8n..8n+7) of P X for
 // the warp's 16 rows: p[kk] the A fragment of P's keys 16kk..16kk+15, X
-// the (64, D) tile x read transposed by ldmatrix. Key steps from seq on are
-// skipped.
-template <int D>
-__device__ __forceinline__ void times_tile(uint32_t (&p)[4][4],
+// the (16 KS, D) tile x read transposed by ldmatrix. Key steps from seq on
+// are skipped.
+template <int D, int KS>
+__device__ __forceinline__ void times_tile(uint32_t (&p)[KS][4],
                                            const __nv_bfloat16* x, int lane,
                                            int seq, float (&acc)[D / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     if (16 * kk >= seq) break;
 #pragma unroll
     for (int n = 0; n < D / 8; n += 2) {
@@ -227,14 +247,15 @@ __device__ __forceinline__ void times_tile(uint32_t (&p)[4][4],
   }
 }
 
-// The row softmax of the scores s (C layout, unscaled) in place: the
-// weights in f32, key columns from seq on masked to weight 0.
-__device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
+// The row softmax of the scores s (C layout, unscaled; NT key tiles) in
+// place: the weights in f32, key columns from seq on masked to weight 0.
+template <int NT>
+__device__ __forceinline__ void softmax_rows(float (&s)[NT][4], int lane,
                                              int seq, float scale_log2) {
   const int t = lane & 3;
   float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (8 * n + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
@@ -250,7 +271,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
   }
   float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       // exp(scale * (s - max)): the scale is positive, so the row's max of
@@ -268,7 +289,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[8][4], int lane,
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] *= e < 2 ? inv0 : inv1;
 }

@@ -308,9 +308,12 @@ def _signatures():
     # pass each Python int as a 32-bit int and cut the pointer. After the
     # tensors: B, T, H, D, the dtype code, the seed, the dropout rate.
     tail = [i32] * 5 + [u32, f64, ptr]
-    return {prefix + name: (i32, [ptr] * tensors + tail)
-            for prefix in VARIANTS.values()
-            for name, tensors in (("fwd", 4), ("bwd", 7))}
+    entries = {prefix + name: (i32, [ptr] * tensors + tail)
+               for prefix in VARIANTS.values()
+               for name, tensors in (("fwd", 4), ("bwd", 7))}
+    # T, D, the backward (0 or 1), the six ints it fills.
+    entries["mhsa_short_tc_wide_info"] = (i32, [i32, i32, i32, ptr])
+    return entries
 
 
 def load_library():
@@ -328,3 +331,30 @@ def load_library():
                           getattr(lib, prefix + "bwd"))
                 for variant, prefix in VARIANTS.items()}
     return _entries
+
+
+WIDE_INFO = ("key_tiles", "threads", "registers", "shared_bytes",
+             "local_bytes", "blocks_per_sm")
+
+
+def wide_tc_info(seq: int, head_dim: int, backward: bool,
+                 device_index: int = 0) -> dict:
+    """What the CUDA runtime reports, on device ``device_index``, of the
+    wide tc kernel (the forward, or the backward) that the C entries launch
+    for ``seq`` keys of width ``head_dim``: the 8-key tiles of the
+    instantiation they pick from ``seq``, threads a block, registers a
+    thread, dynamic shared bytes a block, local bytes a thread (spills
+    among them), and the blocks an SM holds at once (``WIDE_INFO``, with
+    ``warps_per_sm`` their product over 32). Launches nothing."""
+    if _entries is None:
+        load_library()                  # binds the entry's argument types
+    out = (ctypes.c_int * len(WIDE_INFO))()
+    err = build.on_device(build.load("mhsa_short").mhsa_short_tc_wide_info,
+                          device_index, seq, head_dim, int(backward),
+                          ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"mhsa_short_tc_wide_info(T={seq}, D={head_dim})"
+                           f": CUDA error {err}")
+    info = dict(zip(WIDE_INFO, out))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info
