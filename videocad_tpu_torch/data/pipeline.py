@@ -29,6 +29,7 @@ import torch
 from videocad_tpu_torch.data.collate import (DEFAULT_BUCKETS, check_rows,
                                              collate)
 from videocad_tpu_torch.data.dataset import VideoCADDataset
+from videocad_tpu_torch.utils.trace import span
 
 
 class ShardedSampler:
@@ -96,9 +97,10 @@ class DataPipeline:
     def __len__(self) -> int:
         return self.sampler.num_batches()
 
-    def _assemble(self, indices) -> Dict[str, np.ndarray]:
-        return collate([self.dataset[int(i)] for i in indices],
-                       self.buckets, self.fixed_length)
+    def _assemble(self, indices, ordinal: int) -> Dict[str, np.ndarray]:
+        with span("data.assemble", ordinal):
+            return collate([self.dataset[int(i)] for i in indices],
+                           self.buckets, self.fixed_length)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         """Yield this epoch's batches, assembled ahead by a worker pool.
@@ -113,13 +115,23 @@ class DataPipeline:
         ex = ThreadPoolExecutor(max_workers=self.num_workers,
                                 thread_name_prefix="vc-assemble")
         pending: deque = deque()
+        taken = 0
+
+        def take():
+            nonlocal taken
+            with span("data.wait", taken):
+                batch = pending.popleft().result()
+            taken += 1
+            return batch
+
         try:
-            for indices in self.sampler.epoch_batches(epoch):
-                pending.append(ex.submit(self._assemble, indices))
+            for ordinal, indices in enumerate(
+                    self.sampler.epoch_batches(epoch)):
+                pending.append(ex.submit(self._assemble, indices, ordinal))
                 if len(pending) >= in_flight:
-                    yield pending.popleft().result()
+                    yield take()
             while pending:
-                yield pending.popleft().result()
+                yield take()
         finally:
             for fut in pending:
                 fut.cancel()
@@ -142,16 +154,18 @@ def device_prefetch(batches: Iterable[Dict], device="cpu",
     """
     device = torch.device(device)
     if device.type != "cuda":
-        for batch in batches:
-            yield {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-                   for k, v in batch.items()}
+        for ordinal, batch in enumerate(batches):
+            with span("data.copy", ordinal):
+                out = {k: torch.from_numpy(v) if isinstance(v, np.ndarray)
+                       else v for k, v in batch.items()}
+            yield out
         return
 
     copy_stream = torch.cuda.Stream(device)
 
-    def put(batch):
+    def put(batch, ordinal):
         out = {}
-        with torch.cuda.stream(copy_stream):
+        with span("data.copy", ordinal), torch.cuda.stream(copy_stream):
             for k, v in batch.items():
                 if isinstance(v, np.ndarray):
                     out[k] = torch.from_numpy(v).pin_memory().to(
@@ -174,8 +188,8 @@ def device_prefetch(batches: Iterable[Dict], device="cpu",
         return out
 
     in_flight: deque = deque()
-    for batch in batches:
-        in_flight.append(put(batch))
+    for ordinal, batch in enumerate(batches):
+        in_flight.append(put(batch, ordinal))
         if len(in_flight) >= size:
             yield hand_over(in_flight.popleft())
     while in_flight:

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from videocad_tpu_torch.parallel.collectives import all_reduce
+from videocad_tpu_torch.utils.trace import span
 
 MAX_GRAD_NORM = 1.0
 
@@ -74,13 +75,15 @@ class TrainState:
         """``optax.chain(clip_by_global_norm(1.0), adam)`` over the
         gradients that ``backward`` left on the parameters: the clip sees
         every parameter's gradient, Adam those of the groups it holds."""
-        named = [(k, p.grad) for k, p in self.params.items()
-                 if p.grad is not None]
-        if named:
-            clip_by_global_norm_([g for _, g in named],
-                                 split=[k in self.split for k, _ in named],
-                                 model_group=self.model_group)
-        self.opt_state.step()
+        with span("step.optimizer", self.step):
+            named = [(k, p.grad) for k, p in self.params.items()
+                     if p.grad is not None]
+            if named:
+                clip_by_global_norm_([g for _, g in named],
+                                     split=[k in self.split
+                                            for k, _ in named],
+                                     model_group=self.model_group)
+            self.opt_state.step()
         return dataclasses.replace(self, step=self.step + 1)
 
 

@@ -39,6 +39,7 @@ from videocad_tpu_torch.parallel.collectives import sum_gradients_hook
 from videocad_tpu_torch.train.objective import (LossConfig,
                                                 compute_loss_and_metrics)
 from videocad_tpu_torch.train.state import TrainState
+from videocad_tpu_torch.utils.trace import span
 
 
 def add_action_noise(actions: torch.Tensor, seed: int,
@@ -114,6 +115,10 @@ def make_train_step(model, loss_config: LossConfig, noise: bool = False,
         else mesh.model_rank
 
     def train_step(state: TrainState, batch, seed: int):
+        with span("step", state.step):
+            return _step(state, batch, seed)
+
+    def _step(state: TrainState, batch, seed: int):
         step_seed = fold_in(seed, state.step)
         device = model.device
         if noise:
@@ -125,18 +130,19 @@ def make_train_step(model, loss_config: LossConfig, noise: bool = False,
         if mesh is not None and mesh.data_size > 1:
             dropout_seed = fold_in(dropout_seed, mesh.data_rank)
         rng = DropoutRng(dropout_seed, device, model_rank)
-        model_inputs, targets = prepare_model_inputs(batch)
-        was_training = model.training
-        model.train()
-        try:
-            cmd_logits, param_logits = forward(model_inputs, rng=rng)
-        finally:
-            model.train(was_training)
-        loss, metrics = compute_loss_and_metrics(cmd_logits, param_logits,
-                                                 targets, loss_config,
-                                                 data_group)
-        model.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("step.forward", state.step):
+            model_inputs, targets = prepare_model_inputs(batch)
+            was_training = model.training
+            model.train()
+            try:
+                cmd_logits, param_logits = forward(model_inputs, rng=rng)
+            finally:
+                model.train(was_training)
+            loss, metrics = compute_loss_and_metrics(
+                cmd_logits, param_logits, targets, loss_config, data_group)
+        with span("step.backward", state.step):
+            model.zero_grad(set_to_none=True)
+            loss.backward()
         return state.apply_gradients(), loss.detach(), metrics
 
     return train_step

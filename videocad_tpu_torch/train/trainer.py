@@ -45,6 +45,7 @@ from videocad_tpu_torch.train.preempt import PreemptionGuard
 from videocad_tpu_torch.train.state import create_sharded_train_state
 from videocad_tpu_torch.train.steps import (make_eval_step, make_train_step,
                                             prepare_model_inputs)
+from videocad_tpu_torch.utils import trace
 
 
 def _array_batch(batch: Dict) -> Dict:
@@ -291,7 +292,10 @@ class Trainer:
     def _profiler(self, epoch: int):
         """A started ``torch.profiler`` over a wait / warm-up / active
         window of the epoch's steps, or None. An epoch shorter than the
-        schedule is traced whole."""
+        schedule is traced whole. The program's spans
+        (``utils/trace.py``, whatever it held before is dropped) are
+        recorded while it runs; those inside the profiled steps join
+        ``trace.json`` on its time base, under the process ``spans``."""
         wait = int(self.config.get("profile_wait", 5))
         warmup = int(self.config.get("profile_warmup", 5))
         active = int(self.config.get("profile_active", 15))
@@ -307,13 +311,32 @@ class Trainer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
 
         def ready(prof):
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            trace.disable()
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            steps = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("ProfilerStep#")
+                     and e.device_type() == torch.autograd.DeviceType.CPU]
+            spans = trace.drain()
+            if steps:
+                lo, hi = min(s[0] for s in steps), max(s[1] for s in steps)
+                spans = [s for s in spans
+                         if s.start_ns >= lo and s.end_ns <= hi]
+            with open(path) as f:
+                doc = json.load(f)
+            doc["traceEvents"].extend(trace.chrome_events(
+                spans, doc.get("baseTimeNanoseconds", 0)))
+            with open(path, "w") as f:
+                json.dump(doc, f)
             self.log(f"Profiler trace ({active} steps) saved to {trace_dir}")
 
         prof = torch.profiler.profile(
             activities=activities, on_trace_ready=ready,
             schedule=torch.profiler.schedule(wait=wait, warmup=warmup,
                                              active=active, repeat=1))
+        trace.drain()
+        trace.enable()
         prof.start()
         return prof
 
@@ -364,6 +387,8 @@ class Trainer:
         finally:
             if prof is not None:
                 prof.stop()
+                trace.disable()     # if the window never completed
+                trace.drain()
         if num_batches == 0:
             return 0.0, init_metrics()
         return self._snapshot(loss_sum, num_batches, counters)
