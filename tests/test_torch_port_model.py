@@ -151,6 +151,26 @@ def test_sequential_inference_matches_jax_step_for_step(wiring, action):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("window,seq_len,action", [
+    (10, 5, True),     # T below the window: the window clamps to T
+    (10, 5, False),
+    (3, 7, False),     # no action fed back past the window
+])
+def test_sequential_inference_short_horizon_and_no_feedback_match_jax(
+        window, seq_len, action):
+    jax_model, params, model = _pair(dict(window_size=window), seed=17)
+    frames = _u8((2, seq_len, 32, 32, 3), seed=18)
+    cad = _u8((2, 32, 32, 3), seed=19)
+    expected = jax_rollout(jax_model, params, jnp.asarray(frames),
+                           jnp.asarray(cad), action=action)
+    got = sequential_inference(model, torch.from_numpy(frames),
+                               torch.from_numpy(cad), action=action)
+    for g, e in zip(got, expected):
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=0)
+
+
 ROLLOUT_CFGS = {
     # decode loop: the views' stream in the memory
     "multiview": (dict(num_views=2), True),

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from videocad_tpu_torch.actions.vocab import ACT_DIM
-from videocad_tpu_torch.infer.rollout import (_dense, _kv_write,
+from videocad_tpu_torch.infer.rollout import (_dense, _kv_write, _slots,
                                               cast_decode_tree, decode_step,
                                               kv_caches, next_actions)
 
@@ -90,13 +90,14 @@ def advance(model: nn.Module, params: Dict, frames: torch.Tensor,
     seq_len = carry["self_kv"][0][0].shape[1]
     rows = frames.shape[0]
     mem_t = model.encode_memory_step(frames, t, carry["cad_stream"]).to(dtype)
+    slots = _slots(t, seq_len)
     for i in range(cfg.num_decoder_layers):
         ca = params["decoder"][f"layers_{i}"]["cross_attn"]
         k_cache, v_cache = carry["mem_kv"][i]
         _kv_write(k_cache, _dense(ca["key"], mem_t).to(dtype).reshape(
-            rows, cfg.nhead, -1), t, valid)
+            rows, cfg.nhead, -1), slots, valid)
         _kv_write(v_cache, _dense(ca["value"], mem_t).to(dtype).reshape(
-            rows, cfg.nhead, -1), t, valid)
+            rows, cfg.nhead, -1), slots, valid)
 
     x = torch.tanh(_dense(cast_decode_tree(params["embed_action"], dtype),
                           carry["action"].to(dtype)) + model._timestep(t))
