@@ -10,8 +10,21 @@ cell gives it:
   benchmark/workloads/<cell>.json     config, mode, parameters, and the
                                       limits of the numbers compared
   benchmark/modes/<mode>.py           run(ctx) -> the mode's raw result
+  benchmark/families/<family>.py      what a training mode takes from the
+                                      model: program, weights, reference,
+                                      work a step (videocadformer.py says)
   benchmark/metrics/<metric>.py       read(data) -> value or None
   benchmark/kernels/<kernel>.py       kernel names, per-call work
+
+A configuration file holds ``source``, ``model`` (the keys as run),
+``family`` (absent: ``videocadformer``), ``assumed`` (sizes the source
+does not give) and ``reduced``: the keys of ``model`` changed from the
+source, equal to the configuration's ``reduced`` in ``BENCHMARK.json``.
+Each key in ``reduced`` has its published value under ``published``
+(``{"num_hidden_layers": 27}`` beside ``model``'s 13 held), and
+``deployment`` says what the cut stands for (the chips that share a
+layer). A cell's ``chips`` is 1 or 4, equal in its file and in
+``BENCHMARK.json``.
 """
 
 from __future__ import annotations
@@ -84,6 +97,7 @@ class Context:
     trace: bool
     device: Any
     t_start: float                       # process start, perf_counter
+    family: str = "videocadformer"       # benchmark/families/<family>.py
     window_start: Optional[float] = None
     marks: List = dataclasses.field(default_factory=list)
 
@@ -122,7 +136,8 @@ def make_context(cell: str, seed: int, seconds: float, trace: bool, device,
     params = dict(wl["params"], **overrides.get("params", {}))
     limits = dict(wl.get("limits", {}), **overrides.get("limits", {}))
     return Context(cell, model_cfg, params, limits, seed, seconds, trace,
-                   device, t_start)
+                   device, t_start,
+                   family=config.get("family", "videocadformer"))
 
 
 def run_cell(ctx: Context, spec: Dict) -> Dict:

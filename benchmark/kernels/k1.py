@@ -6,7 +6,8 @@ the three once and writes the output once, and needs the two products
 (4 B H T^2 D FLOPs); the backward reads q, k, v and the output's gradient
 and writes three gradients, and needs four products (8 B H T^2 D; the
 recomputed scores are not counted). The bound of a call is the larger of
-its bytes over the HBM rate and its FLOPs over the bf16 peak.
+its bytes over the HBM rate and its FLOPs over the bf16 peak. Which calls
+a train step makes is its model family's (``k1_calls``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import re
 from typing import Dict, List, Tuple
 
 from benchmark.flops import H100_BF16_FLOPS, H100_HBM_BYTES_S
-from benchmark.reference.model import sizes
 
 NAME = re.compile(r"mhsa_short")
 
@@ -28,25 +28,10 @@ def call_bound_s(batch: int, t: int, heads: int, head_dim: int,
     return max(nbytes / H100_HBM_BYTES_S, flops / H100_BF16_FLOPS)
 
 
-def train_step_calls(cfg: Dict, batch: int, t: int
-                     ) -> List[Tuple[int, int, bool]]:
-    """(frames, tokens, backward) of every K1 call of one train step: each
-    ViT block of the state encoder (B * T frames) and of the CAD encoder
-    (B images), forward and backward."""
-    s = sizes(cfg)
-    tokens = (s["image"] // s["patch"]) ** 2 + 1
-    cad_tokens = (256 // s["patch"]) ** 2 + 1 if s["gencad"] else tokens
-    calls = []
-    for frames, n in ((batch * t, tokens), (batch, cad_tokens)):
-        for _ in range(s["vit_depth"]):
-            calls += [(frames, n, False), (frames, n, True)]
-    return calls
-
-
-def train_step_bound_s(cfg: Dict, batch: int, t: int) -> float:
-    s = sizes(cfg)
-    return sum(call_bound_s(frames, n, s["vit_heads"], s["vit_head_dim"], bwd)
-               for frames, n, bwd in train_step_calls(cfg, batch, t))
+def calls_bound_s(calls: List[Tuple[int, int, int, int, bool]]) -> float:
+    """The summed bound of (frames, tokens, heads, head_dim, backward)
+    calls: a family's ``k1_calls`` of a train step."""
+    return sum(call_bound_s(*call) for call in calls)
 
 
 def device_seconds(by_name: Dict[str, float]) -> float:

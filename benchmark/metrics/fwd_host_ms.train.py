@@ -1,0 +1,11 @@
+"""Host time of the train step's forward (the model inputs, the forward,
+the loss), in ms a step: the summed seconds of the port's
+``step.forward`` spans inside the traced span over the steps they cover
+(their distinct keys; ``benchmark/spans.py:mean_ms``). The recorder is
+on only there."""
+
+from benchmark import spans
+
+
+def read(data):
+    return spans.mean_ms(data.get("trace"), "step.forward")

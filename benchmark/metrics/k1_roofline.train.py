@@ -8,7 +8,7 @@ from benchmark.kernels import k1
 
 def read(data):
     trace = data.get("trace")
-    if not trace or not trace["units"]:
+    if not trace or not trace["units"] or "k1_bound_per_step" not in data:
         return None
     spent = k1.device_seconds(trace["device_s_by_name"])
     if spent <= 0:

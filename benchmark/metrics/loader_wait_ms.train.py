@@ -1,6 +1,7 @@
 """Time the train loop waits for its next batch, in ms a step: the
-benchmark's span around each ``next()`` of the device-prefetch iterator
-over the window, averaged over the window's steps."""
+benchmark's own host-clock timer around each ``next()`` of the
+device-prefetch iterator over the untraced part of the window, averaged
+over its steps."""
 
 
 def read(data):

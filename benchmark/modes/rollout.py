@@ -13,6 +13,10 @@ command's and each parameter's, every step. Afterwards the reference runs
 the judged calls teacher-forced on the actions the rollout fed back (the
 masked argmaxes): the first call of the window and others drawn from the
 seed.
+
+The rollout is VideoCADFormer's alone: it builds the port's model and the
+reference itself and takes no family (``benchmark/families/``), since no
+configuration of another family needs a rollout cell yet.
 """
 
 from __future__ import annotations

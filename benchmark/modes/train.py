@@ -6,6 +6,7 @@ Parameters: ``batch`` rows of ``seq_len`` positions (the bucket), all real;
 in turn; ``lr``; ``warmup_steps`` after the three checked steps;
 ``trace_seconds`` of the window under the tracer.
 
+The model is the configuration's family's (``benchmark/families/``).
 Set-up builds the model, its Adam state and the step once and drives them
 through the first three steps (on three different batches) and the
 warm-up; the window then runs the same step on the same object until
@@ -20,9 +21,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import flops, synthetic, training
-from benchmark.harness import Context
-from benchmark.kernels import k1
+from benchmark import synthetic, training
+from benchmark.harness import Context, load_module
 from benchmark.trace import Tracer
 
 
@@ -47,10 +47,11 @@ def make_batches(ctx: Context):
 
 def run(ctx: Context) -> dict:
     p = ctx.params
-    weights = training.weights_for(ctx)
+    fam = load_module("families", ctx.family)
+    weights = fam.make_weights(ctx)
     batches, real = make_batches(ctx)
     ctx.mark("weights and batches")
-    model, state, step = training.build_program(ctx, weights)
+    model, state, step = fam.build_program(ctx, weights)
     readings = training.ProgramReadings(weights)
     ctx.mark("model and optimizer")
     n = len(batches)
@@ -97,7 +98,7 @@ def run(ctx: Context) -> dict:
     del model, state, step
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = training.compare(ctx, readings, batches, weights)
+    numbers = training.compare(ctx, fam, readings, batches, weights)
     seq = p["seq_len"] - 1
     return {
         "attempted": steps, "failed": 0, "memory_peak_bytes": peak,
@@ -106,10 +107,7 @@ def run(ctx: Context) -> dict:
         "data": {"window_s": window, "steps": steps,
                  "rate_window_s": t_end - rate_from[0],
                  "rate_steps": done - rate_from[1],
-                 "flops_per_step": flops.train_step_flops(
-                     ctx.model_cfg, p["batch"], seq),
-                 "k1_bound_per_step": k1.train_step_bound_s(
-                     ctx.model_cfg, p["batch"], seq),
+                 **training.step_work(fam, ctx.model_cfg, p["batch"], seq),
                  "trace": tracer.summary()},
         "numbers": numbers,
     }

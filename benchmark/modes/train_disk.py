@@ -2,7 +2,7 @@
 the window: ``data/pipeline.py:DataPipeline.epoch`` over
 ``data/dataset.py:VideoCADDataset`` (the port's defaults: two assembly
 threads, shuffled, the default buckets) -> ``device_prefetch(size=2)`` ->
-the train step.
+the train step of the configuration's family (``benchmark/families/``).
 
 Parameters: ``batch``; the store (``benchmark/store.py``): ``sequences``,
 ``aliases``, ``min_len``, ``max_len``; ``buckets`` (the loader's); ``lr``;
@@ -11,7 +11,8 @@ Parameters: ``batch``; the store (``benchmark/store.py``): ``sequences``,
 Set-up writes the store under ``TMPDIR`` and drives the first three steps
 and the warm-up through the same iterator the window then continues (the
 next epoch follows if one ends). ``loader_wait_ms.train`` is the
-benchmark's span around each ``next()`` of the device-prefetch iterator.
+benchmark's own timer around each ``next()`` of the device-prefetch
+iterator, in the untraced part of the window.
 After the window the reference reads the three checked batches' sequences
 from the store itself and compares them with what the data layer
 delivered, trains its three steps on its own reading, and checks every
@@ -28,8 +29,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import flops, store, training
-from benchmark.harness import Context
+from benchmark import store, training
+from benchmark.harness import Context, load_module
 from benchmark.trace import Tracer
 
 
@@ -54,8 +55,9 @@ def _run(ctx: Context, root: str) -> dict:
     size = ctx.model_cfg.get("image_size", 224)
     owner = store.write(root, p, ctx.seed, size)
     ctx.mark("store written")
-    weights = training.weights_for(ctx)
-    model, state, step = training.build_program(ctx, weights)
+    fam = load_module("families", ctx.family)
+    weights = fam.make_weights(ctx)
+    model, state, step = fam.build_program(ctx, weights)
     ctx.mark("weights, model and optimizer")
     readings = training.ProgramReadings(weights)
     pipe = DataPipeline(VideoCADDataset(root, image_size=size,
@@ -127,6 +129,8 @@ def _run(ctx: Context, root: str) -> dict:
     # What the window trained on: the real frames of each batch it took.
     frames = sum(lengths[owner[i]] - 1 for row in ids[start_done:done]
                  for i in row)
+    rate_frames = sum(lengths[owner[i]] - 1
+                      for row in ids[rate_from[1]:done] for i in row)
     numbers = check_batches(ctx, root, owner, ids, sums, checked, sequences)
     reference = [{k: torch.from_numpy(v).to(ctx.device) for k, v in
                   store.batch(root, [owner[i] for i in ids[k]],
@@ -135,7 +139,7 @@ def _run(ctx: Context, root: str) -> dict:
                  for k in range(3)]
     for b in reference:
         b["actions"] = b["actions"].float()
-    numbers.update(training.compare(ctx, readings, reference, weights))
+    numbers.update(training.compare(ctx, fam, readings, reference, weights))
     bucket = _bucket(p["max_len"], p["buckets"])
     return {
         "attempted": done - start_done, "failed": 0,
@@ -145,9 +149,10 @@ def _run(ctx: Context, root: str) -> dict:
         "data": {"window_s": window, "steps": done - start_done,
                  "rate_window_s": t_end - rate_from[0],
                  "rate_steps": done - rate_from[1],
+                 "rate_frames": rate_frames,
                  "loader_wait_s": waits,
-                 "flops_per_step": flops.train_step_flops(
-                     ctx.model_cfg, p["batch"], bucket - 1),
+                 **training.step_work(fam, ctx.model_cfg, p["batch"],
+                                      bucket - 1),
                  "trace": tracer.summary()},
         "numbers": numbers,
     }

@@ -11,7 +11,7 @@ weighted by its command's weight. Padded steps (-1) count nowhere.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -70,13 +70,17 @@ def loss_fn(cmd_logits: torch.Tensor, param_logits: torch.Tensor,
 class Trainer:
     """The reference's parameters and Adam moments, stepped like the
     program's train step (the same seed rule for dropout);
-    ``low_precision``: every product in fp8 (``model.LowPrecision``)."""
+    ``low_precision``: every product in fp8 (``model.LowPrecision``).
+    ``forward`` is a model's plain forward with ``model.forward``'s
+    signature (another family's reference; it takes or ignores ``drop``)."""
 
     def __init__(self, cfg: Dict, weights: Dict[str, torch.Tensor],
-                 lr: float, low_precision: bool = False):
+                 lr: float, low_precision: bool = False,
+                 forward: Callable = ref_model.forward):
         self.cfg = cfg
         self.lr = lr
         self.low_precision = low_precision
+        self.forward = forward
         self.params = {k: v.detach().clone().float().requires_grad_(True)
                        for k, v in weights.items()}
         self.m = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -94,7 +98,7 @@ class Trainer:
         actions = batch["actions"]
         params = (ref_model.LowPrecision(self.params) if self.low_precision
                   else self.params)
-        cmd, par = ref_model.forward(
+        cmd, par = self.forward(
             params, self.cfg, batch["frames"][:, :-1],
             normalize(actions)[:, :-1], batch["cad_image"], drop)
         loss = loss_fn(cmd, par, actions[:, 1:])

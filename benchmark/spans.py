@@ -8,20 +8,24 @@ module gives:
 
 - :func:`span_totals`: by name, the count and summed seconds of the spans
   that lie inside the window;
+- :func:`span_units`: by name, the units of work those spans cover (their
+  distinct keys: train steps, batches), what a per-unit mean divides by;
+- :func:`mean_ms`: a span's milliseconds a unit in a traced window's
+  summary, what the span readers (``benchmark/metrics/``) report;
 - :func:`idle_by_span`: the window's device idle seconds, split by the
   innermost span of one thread (the main thread: workers' spans run beside
   it and do not say what the host that launches work is doing) open over
   each stretch of idle time. The split is by overlap, not by the span open
   at a gap's start; idle time under no span goes under ``"outside"``.
 
-A span is any object with ``name``, ``start_ns``, ``end_ns`` and
+A span is any object with ``name``, ``key``, ``start_ns``, ``end_ns`` and
 ``thread``; nothing here imports the port, so a checkout whose port records
 no spans reads empty totals and all its idle time ``"outside"``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 OUTSIDE = "outside"
 
@@ -36,6 +40,23 @@ def span_totals(spans, lo_ns: int, hi_ns: int) -> Dict[str, Dict]:
             c["count"] += 1
             c["s"] += (s.end_ns - s.start_ns) * 1e-9
     return out
+
+
+def span_units(spans, lo_ns: int, hi_ns: int) -> Dict[str, int]:
+    """{name: number of distinct keys} of the spans inside [lo_ns, hi_ns]."""
+    keys: Dict[str, set] = {}
+    for s in spans:
+        if s.start_ns >= lo_ns and s.end_ns <= hi_ns:
+            keys.setdefault(s.name, set()).add(s.key)
+    return {name: len(k) for name, k in keys.items()}
+
+
+def mean_ms(trace: Optional[Dict], name: str) -> Optional[float]:
+    """Milliseconds of span ``name`` a unit of work in a traced window's
+    summary (``trace.Tracer.summary``), or None where it has none."""
+    if not trace or not trace.get("span_units", {}).get(name):
+        return None
+    return 1e3 * trace["spans"][name]["s"] / trace["span_units"][name]
 
 
 def innermost_stretches(spans: Sequence[Tuple[str, float, float]]

@@ -1,5 +1,6 @@
-"""What the training cells share: the program's model and train step built
-from the benchmark's weights, the readings taken from the program during
+"""What the training cells share: the model family a cell's configuration
+names (``benchmark/families/<family>.py``: the program, its weights, its
+reference and its work a step), the readings taken from the program during
 its first steps, and their comparison with the reference's steps.
 
 The numbers compared (each the worst case over what it covers):
@@ -22,28 +23,20 @@ from typing import Dict, List
 import torch
 
 from benchmark.harness import Context
-from benchmark.reference import model as ref_model
-from benchmark.reference.train import B1, Trainer
+from benchmark.kernels import k1
+from benchmark.reference.train import B1
 
 SMALL_GRAD = 1e-3
 
 
-def build_program(ctx: Context, weights: Dict[str, torch.Tensor]):
-    """The port's model with ``weights`` loaded, its train state and step."""
-    from videocad_tpu_torch.models.videocadformer import (
-        VideoCADFormer, VideoCADFormerConfig)
-    from videocad_tpu_torch.train import (REFERENCE_CMD_WEIGHTS, LossConfig,
-                                          create_train_state,
-                                          make_train_step)
-
-    model = VideoCADFormer(VideoCADFormerConfig.from_json(ctx.model_cfg),
-                           device=ctx.device)
-    model.load_state_dict(weights, strict=True)
-    state = create_train_state(dict(model.named_parameters()),
-                               {"lr": ctx.params["lr"]})
-    step = make_train_step(model, LossConfig(REFERENCE_CMD_WEIGHTS),
-                           noise=False)
-    return model, state, step
+def step_work(fam, cfg: Dict, batch: int, t: int) -> Dict[str, float]:
+    """The model FLOPs of a train step over (B, T) inputs and, where the
+    family calls K1, the least time its calls take."""
+    out = {"flops_per_step": fam.train_step_flops(cfg, batch, t)}
+    calls = fam.k1_calls(cfg, batch, t)
+    if calls:
+        out["k1_bound_per_step"] = k1.calls_bound_s(calls)
+    return out
 
 
 class ProgramReadings:
@@ -82,14 +75,13 @@ def leaf_gaps(program: torch.Tensor, reference: torch.Tensor,
     return (program - reference).abs() / torch.maximum(reference, floor)
 
 
-def reference_readings(ctx: Context, batches: List[Dict],
+def reference_readings(ctx: Context, fam, batches: List[Dict],
                        weights: Dict[str, torch.Tensor], names: List[str],
                        low_precision: bool = False):
-    """The reference's three steps on ``batches``: each loss, the first
-    clipped gradient's norm and each leaf's change, by leaf; in fp8 with
-    ``low_precision`` (the control)."""
-    trainer = Trainer(ctx.model_cfg, weights, ctx.params["lr"],
-                      low_precision)
+    """The family's reference's three steps on ``batches``: each loss, the
+    first clipped gradient's norm and each leaf's change, by leaf; in fp8
+    with ``low_precision`` (the control)."""
+    trainer = fam.reference_trainer(ctx, weights, low_precision)
     losses, grads = [], None
     for batch in batches[:3]:
         loss, norms = trainer.step(batch, ctx.seed)
@@ -103,8 +95,9 @@ def reference_readings(ctx: Context, batches: List[Dict],
     return losses, grads, updates
 
 
-def compare(ctx: Context, readings: ProgramReadings, batches: List[Dict],
-            weights: Dict[str, torch.Tensor]) -> Dict[str, float]:
+def compare(ctx: Context, fam, readings: ProgramReadings,
+            batches: List[Dict], weights: Dict[str, torch.Tensor]
+            ) -> Dict[str, float]:
     """Run the reference's first three steps on ``batches``; the numbers
     that compare the program with it (with the cell's ``control`` set to
     "fp8_reference", the reference computed in fp8 takes the program's
@@ -112,10 +105,11 @@ def compare(ctx: Context, readings: ProgramReadings, batches: List[Dict],
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     names = readings.names
-    losses, grads, updates = reference_readings(ctx, batches, weights, names)
+    losses, grads, updates = reference_readings(ctx, fam, batches, weights,
+                                                names)
     if ctx.params.get("control") == "fp8_reference":
         got_losses, got_grads, got_updates = reference_readings(
-            ctx, batches, weights, names, low_precision=True)
+            ctx, fam, batches, weights, names, low_precision=True)
     else:
         got_losses = [float(x) for x in readings.losses[:3]]
         got_grads = readings.grad_norms.to(grads.device)
@@ -129,6 +123,3 @@ def compare(ctx: Context, readings: ProgramReadings, batches: List[Dict],
             "grad_gap_median": float(grad_gaps.median()),
             "update_gap": float(update_gaps.max())}
 
-
-def weights_for(ctx: Context) -> Dict[str, torch.Tensor]:
-    return ref_model.make_weights(ctx.model_cfg, ctx.seed, ctx.device)
